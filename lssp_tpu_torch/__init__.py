@@ -1,0 +1,28 @@
+"""lssp_tpu_torch — the sparse linear solvers of ``lssp_tpu``, ported to
+PyTorch and CUDA for NVIDIA Hopper.
+
+The JAX package ``lssp_tpu`` is the reference; this package imports
+neither it nor JAX.  The solve path runs on CPU tensors through plain
+PyTorch and on CUDA tensors through two hand-written kernels: the DIA
+stencil SpMV (``ops/dia_spmv.py``, K1) and the Neumann ILU sweep
+(``ops/neumann.py``, K2).
+
+    >>> import torch, lssp_tpu_torch as lt
+    >>> A = lt.sparse.laplacian_3d(64)              # host CSR
+    >>> b = torch.ones(A.shape[0], dtype=torch.float64, device="cuda")
+    >>> x, info = lt.solve_ir(A, b, method="cg", pc="ilu0")
+"""
+
+from lssp_tpu_torch import ops, pc, solvers, sparse
+from lssp_tpu_torch.config import Defaults, PCOptions, SolverOptions
+from lssp_tpu_torch.solvers import SolveInfo, Solver, prepare_ir, solve, solve_ir
+from lssp_tpu_torch.sparse import COO, CSR, DIA, ELL
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "sparse", "ops", "solvers", "pc",
+    "SolverOptions", "PCOptions", "Defaults",
+    "solve", "solve_ir", "prepare_ir", "Solver", "SolveInfo",
+    "COO", "CSR", "DIA", "ELL",
+]

@@ -1,0 +1,130 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled on first use with ``nvcc -gencode
+arch=compute_90a,code=sm_90a`` into ``lssp_tpu_torch/_build/libkernels.so``
+(a plain C interface, loaded with ctypes), under a lock, and rebuilt when a
+source is newer than the library.  Nothing here runs at import time: the
+CPU never needs the library, because CPU tensors take each kernel's plain
+PyTorch version.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD_DIR = os.path.join(_PKG, "_build")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libkernels.so")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None     # wall seconds of this process's build, None if cached
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def nvcc_path() -> str:
+    """The nvcc binary: on PATH, else under PyTorch's CUDA_HOME."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (PATH or CUDA_HOME): the CUDA kernels "
+                       "cannot be built")
+
+
+def _build() -> None:
+    global build_seconds
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, _LIB_PATH)       # atomic: a concurrent loader sees old or new
+    build_seconds = time.perf_counter() - t0
+
+
+def _stale() -> bool:
+    if not os.path.exists(_LIB_PATH):
+        return True
+    built = os.path.getmtime(_LIB_PATH)
+    return any(os.path.getmtime(s) > built for s in _sources())
+
+
+def load():
+    """The kernel library, built on first use."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if _stale():
+            _build()
+        lib = ctypes.CDLL(_LIB_PATH)
+        p, i64, i32, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
+        for suf in ("f32", "f64"):
+            fn = getattr(lib, f"lssp_dia_spmv_{suf}")
+            fn.argtypes = [p, p, i32, i64, i64, p, f64, f64, p, p, p]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"lssp_neumann_sweep_{suf}")
+            fn.argtypes = [p, p, i32, i64, p, p, p, p, p, p, p, p]
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return _lib
+
+
+SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
+    ``shape``)."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got "
+                         f"{getattr(t, 'device', type(t))}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def kernel_dtype(name: str, t: torch.Tensor):
+    """The kernel entry suffix for ``t``'s dtype; raises on other dtypes."""
+    if t.dtype not in SUFFIX:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or float64, "
+                        f"got {t.dtype}")
+    return SUFFIX[t.dtype]
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def check_status(name: str, status: int) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {status}")

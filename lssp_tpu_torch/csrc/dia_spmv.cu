@@ -1,0 +1,88 @@
+// K1: DIA (stencil) SpMV with a fused axpby epilogue, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel lssp_tpu/ops/pallas_spmv.py: _dia_spmv_pallas
+// (prepadded=False; entries dia_spmv_pallas and _vmap_safe_kernel), which
+// computes y = scale * sum_d data[d, i] * x[i + off_d].
+//
+//   y[i] = alpha * sum_d data[d, i] * x[i + off_d]  (+ beta * z[i] when z)
+//
+// alpha = 1, no z: spmv.  alpha = a, no z: mv_amxy (the scale folded into
+// the epilogue, as the Pallas kernel does).  z = y: mv_amxpby.
+//
+// Bound: device-memory bandwidth.  Per row it moves ndiag data values, one
+// x value (the neighbouring diagonals hit the same x lines in L1/L2), one y
+// write, and one z read when z is given: (ndiag + 2) * sizeof(T) bytes, an
+// arithmetic intensity of about 2 flops per 8-16 bytes.  The design does
+// the one thing that matters at that intensity: every load is coalesced.
+// One thread owns one row; diagonal d is read as data[d * n + i], so the 32
+// threads of a warp read 32 consecutive values of each diagonal, and x is
+// read at i + off_d, again consecutive across the warp.  The offsets (a
+// few int32) stay in the read-only cache.
+//
+// The Pallas kernel never bounds-checks, because it reads x from a
+// zero-margined VMEM window.  Here x is read in place, so every read is
+// guarded by 0 <= i + off_d < ncols: the stored data slot is 0 there, but
+// x[i + off_d] would be an illegal address.
+//
+// Later work: a shared-memory x window with its halo, 16-byte vector
+// loads, and the k-rhs SpMM form.
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <typename T>
+__global__ void dia_spmv_kernel(const T* __restrict__ data,
+                                const int32_t* __restrict__ offsets, int ndiag,
+                                int64_t n, int64_t ncols,
+                                const T* __restrict__ x, T alpha, T beta,
+                                const T* __restrict__ z, T* __restrict__ y) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  T acc = T(0);
+  for (int d = 0; d < ndiag; ++d) {
+    const int64_t j = i + __ldg(offsets + d);
+    if (j >= 0 && j < ncols) acc += data[static_cast<int64_t>(d) * n + i] * x[j];
+  }
+  T out = alpha * acc;
+  if (z != nullptr) out += beta * z[i];
+  y[i] = out;
+}
+
+template <typename T>
+int launch(const void* data, const void* offsets, int ndiag, int64_t n,
+           int64_t ncols, const void* x, double alpha, double beta,
+           const void* z, void* y, void* stream) {
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  dia_spmv_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(data), static_cast<const int32_t*>(offsets), ndiag,
+      n, ncols, static_cast<const T*>(x), static_cast<T>(alpha),
+      static_cast<T>(beta), static_cast<const T*>(z), static_cast<T*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// data: (ndiag, n) row-major; offsets: (ndiag,) int32; x: (ncols,);
+// z: (n,) or null; y: (n,).  All on the device.  Returns cudaGetLastError().
+int lssp_dia_spmv_f32(const void* data, const void* offsets, int ndiag,
+                      int64_t n, int64_t ncols, const void* x, double alpha,
+                      double beta, const void* z, void* y, void* stream) {
+  return launch<float>(data, offsets, ndiag, n, ncols, x, alpha, beta, z, y, stream);
+}
+
+int lssp_dia_spmv_f64(const void* data, const void* offsets, int ndiag,
+                      int64_t n, int64_t ncols, const void* x, double alpha,
+                      double beta, const void* z, void* y, void* stream) {
+  return launch<double>(data, offsets, ndiag, n, ncols, x, alpha, beta, z, y, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,85 @@
+"""Preconditioner protocol and registry.
+
+A ``Preconditioner`` is an apply function plus its device state; calling
+``M(r)`` applies M⁻¹, the contract every Krylov solver uses (reference
+LSSP_PC_SOLVE).  ``setup`` builds one from a host CSR matrix on a given
+device (reference lssp_pc_assemble, pc.cxx:81-239).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from lssp_tpu_torch.config import Defaults, PCOptions
+from lssp_tpu_torch.sparse.utils import diagonal
+
+
+@dataclasses.dataclass(frozen=True)
+class Preconditioner:
+    """``M(r)`` applies M⁻¹; ``M.t(r)`` applies M⁻ᵀ where installed."""
+
+    apply_fn: Callable      # (state, r) -> z
+    state: Any
+    name: str = "user"
+    apply_t_fn: Any = None  # (state, r) -> M⁻ᵀr, or None
+
+    def __call__(self, r):
+        return self.apply_fn(self.state, r)
+
+    def t(self, r):
+        """Apply M⁻ᵀ.  Raises when the PC has none: substituting M⁻¹ would
+        corrupt two-sided recurrences."""
+        if self.apply_t_fn is None:
+            raise ValueError(f"preconditioner {self.name!r} has no transpose apply")
+        return self.apply_t_fn(self.state, r)
+
+
+PC_REGISTRY = {}
+
+
+def register_pc(name):
+    def deco(fn):
+        PC_REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def setup(A, pc_type: str = "none", opts: PCOptions = None, device="cpu") -> Preconditioner:
+    """Assemble a preconditioner for the host CSR matrix ``A`` with its
+    state on ``device``."""
+    opts = (opts or PCOptions()).resolved()
+    key = (pc_type or "none").lower()
+    if key not in PC_REGISTRY:
+        raise ValueError(f"unknown preconditioner {pc_type!r}; "
+                         f"available: {sorted(PC_REGISTRY)}")
+    return PC_REGISTRY[key](A, opts, torch.device(device))
+
+
+def _identity_apply(state, r):
+    return r
+
+
+@register_pc("none")
+def _setup_none(A, opts, device):
+    """solve = copy (reference pc.cxx:67-79)."""
+    return Preconditioner(_identity_apply, state=(), name="none",
+                          apply_t_fn=_identity_apply)
+
+
+def _jacobi_apply(state, r):
+    return state * r
+
+
+@register_pc("jacobi")
+def _setup_jacobi(A, opts, device):
+    """Diagonal scaling z = D⁻¹r; near-zero diagonals clamped like the
+    reference's ILU pivot guard (pc-iluk.cxx:367-374)."""
+    d = diagonal(A).copy()
+    small = np.abs(d) < Defaults.ZERO_DIAG_TOL
+    d[small] = np.where(d[small] > 0, Defaults.ZERO_DIAG_VALUE, -Defaults.ZERO_DIAG_VALUE)
+    inv = torch.from_numpy((opts.omega / d).astype(A.data.dtype)).to(device)
+    return Preconditioner(_jacobi_apply, state=inv, name="jacobi",
+                          apply_t_fn=_jacobi_apply)

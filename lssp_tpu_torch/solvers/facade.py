@@ -1,0 +1,243 @@
+"""Public solve API: the one-shot ``solve()`` and the ``Solver`` lifecycle
+(the reference's create → assemble → solve protocol, lssp.h:44-53).
+Assembly converts the matrix to its execution format on the device and
+builds the preconditioner once; repeated solves reuse both.
+"""
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+from lssp_tpu_torch import pc as pc_mod
+from lssp_tpu_torch.config import PCOptions, SolverOptions
+from lssp_tpu_torch.solvers.registry import get_solver
+from lssp_tpu_torch.sparse.convert import coo_to_csr, to_device_format
+from lssp_tpu_torch.sparse.types import COO, CSR, DIA, ELL, numpy_dtype
+from lssp_tpu_torch.sparse.utils import sort_columns
+
+
+def validate_system(A, b, method: str):
+    """The reference's assemble-time checks (square operator, matching rhs
+    length; lssp.cxx:147-160).  Returns b as a tensor, cast to float64 when
+    it is not floating point."""
+    shape = getattr(A, "shape", None)
+    if shape is not None and len(shape) == 2 and shape[0] != shape[1]:
+        raise ValueError(f"method={method!r} needs a SQUARE matrix, got {shape}")
+    if b is None:
+        return None
+    b = torch.as_tensor(b)
+    if b.ndim != 1:
+        raise ValueError(f"rhs must be 1-D, got shape {tuple(b.shape)}")
+    if shape is not None and b.shape[0] != shape[0]:
+        raise ValueError(f"rhs length {b.shape[0]} does not match the matrix "
+                         f"rows {shape[0]}")
+    if not b.is_floating_point():
+        b = b.to(torch.float64)
+    return b
+
+
+def _fingerprint(A):
+    """crc32 over a host container's value and structure buffers, so any
+    in-place mutation invalidates what was prepared from it.  None for
+    containers without host buffers (never matches)."""
+    try:
+        parts = []
+        for name in ("data", "indices", "indptr", "row", "col"):
+            buf = getattr(A, name, None)
+            if buf is not None:
+                a = np.ascontiguousarray(np.asarray(buf))
+                parts.append((a.shape, a.dtype.str, zlib.crc32(a)))
+        return tuple(parts)
+    except (TypeError, ValueError):
+        return None
+
+
+def _memo(A):
+    """The per-container cache dict ``A._prepared_cache``, validated against
+    A's current fingerprint (cleared when the content changed).  A fresh
+    throwaway dict for containers that take no attributes."""
+    fp = _fingerprint(A)
+    cache = getattr(A, "_prepared_cache", None)
+    if cache is None:
+        cache = {}
+        try:
+            object.__setattr__(A, "_prepared_cache", cache)
+        except (AttributeError, TypeError):
+            return {}
+    if fp is None or cache.get("fp") != fp:
+        cache.clear()
+        cache["fp"] = fp
+    return cache
+
+
+def _resolve_device(device, b):
+    if device is not None:
+        return torch.device(device)
+    return b.device if isinstance(b, torch.Tensor) else torch.device("cpu")
+
+
+def _prepare_matrix(A, reorder="auto", device="cpu"):
+    """Host CSR (or COO) → execution format on ``device``, memoized on the
+    container.  Returns (host CSR or None, device format, the container's
+    memo dict, validated once per call).  Execution containers move to
+    ``device``; callables pass through.
+
+    ``reorder``: "auto" and None keep the ordering (the JAX package reorders
+    only on the TPU); "rcm" is not carried yet."""
+    if reorder == "rcm":
+        raise NotImplementedError("reorder='rcm' needs sparse/reorder.py, not ported "
+                                  "yet (ROADMAP A2)")
+    if reorder not in ("auto", None):
+        raise ValueError(f"unknown reorder {reorder!r}")
+    device = torch.device(device)
+    if isinstance(A, (DIA, ELL)):
+        return None, A.to(device), {}
+    if not isinstance(A, (CSR, COO)):
+        return None, A, {}
+    cache = _memo(A)
+    key = ("prepared", str(device))
+    if key not in cache:
+        host = sort_columns(coo_to_csr(A) if isinstance(A, COO) else A)
+        cache[key] = (host, to_device_format(host, device=device))
+    return cache[key] + (cache,)
+
+
+def _system_dtype(A_dev, b):
+    """The dtype a solve runs in: b's, promoted with the matrix's."""
+    if isinstance(A_dev, (DIA, ELL)):
+        return torch.promote_types(A_dev.dtype, b.dtype)
+    return b.dtype
+
+
+def _setup_pc(A_host, pc, pc_options, dtype, device):
+    """The preconditioner, built from the host matrix in the solve dtype."""
+    if A_host is None:
+        raise ValueError("preconditioner setup needs a host CSR matrix; "
+                         "pass M= explicitly for operator inputs")
+    if A_host.dtype != numpy_dtype(dtype):
+        A_host = A_host.astype(numpy_dtype(dtype))
+    return pc_mod.setup(A_host, pc, pc_options, device=device)
+
+
+def _as_system(A_dev, b, x0, dtype, device):
+    """The matrix, b and x0 on ``device`` in ``dtype``."""
+    if isinstance(A_dev, (DIA, ELL)) and A_dev.dtype != dtype:
+        A_dev = A_dev.to(dtype=dtype)
+    b = b.to(device=device, dtype=dtype)
+    x0 = (torch.zeros_like(b) if x0 is None
+          else torch.as_tensor(x0).to(device=device, dtype=dtype))
+    return A_dev, b, x0
+
+
+def solve(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
+          options: Optional[SolverOptions] = None,
+          pc_options: Optional[PCOptions] = None, M=None, reorder: str = "auto",
+          device=None):
+    """Solve A x = b.  Returns ``(x, SolveInfo)``.
+
+    ``A``: host CSR/COO (converted to DIA/ELL on ``device``), an execution
+    container, or a callable ``x ↦ A@x``.  ``pc``: a registry name, or ``M``
+    a prebuilt Preconditioner or callable.  ``device``: where the solve
+    runs; None means b's device (the CPU for a non-tensor b).  The solve
+    runs in b's dtype promoted with the matrix's."""
+    opts = (options or SolverOptions()).resolved()
+    device = _resolve_device(device, b)
+    b = validate_system(A, b, method)
+    A_host, A_dev, _ = _prepare_matrix(A, reorder=reorder, device=device)
+    dtype = _system_dtype(A_dev, b)
+    if M is None and pc not in (None, "none"):
+        M = _setup_pc(A_host, pc, pc_options, dtype, device)
+    A_dev, b, x0 = _as_system(A_dev, b, x0, dtype, device)
+    return get_solver(method)(A_dev, b, x0, M, opts=opts)
+
+
+class Solver:
+    """Lifecycle API with the reference's setters (lssp.cxx:416-535)."""
+
+    def __init__(self, method: str = "gmres", pc: Optional[str] = "none",
+                 options: Optional[SolverOptions] = None,
+                 pc_options: Optional[PCOptions] = None, device="cpu"):
+        self.method = method
+        self.pc_type = pc
+        self.options = options or SolverOptions()
+        self.pc_options = pc_options or PCOptions()
+        self.device = torch.device(device)
+        self.A_host = None
+        self.A_dev = None
+        self.M = None
+        self.b = None
+        self.x = None
+        self.info = None
+        self.dtype = None
+        self.assembled = False
+
+    def _set(self, **kw):
+        self.options = dataclasses.replace(self.options, **kw)
+        return self
+
+    # -- setters (lssp_solver_set_*, reference lssp.h:65-89) --
+    def set_rtol(self, v):    return self._set(rtol=v)
+    def set_atol(self, v):    return self._set(atol=v)
+    def set_rbtol(self, v):   return self._set(rbtol=v)
+    def set_maxit(self, v):   return self._set(maxit=v)
+    def set_restart(self, v): return self._set(restart=v)
+    def set_augk(self, v):    return self._set(aug_k=v)
+    def set_bgsl(self, v):    return self._set(bgsl=v)
+    def set_idrs(self, v):    return self._set(idrs=v)
+
+    def assemble(self, A, b=None, x0=None, reorder: str = "auto"):
+        """Convert the matrix and build the PC (reference
+        lssp_solver_assemble → lssp_pc_assemble)."""
+        b = validate_system(A, b, self.method)
+        self.A_host, self.A_dev, _ = _prepare_matrix(A, reorder=reorder, device=self.device)
+        # the system dtype is fixed here: the matrix's, promoted with b's
+        self.dtype = (_system_dtype(self.A_dev, b) if b is not None
+                      else getattr(self.A_dev, "dtype", torch.float64))
+        if self.pc_type not in (None, "none"):
+            self.M = _setup_pc(self.A_host, self.pc_type, self.pc_options,
+                               self.dtype, self.device)
+        if b is not None:
+            self.b = b
+        if x0 is not None:
+            self.x = torch.as_tensor(x0)
+        self.assembled = True
+        return self
+
+    def reset_rhs(self, b):
+        """New rhs, keep the factorization (reference lssp_solver_reset_rhs)."""
+        self.b = validate_system(self.A_dev, b, self.method)
+        return self
+
+    def reset_unknown(self, x0):
+        """New initial guess (reference lssp_solver_reset_unknown)."""
+        self.x = torch.as_tensor(x0)
+        return self
+
+    def solve(self, b=None, x0=None):
+        if not self.assembled:
+            raise RuntimeError("call assemble() first")
+        if b is not None:
+            self.reset_rhs(b)
+        if x0 is not None:
+            self.reset_unknown(x0)
+        if self.b is None:
+            raise ValueError("no right-hand side: pass b to assemble(), "
+                             "reset_rhs() or solve()")
+        A_dev, b, x0 = _as_system(self.A_dev, self.b, self.x, self.dtype, self.device)
+        x, info = get_solver(self.method)(A_dev, b, x0, self.M,
+                                          opts=self.options.resolved())
+        self.x, self.info = x, info
+        return x
+
+    # -- getters (lssp_solver_get_residual/_nits, reference lssp.cxx:520-528) --
+    @property
+    def residual(self):
+        return None if self.info is None else float(self.info.residual)
+
+    @property
+    def nits(self):
+        return None if self.info is None else int(self.info.nits)

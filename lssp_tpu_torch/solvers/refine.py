@@ -1,0 +1,128 @@
+"""Mixed-precision iterative refinement (Krylov-IR):
+
+    repeat:  r = b − A·x          (fp64 SpMV)
+             d ≈ A⁻¹ r            (fp32 Krylov solve, fp32 preconditioner)
+             x = x + d            (fp64 accumulation)
+
+The inner solve only needs a few digits (inner_rtol 1e-3 by default), so
+the hot loop runs in fp32 and the fp64 outer loop recovers the rest.  The
+same policy as ``lssp_tpu/solvers/refine.py``; its fused device program
+(``_fused_ir``) is a Python loop here.
+"""
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+from lssp_tpu_torch import pc as pc_mod
+from lssp_tpu_torch.config import PCOptions, SolverOptions
+from lssp_tpu_torch.ops.spmv import spmv
+from lssp_tpu_torch.solvers.base import SolveInfo, norm
+from lssp_tpu_torch.solvers.facade import (
+    _prepare_matrix, _resolve_device, validate_system,
+)
+from lssp_tpu_torch.solvers.registry import get_solver
+from lssp_tpu_torch.sparse.types import numpy_dtype
+
+
+def _pc_options_key(pc_options):
+    """Cache key for a PCOptions: array-valued fields hash their full
+    bytes (a repr would summarize large arrays)."""
+    if pc_options is None:
+        return None
+    parts = []
+    for f in dataclasses.fields(pc_options):
+        v = getattr(pc_options, f.name)
+        if (hasattr(v, "__array__") or isinstance(v, (list, tuple))) \
+                and not isinstance(v, str):
+            a = np.asarray(v)
+            parts.append((f.name, a.shape, str(a.dtype), zlib.crc32(np.ascontiguousarray(a))))
+        else:
+            parts.append((f.name, repr(v)))
+    return tuple(parts)
+
+
+def prepare_ir(A, method: str = "gmres", pc: Optional[str] = "none",
+               pc_options: Optional[PCOptions] = None, inner_dtype=torch.float32,
+               reorder: str = "auto", device="cpu"):
+    """Setup phase of ``solve_ir`` alone: convert and upload the matrix in
+    both precisions and build the inner-precision preconditioner, memoized
+    on the container so a following ``solve_ir`` finds everything cached.
+    Returns (A_host, A64, A32, M32)."""
+    device = torch.device(device)
+    A_host, A_dev, cache = _prepare_matrix(A, reorder=reorder, device=device)
+    if A_host is None:
+        raise ValueError("solve_ir needs a host CSR or COO matrix")
+    mat_key = ("ir-mat", str(inner_dtype), str(device))
+    if mat_key not in cache:
+        cache[mat_key] = (A_dev.to(dtype=torch.float64), A_dev.to(dtype=inner_dtype))
+    A64, A32 = cache[mat_key]
+    pc_key = ("ir-pc", mat_key, pc, _pc_options_key(pc_options))
+    if pc_key not in cache:
+        M32 = None
+        if pc not in (None, "none"):
+            M32 = pc_mod.setup(A_host.astype(numpy_dtype(inner_dtype)), pc, pc_options,
+                               device=device)
+        cache[pc_key] = M32
+    return A_host, A64, A32, cache[pc_key]
+
+
+def _inner_plan(method, opts, inner_rtol):
+    """The fp32-inner policy: the inner solver and its options.
+
+    The inner cap bounds a round that stalls on the fp32 floor just above
+    inner_rtol (the outer loop collects the progress either way): 2 restart
+    cycles for GMRES, 200 iterations otherwise.  Inner GMRES is the
+    right-preconditioned variant, whose Givens estimate does not stall on
+    the fp32 floor the left variant hits with strong preconditioners."""
+    key = method.lower()
+    inner_cap = max(2 * opts.restart, 64) if key in ("gmres", "rgmres") else 200
+    inner_opts = dataclasses.replace(opts, rtol=inner_rtol, atol=0.0, rbtol=0.0,
+                                     maxit=min(opts.maxit, inner_cap))
+    return get_solver({"gmres": "rgmres"}.get(key, key)), inner_opts
+
+
+def solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
+             options: Optional[SolverOptions] = None,
+             pc_options: Optional[PCOptions] = None, inner_rtol: float = 1e-3,
+             max_outer: int = 20, inner_dtype=torch.float32, reorder: str = "auto",
+             device=None):
+    """Solve to fp64 accuracy with inner solves in ``inner_dtype``.
+
+    ``A``: host CSR/COO.  ``device``: where the solve runs (None: b's
+    device).  Returns (x fp64, SolveInfo) where nits counts the total inner
+    iterations and the residual is the true fp64 residual."""
+    opts = (options or SolverOptions()).resolved()
+    device = _resolve_device(device, b)
+    b = validate_system(A, b, method)
+    _, A64, A32, M32 = prepare_ir(A, method=method, pc=pc, pc_options=pc_options,
+                                  inner_dtype=inner_dtype, reorder=reorder,
+                                  device=device)
+    b = b.to(device=device, dtype=torch.float64)
+    x = (torch.zeros_like(b) if x0 is None
+         else torch.as_tensor(x0).to(device=device, dtype=torch.float64))
+    bnorm = norm(b).item()
+    tol = max(opts.rtol * bnorm, opts.atol)
+    fn, inner_opts = _inner_plan(method, opts, inner_rtol)
+
+    r = b - spmv(A64, x)
+    res = r0 = norm(r).item()
+    total_inner = outer = 0
+    while res > tol and outer < max_outer:
+        scale = res if res != 0.0 else 1.0
+        r32 = (r / scale).to(inner_dtype)
+        d32, info = fn(A32, r32, torch.zeros_like(r32), M32, opts=inner_opts)
+        x = x + d32.to(torch.float64) * scale
+        r = b - spmv(A64, x)
+        res = norm(r).item()
+        total_inner += info.nits
+        outer += 1
+        if opts.verbosity >= 1:
+            print(f"ir outer: {outer:3d}, inner its: {info.nits:4d}, true res: "
+                  f"{res:.6e}, rel res: {res / max(r0, np.finfo(np.float64).tiny):.6e}")
+    return x, SolveInfo(nits=total_inner, residual=res, converged=res <= tol,
+                        r0norm=r0, bnorm=bnorm, history=None)

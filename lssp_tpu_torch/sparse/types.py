@@ -1,0 +1,142 @@
+"""Sparse-matrix containers: frozen dataclasses, no pytree registration.
+
+Host containers (``COO``, ``CSR``) hold numpy arrays and serve assembly,
+conversion and factorization.  Execution containers (``DIA``, ``ELL``) hold
+torch tensors and move with ``.to(device)``; ``CSR.to(device)`` gives a CSR
+of tensors for the gather SpMV.  Layouts match ``lssp_tpu/sparse/types.py``
+so that state carries across as numpy arrays (see ``interop.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a numpy dtype (or of anything np.dtype accepts)."""
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a torch dtype."""
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class COO:
+    """Triplet format (reference lssp_mat_coo).  Duplicate (row, col)
+    entries are summed on conversion to CSR."""
+
+    row: Any            # (nnz,) int32
+    col: Any            # (nnz,) int32
+    data: Any           # (nnz,) float
+    shape: Tuple[int, int]
+
+
+@dataclasses.dataclass(frozen=True)
+class CSR:
+    """Compressed sparse row (reference lssp_mat_csr).  ``indptr``:
+    (nrows+1,), ``indices``: (nnz,), ``data``: (nnz,); column indices are
+    kept sorted within each row.  numpy on the host; ``.to(device)`` gives
+    int64-indexed tensors for the gather SpMV."""
+
+    indptr: Any
+    indices: Any
+    data: Any
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    def todense(self) -> np.ndarray:
+        return self.to_scipy().toarray()
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+        return sp.csr_matrix((np.asarray(self.data), np.asarray(self.indices),
+                              np.asarray(self.indptr)), shape=self.shape)
+
+    @staticmethod
+    def from_scipy(m) -> "CSR":
+        m = m.tocsr()
+        return CSR(indptr=m.indptr.astype(np.int32),
+                   indices=m.indices.astype(np.int32),
+                   data=m.data, shape=tuple(m.shape))
+
+    def astype(self, dtype) -> "CSR":
+        return dataclasses.replace(self, data=np.asarray(self.data).astype(dtype))
+
+    def to(self, device, dtype=None) -> "CSR":
+        """Upload as tensors (int64 indices, the native torch index type)."""
+        data = torch.as_tensor(np.asarray(self.data), device=device)
+        return CSR(torch.as_tensor(np.asarray(self.indptr, np.int64), device=device),
+                   torch.as_tensor(np.asarray(self.indices, np.int64), device=device),
+                   data if dtype is None else data.to(dtype), self.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class ELL:
+    """Padded ELLPACK: ``cols`` (nrows, k) int64, padded entries point at
+    column 0; ``data`` (nrows, k), padded entries 0 — so a gather + row
+    sum computes A@x with no mask."""
+
+    cols: Any
+    data: Any
+    shape: Tuple[int, int]
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    def to(self, device=None, dtype=None) -> "ELL":
+        return ELL(self.cols.to(device), self.data.to(device=device, dtype=dtype),
+                   self.shape)
+
+    def todense(self) -> np.ndarray:
+        n, k = self.data.shape
+        out = np.zeros(self.shape, dtype=self.data.cpu().numpy().dtype)
+        rows = np.repeat(np.arange(n), k)
+        np.add.at(out, (rows, self.cols.cpu().numpy().ravel()),
+                  self.data.cpu().numpy().ravel())
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class DIA:
+    """Diagonal storage, the stencil execution format: ``data[d, i] =
+    A[i, i + offsets[d]]`` (row-aligned), out-of-range slots stored as 0.
+    ``offsets_t`` is the offsets as a small int32 tensor on ``data``'s
+    device, built once and cached on the container for the SpMV kernel."""
+
+    offsets: Tuple[int, ...]
+    data: Any                   # (ndiag, nrows) tensor
+    shape: Tuple[int, int]
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @functools.cached_property
+    def offsets_t(self) -> torch.Tensor:
+        return torch.tensor(self.offsets, dtype=torch.int32, device=self.data.device)
+
+    def to(self, device=None, dtype=None) -> "DIA":
+        return DIA(self.offsets, self.data.to(device=device, dtype=dtype), self.shape)
+
+    def todense(self) -> np.ndarray:
+        n, m = self.shape
+        dat = self.data.cpu().numpy()
+        out = np.zeros(self.shape, dtype=dat.dtype)
+        for d, off in enumerate(self.offsets):
+            i = np.arange(max(0, -off), min(n, m - off))
+            out[i, i + off] = dat[d, i]
+        return out
