@@ -14,7 +14,20 @@ non-zero without the final result line):
    3-D Poisson 64³, with every kernel launch counter reset just before;
 5. the same solve on 128³;
 6. the reference example (GMRES(60) + ILU(1), 2-D Laplacian N=100) through
-   the Solver lifecycle in fp64.
+   the Solver lifecycle in fp64;
+7. K3 (HYB SpMV) against its plain PyTorch version: the HYB matrix of
+   ``bench.py`` (2-D Laplacian 2048² plus n//200 strays of 0.01), the
+   vendored coupled3d_25, and a 1021² case whose n is not a multiple of
+   the block, in fp32 and fp64, for (alpha, beta) = (1, 0), (0.25, 0) and
+   (1, 1) with z;
+8. the HYB path: solve_ir, BiCGSTAB + ILU(0), on the 3-D Laplacian 128³
+   with the same stray recipe, every kernel launch counter reset just
+   before; then K3 and K2 checked against their plain versions on that
+   solve's own fp32 matrix and preconditioner plan, and K3 timed there;
+9. the acceptance config bicgstab_iluk_coupled3d_mtx (read from
+   benchmarks/matrices, HYB), K3 and K2 checked likewise after it;
+10. the acceptance config gmres30_ilut_convdiff_mtx (DIA), K1 and K2
+   checked likewise after it.
 
 Kernel times are given twice: ``ms`` is device time per call, from CUDA
 events around the replay of a CUDA graph that holds back-to-back calls, so
@@ -23,8 +36,8 @@ the time per call of the same calls issued from Python, which at the main
 path's shapes is bound by that host cost.
 
 The line before the last is a JSON object with one entry per kernel, at
-the shape the main path gives it; the last line is
-``{"ok": true, "device": {...}}``.
+the shape its path gives it (K1 and K2 from phase 4, K3 from phase 8); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -220,28 +233,34 @@ def true_relres(A, x, np):
     return float(np.linalg.norm(b - A.to_scipy() @ x.cpu().numpy()) / np.linalg.norm(b))
 
 
-def ir_solve(lt, torch, dev, A):
-    """CG + ILU(0) through solve_ir: setup, then two solves (cold, warm)."""
-    opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=2000)
-    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+def timed_ir(lt, torch, dev, A, method, pc, opts):
+    """solve_ir with b = 1: prepare_ir (setup), then two solves (cold,
+    warm).  Returns (prepare_ir's tuple, x, info, setup s, [cold s, warm s])."""
     t0 = time.perf_counter()
-    lt.prepare_ir(A, method="cg", pc="ilu0", device=dev)
+    prep = lt.prepare_ir(A, method=method, pc=pc, device=dev)
     setup_s = time.perf_counter() - t0
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
     runs = []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        x, info = lt.solve_ir(A, b, method="cg", pc="ilu0", options=opts)
+        x, info = lt.solve_ir(A, b, method=method, pc=pc, options=opts)
         torch.cuda.synchronize()
         runs.append(time.perf_counter() - t0)
-    return x, info, setup_s, runs
+    return prep, x, info, setup_s, runs
+
+
+def ir_cg_ilu0(lt, torch, dev, A):
+    """CG + ILU(0) through solve_ir to relres 1e-8 (phases 4 and 5)."""
+    opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=2000)
+    return timed_ir(lt, torch, dev, A, "cg", "ilu0", opts)[1:]
 
 
 def phase_main(lt, np, torch, dev, counters):
     A = lt.sparse.laplacian_3d(64)
     for fn in counters:
         fn.launches = 0
-    x, info, setup_s, runs = ir_solve(lt, torch, dev, A)
+    x, info, setup_s, runs = ir_cg_ilu0(lt, torch, dev, A)
     launches = {fn.__name__: fn.launches for fn in counters}
     rr = true_relres(A, x, np)
     print(f"main 64^3 solve_ir cg+ilu0: inner its {info.nits}, true relres {rr:.3e}, "
@@ -256,7 +275,7 @@ def phase_main(lt, np, torch, dev, counters):
 
 def phase_128(lt, np, torch, dev):
     A = lt.sparse.laplacian_3d(128)
-    x, info, setup_s, runs = ir_solve(lt, torch, dev, A)
+    x, info, setup_s, runs = ir_cg_ilu0(lt, torch, dev, A)
     rr = true_relres(A, x, np)
     print(f"main 128^3 solve_ir cg+ilu0: inner its {info.nits}, true relres {rr:.3e}, "
           f"setup {setup_s:.3f} s, solve cold {runs[0]:.3f} s, warm {runs[1]:.3f} s")
@@ -280,6 +299,167 @@ def phase_exam(lt, np, torch, dev):
     check(ver <= 2 * 8.18e-6, f"exam: verification residual {ver:.3e} > {2 * 8.18e-6:.3e}")
 
 
+def strayed_grid(lt, np, N, grid, dtype, seed=5):
+    """``bench.py``'s HYB matrix recipe: the 2-D (or 3-D) Laplacian plus
+    max(n//200, 8) entries of 0.01 at rows and columns drawn from
+    default_rng(seed), summed into A (nonsymmetric)."""
+    import scipy.sparse as sp
+    gen = {"2d": lt.sparse.laplacian_2d, "3d": lt.sparse.laplacian_3d}[grid]
+    S = gen(N, dtype=dtype).to_scipy().tocoo()
+    n = S.shape[0]
+    rng = np.random.default_rng(seed)
+    n_extra = max(n // 200, 8)
+    r, c = rng.integers(0, n, n_extra), rng.integers(0, n, n_extra)
+    E = sp.coo_matrix((np.full(n_extra, 0.01, dtype), (r, c)), shape=S.shape)
+    return lt.CSR.from_scipy((S + E).tocsr())
+
+
+def hyb_gbps(H, itemsize, ms):
+    """GB/s under (ndiag·n + 2n)·itemsize + nnz_rem·(itemsize + 8)."""
+    n = H.shape[0]
+    nbytes = (len(H.dia.offsets) * n + 2 * n) * itemsize + H.nnz_rem * (itemsize + 8)
+    return nbytes / (ms * 1e-3) / 1e9
+
+
+def check_k3(torch, H, x, z, tol, name):
+    """K3 against its plain version for the three epilogues; returns the
+    (max rel err, max abs err) over them."""
+    from lssp_tpu_torch.ops.hyb_spmv import hyb_spmv, hyb_spmv_plain
+    worst = (0.0, 0.0)
+    for alpha, beta, zz in ((1.0, 0.0, None), (0.25, 0.0, None), (1.0, 1.0, z)):
+        y = hyb_spmv(H, x, alpha=alpha, beta=beta, z=zz)
+        ref = hyb_spmv_plain(H, x, alpha, beta, zz)
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(y, ref), (y - ref).abs().max().item()
+        check(bool(torch.isfinite(y).all()), f"K3 {name}: non-finite output")
+        check(err <= tol, f"K3 {name} alpha {alpha} beta {beta}: max rel err {err:.3e} "
+              f"> {tol:.0e}")
+        worst = (max(worst[0], err), max(worst[1], abs_err))
+    return worst
+
+
+def phase_k3(lt, np, torch, dev, card):
+    from lssp_tpu_torch.ops.hyb_spmv import hyb_spmv, hyb_spmv_plain
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12}
+    rng = np.random.default_rng(2)
+    mtx = os.path.join(HERE, "benchmarks", "matrices", "coupled3d_25.mtx.gz")
+    cases = [("bench laplacian_2d(2048)+strays",
+              lambda dt: strayed_grid(lt, np, 2048, "2d", dt)),
+             ("coupled3d_25", lambda dt: lt.sparse.read_matrix_market(mtx).astype(dt)),
+             ("laplacian_2d(1021)+strays", lambda dt: strayed_grid(lt, np, 1021, "2d", dt))]
+    for name, build in cases:
+        for dtype in (torch.float32, torch.float64):
+            A = build({torch.float32: np.float32, torch.float64: np.float64}[dtype])
+            t0 = time.perf_counter()
+            H = lt.sparse.csr_to_hyb(A, device=dev)
+            hyb_s = time.perf_counter() - t0
+            n = A.shape[0]
+            x = torch.from_numpy(rng.uniform(-1, 1, n)).to(device=dev, dtype=dtype)
+            z = torch.from_numpy(rng.uniform(-1, 1, n)).to(device=dev, dtype=dtype)
+            err, abs_err = check_k3(torch, H, x, z, tol[dtype], name)
+            t = timings(lambda: hyb_spmv(H, x), lambda: hyb_spmv_plain(H, x))
+            print(f"K3 {name} n={n} ndiag={len(H.dia.offsets)} nnz_rem={H.nnz_rem} "
+                  f"{str(dtype)[6:]} [{card}]: csr_to_hyb {hyb_s:.3f} s; max_rel_err "
+                  f"{err:.3e} max_abs_err {abs_err:.3e}; device: K3 {t['ms'] * 1e3:.2f} us "
+                  f"({hyb_gbps(H, x.element_size(), t['ms']):.1f} GB/s), plain "
+                  f"{t['plain_ms'] * 1e3:.2f} us; issued from Python: K3 "
+                  f"{t['host_ms'] * 1e3:.2f} us, plain {t['plain_host_ms'] * 1e3:.2f} us")
+            del H, x, z
+
+
+def check_path_kernels(lt, np, torch, dev, A32, M32, name):
+    """Each kernel a solve_ir just ran, against its plain version at the
+    fp32 shape that solve gave it: the matrix's SpMV (K1 on a DIA, K3 on a
+    HYB) and the preconditioner's Neumann apply (K2, on its own plan,
+    strays included), within 1e-5 max relative error.  Returns ({kernel:
+    max abs err}, the random fp32 vector they were given)."""
+    from lssp_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
+    from lssp_tpu_torch.ops.hyb_spmv import hyb_spmv, hyb_spmv_plain
+    from lssp_tpu_torch.ops.neumann import (FusedNeumann, fused_neumann_apply,
+                                            neumann_apply_plain)
+    v = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, A32.shape[0])).to(
+        device=dev, dtype=torch.float32)
+    if isinstance(A32, lt.HYB):
+        pairs = {"hyb_spmv": (lambda: hyb_spmv(A32, v), lambda: hyb_spmv_plain(A32, v))}
+    else:
+        pairs = {"dia_spmv": (lambda: dia_spmv(A32, v),
+                              lambda: dia_spmv_plain(A32.data, A32.offsets, v))}
+    check(M32 is not None and isinstance(M32.state, FusedNeumann),
+          f"{name}: the preconditioner has no K2 plan")
+    pairs["neumann_sweep"] = (lambda: fused_neumann_apply(M32.state, v),
+                              lambda: neumann_apply_plain(M32.state, v))
+    out = {}
+    for kname, (kernel, plain) in pairs.items():
+        y, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(y, ref), (y - ref).abs().max().item()
+        check(bool(torch.isfinite(y).all()), f"{name}: {kname} non-finite output")
+        check(err <= 1e-5, f"{name}: {kname} at the path's fp32 shape: max rel err "
+              f"{err:.3e} > 1e-5")
+        print(f"{name}: {kname} against its plain version at the path's fp32 shape: "
+              f"max_rel_err {err:.3e} max_abs_err {abs_err:.3e}")
+        out[kname] = abs_err
+    return out, v
+
+
+def phase_hyb_main(lt, np, torch, dev, counters, card):
+    """The HYB path at a size users run: BiCGSTAB + ILU(0) through solve_ir
+    on the 3-D Laplacian 128³ plus 10,485 strays."""
+    from lssp_tpu_torch.ops.hyb_spmv import hyb_spmv, hyb_spmv_plain
+    A = strayed_grid(lt, np, 128, "3d", np.float64)
+    t0 = time.perf_counter()
+    lt.sparse.csr_to_hyb(A)
+    hyb_s = time.perf_counter() - t0
+    opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=5000)
+    for fn in counters:
+        fn.launches = 0
+    (_, A64, A32, _, M32), x, info, setup_s, runs = timed_ir(lt, torch, dev, A, "bicgstab",
+                                                            "ilu0", opts)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    rr = true_relres(A, x, np)
+    print(f"hyb 128^3+strays n={A.shape[0]} ndiag={len(A64.dia.offsets)} "
+          f"nnz_rem={A64.nnz_rem} solve_ir bicgstab+ilu0 [{card}]: inner its {info.nits}, "
+          f"true relres {rr:.3e}, setup {setup_s:.3f} s (csr_to_hyb alone {hyb_s:.3f} s), "
+          f"solve cold {runs[0]:.3f} s, warm {runs[1]:.3f} s, launches {launches}")
+    check(rr <= 1e-8, f"hyb 128^3: true relres {rr:.3e} > 1e-8")
+    check(isinstance(A64, lt.HYB) and isinstance(A32, lt.HYB),
+          f"hyb 128^3: to_device_format gave {type(A64).__name__}, not HYB")
+    check(M32.state.L.stray_ptr is not None or M32.state.U.stray_ptr is not None,
+          "hyb 128^3: the K2 plan has no strays")
+    for name in ("hyb_spmv", "fused_neumann_apply"):
+        check(launches[name] > 0, f"hyb 128^3: kernel {name} was never launched")
+    errs, x32 = check_path_kernels(lt, np, torch, dev, A32, M32, "hyb 128^3")
+    t = timings(lambda: hyb_spmv(A32, x32), lambda: hyb_spmv_plain(A32, x32))
+    print(f"K3 at the hyb 128^3 fp32 shape [{card}]: device: K3 {t['ms'] * 1e3:.2f} us "
+          f"({hyb_gbps(A32, 4, t['ms']):.1f} GB/s), plain {t['plain_ms'] * 1e3:.2f} us; issued from Python: K3 {t['host_ms'] * 1e3:.2f} us, "
+          f"plain {t['plain_host_ms'] * 1e3:.2f} us")
+    return launches, dict(max_abs_err=errs["hyb_spmv"], **t)
+
+
+def phase_acceptance(lt, np, torch, dev, counters, card, name, method, pc, restart, limit,
+                     fmt):
+    """An acceptance config of benchmarks/acceptance.py on its vendored
+    matrix: solve_ir, b = 1, relres 1e-8, maxit 5000."""
+    A = lt.sparse.read_matrix_market(os.path.join(HERE, "benchmarks", "matrices",
+                                                  name + ".mtx.gz"))
+    opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=5000, restart=restart)
+    for fn in counters:
+        fn.launches = 0
+    (_, A64, A32, _, M32), x, info, setup_s, runs = timed_ir(lt, torch, dev, A, method, pc,
+                                                             opts)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    rr = true_relres(A, x, np)
+    print(f"acceptance {method}+{pc} {name} n={A.shape[0]} ({type(A64).__name__}) [{card}]: "
+          f"inner its {info.nits} (limit {limit}), true relres {rr:.3e}, setup {setup_s:.3f} s, "
+          f"solve cold {runs[0]:.3f} s, warm {runs[1]:.3f} s, launches {launches}")
+    check(type(A64).__name__ == fmt, f"{name}: format {type(A64).__name__}, expected {fmt}")
+    check(info.nits <= limit, f"{name}: {info.nits} inner iterations > {limit}")
+    check(rr <= 1e-8, f"{name}: true relres {rr:.3e} > 1e-8")
+    kernel = {"HYB": "hyb_spmv", "DIA": "dia_spmv"}[fmt]
+    check(launches[kernel] > 0, f"{name}: kernel {kernel} was never launched")
+    check_path_kernels(lt, np, torch, dev, A32, M32, name)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -289,22 +469,33 @@ def main():
     import lssp_tpu_torch as lt
     from lssp_tpu_torch import _kernels
     from lssp_tpu_torch.ops.dia_spmv import dia_spmv
+    from lssp_tpu_torch.ops.hyb_spmv import hyb_spmv
     from lssp_tpu_torch.ops.neumann import fused_neumann_apply
     check(os.path.dirname(os.path.abspath(lt.__file__)) == os.path.join(HERE, "lssp_tpu_torch"),
           f"lssp_tpu_torch was imported from {lt.__file__}, not from this checkout")
     dev = torch.device("cuda:0")
-    stack(_kernels)
+    card = stack(_kernels)
     k1 = phase_k1(lt, np, torch, dev)
     k2 = phase_k2(lt, np, torch, dev)
     launches = phase_main(lt, np, torch, dev, (dia_spmv, fused_neumann_apply))
     phase_128(lt, np, torch, dev)
     phase_exam(lt, np, torch, dev)
+    counters = (dia_spmv, fused_neumann_apply, hyb_spmv)
+    phase_k3(lt, np, torch, dev, card)
+    hyb_launches, k3 = phase_hyb_main(lt, np, torch, dev, counters, card)
+    phase_acceptance(lt, np, torch, dev, counters, card, "coupled3d_25", "bicgstab", "iluk",
+                     None, 22, "HYB")
+    phase_acceptance(lt, np, torch, dev, counters, card, "convdiff_rot_128", "gmres", "ilut",
+                     30, 191, "DIA")
     kernels = [
         dict(name="dia_spmv", route="cuda", source="lssp_tpu_torch/csrc/dia_spmv.cu",
              replaces="lssp_tpu/ops/pallas_spmv.py:91", launches=launches["dia_spmv"], **k1),
         dict(name="neumann_sweep", route="cuda", source="lssp_tpu_torch/csrc/neumann.cu",
              replaces="lssp_tpu/ops/pallas_neumann.py:196",
              launches=launches["fused_neumann_apply"], **k2),
+        dict(name="hyb_spmv", route="cuda", source="lssp_tpu_torch/csrc/hyb_spmv.cu",
+             replaces="lssp_tpu/ops/pallas_spmv.py:370, lssp_tpu/ops/pallas_spmv.py:218",
+             launches=hyb_launches["hyb_spmv"], **k3),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

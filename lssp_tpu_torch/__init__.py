@@ -3,9 +3,10 @@ PyTorch and CUDA for NVIDIA Hopper.
 
 The JAX package ``lssp_tpu`` is the reference; this package imports
 neither it nor JAX.  The solve path runs on CPU tensors through plain
-PyTorch and on CUDA tensors through two hand-written kernels: the DIA
-stencil SpMV (``ops/dia_spmv.py``, K1) and the Neumann ILU sweep
-(``ops/neumann.py``, K2).
+PyTorch and on CUDA tensors through three hand-written kernels: the DIA
+stencil SpMV (``ops/dia_spmv.py``, K1), the Neumann ILU sweep
+(``ops/neumann.py``, K2) and the HYB band-plus-remainder SpMV
+(``ops/hyb_spmv.py``, K3).
 
     >>> import torch, lssp_tpu_torch as lt
     >>> A = lt.sparse.laplacian_3d(64)              # host CSR
@@ -16,7 +17,7 @@ stencil SpMV (``ops/dia_spmv.py``, K1) and the Neumann ILU sweep
 from lssp_tpu_torch import ops, pc, solvers, sparse
 from lssp_tpu_torch.config import Defaults, PCOptions, SolverOptions
 from lssp_tpu_torch.solvers import SolveInfo, Solver, prepare_ir, solve, solve_ir
-from lssp_tpu_torch.sparse import COO, CSR, DIA, ELL
+from lssp_tpu_torch.sparse import COO, CSR, DIA, ELL, HYB
 
 __version__ = "0.1.0"
 
@@ -24,5 +25,5 @@ __all__ = [
     "sparse", "ops", "solvers", "pc",
     "SolverOptions", "PCOptions", "Defaults",
     "solve", "solve_ir", "prepare_ir", "Solver", "SolveInfo",
-    "COO", "CSR", "DIA", "ELL",
+    "COO", "CSR", "DIA", "ELL", "HYB",
 ]

@@ -27,6 +27,10 @@ _LIB_PATH = os.path.join(_BUILD_DIR, "libkernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
+# rows per thread block of K3 (csrc/hyb_spmv.cu: kThreads); HYB's
+# remainder index is built for it on the host and checked at launch
+HYB_BLOCK_ROWS = 256
+
 _lock = threading.Lock()
 _lib = None
 build_seconds = None     # wall seconds of this process's build, None if cached
@@ -87,6 +91,9 @@ def load():
             fn.restype = ctypes.c_int
             fn = getattr(lib, f"lssp_neumann_sweep_{suf}")
             fn.argtypes = [p, p, i32, i64, p, p, p, p, p, p, p, p]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"lssp_hyb_spmv_{suf}")
+            fn.argtypes = [p, p, i32, i64, i64, p, p, p, p, p, f64, f64, p, p, p]
             fn.restype = ctypes.c_int
         _lib = lib
         return _lib

@@ -9,7 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.sparse.types import CSR, DIA
+from lssp_tpu_torch.sparse.convert import hyb_from_parts
+from lssp_tpu_torch.sparse.types import CSR, DIA, HYB
 
 
 def csr_from_arrays(indptr, indices, data, shape) -> CSR:
@@ -24,6 +25,21 @@ def dia_from_arrays(offsets, data, shape, device="cpu") -> DIA:
     return DIA(tuple(int(o) for o in offsets),
                torch.from_numpy(np.ascontiguousarray(data)).to(device),
                (int(shape[0]), int(shape[1])))
+
+
+def hyb_from_arrays(offsets, data, rem_rows, rem_cols, rem_vals, shape,
+                    device="cpu") -> HYB:
+    """A HYB on ``device`` from ``lssp_tpu.sparse.HYB`` fields: the band's
+    offsets and (ndiag, n) data, and the remainder triplets.  The trailing
+    (n−1, 0, 0.0) entries the JAX package pads the remainder with are
+    dropped; its TPU remainder layouts (``win_*``, ``ovr_*``, ``tc_*``) are
+    not read."""
+    n = int(shape[0])
+    r, c, v = np.asarray(rem_rows), np.asarray(rem_cols), np.asarray(rem_vals)
+    real = np.flatnonzero((r != n - 1) | (c != 0) | (v != 0))
+    k = int(real[-1]) + 1 if len(real) else 0
+    return hyb_from_parts(dia_from_arrays(offsets, data, shape, device=device),
+                          r[:k], c[:k], v[:k], shape)
 
 
 def ilu_factors_from_arrays(L_arrays, U_arrays):

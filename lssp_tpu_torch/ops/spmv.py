@@ -2,7 +2,8 @@
 
 The reference's four mvops entry points (y=βy+αAx, z=βy+αAx, y=αAx, y=Ax;
 reference include/mvops.h:9-19) plus ``spmv``.  DIA goes through kernel K1
-(``ops/dia_spmv.py``), which folds the α/β epilogue into the product.  CSR
+(``ops/dia_spmv.py``) and HYB through kernel K3 (``ops/hyb_spmv.py``); both
+fold the α/β epilogue into the product.  CSR
 and ELL are plain PyTorch gathers: on a GPU a gather is a real path, not a
 fallback.  Transpose products wait for the methods that need them.
 """
@@ -11,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from lssp_tpu_torch.ops.dia_spmv import dia_spmv
-from lssp_tpu_torch.sparse.types import CSR, DIA, ELL
+from lssp_tpu_torch.ops.hyb_spmv import hyb_spmv
+from lssp_tpu_torch.sparse.types import CSR, DIA, ELL, HYB
 
 
 def _spmv_csr(A: CSR, x):
@@ -27,9 +29,11 @@ def _spmv_ell(A: ELL, x):
 
 
 def spmv(A, x):
-    """y = A @ x for a DIA, ELL or device CSR container, or a callable."""
+    """y = A @ x for a DIA, HYB, ELL or device CSR container, or a callable."""
     if isinstance(A, DIA):
         return dia_spmv(A, x)
+    if isinstance(A, HYB):
+        return hyb_spmv(A, x)
     if isinstance(A, ELL):
         return _spmv_ell(A, x)
     if isinstance(A, CSR):
@@ -45,6 +49,8 @@ def mv_amxpby(alpha, A, x, beta, y):
     """beta*y + alpha*A@x (reference mvops.cxx:5-39)."""
     if isinstance(A, DIA):
         return dia_spmv(A, x, alpha=alpha, beta=beta, z=y)
+    if isinstance(A, HYB):
+        return hyb_spmv(A, x, alpha=alpha, beta=beta, z=y)
     return beta * y + alpha * spmv(A, x)
 
 
@@ -54,10 +60,12 @@ def mv_amxpbyz(alpha, A, x, beta, y):
 
 
 def mv_amxy(alpha, A, x):
-    """alpha*A@x (reference mvops.cxx:81-115); for DIA the scale is K1's
-    epilogue, not a second pass over y."""
+    """alpha*A@x (reference mvops.cxx:81-115); for DIA and HYB the scale is
+    K1's or K3's epilogue, not a second pass over y."""
     if isinstance(A, DIA):
         return dia_spmv(A, x, alpha=alpha)
+    if isinstance(A, HYB):
+        return hyb_spmv(A, x, alpha=alpha)
     return alpha * spmv(A, x)
 
 

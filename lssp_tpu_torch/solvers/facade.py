@@ -1,7 +1,8 @@
 """Public solve API: the one-shot ``solve()`` and the ``Solver`` lifecycle
 (the reference's create → assemble → solve protocol, lssp.h:44-53).
-Assembly converts the matrix to its execution format on the device and
-builds the preconditioner once; repeated solves reuse both.
+Assembly reorders the matrix when asked, converts it to its execution
+format on the device and builds the preconditioner once; repeated solves
+reuse all three.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from lssp_tpu_torch import pc as pc_mod
 from lssp_tpu_torch.config import PCOptions, SolverOptions
 from lssp_tpu_torch.solvers.registry import get_solver
 from lssp_tpu_torch.sparse.convert import coo_to_csr, to_device_format
-from lssp_tpu_torch.sparse.types import COO, CSR, DIA, ELL, numpy_dtype
+from lssp_tpu_torch.sparse.reorder import maybe_rcm
+from lssp_tpu_torch.sparse.types import COO, CSR, DIA, ELL, HYB, numpy_dtype
 from lssp_tpu_torch.sparse.utils import sort_columns
 
 
@@ -80,35 +82,61 @@ def _resolve_device(device, b):
     return b.device if isinstance(b, torch.Tensor) else torch.device("cpu")
 
 
-def _prepare_matrix(A, reorder="auto", device="cpu"):
-    """Host CSR (or COO) → execution format on ``device``, memoized on the
-    container.  Returns (host CSR or None, device format, the container's
-    memo dict, validated once per call).  Execution containers move to
-    ``device``; callables pass through.
+_EXEC_FORMATS = (DIA, HYB, ELL)
 
-    ``reorder``: "auto" and None keep the ordering (the JAX package reorders
-    only on the TPU); "rcm" is not carried yet."""
-    if reorder == "rcm":
-        raise NotImplementedError("reorder='rcm' needs sparse/reorder.py, not ported "
-                                  "yet (ROADMAP A2)")
-    if reorder not in ("auto", None):
+
+def _prepare_matrix(A, reorder="auto", device="cpu"):
+    """Host CSR (or COO) → (reordered) execution format on ``device``,
+    memoized on the container per (reorder, device).  Returns (host CSR or
+    None, device format, perm or None, the container's memo dict, validated
+    once per call).  ``perm`` is an int64 tensor on ``device``: the system
+    solved is P·A·Pᵀ with (P·v)[i] = v[perm[i]], and the host CSR is the
+    permuted one.  Execution containers move to ``device``; callables pass
+    through.
+
+    ``reorder``: "rcm" runs ``maybe_rcm``; "auto" and None keep the
+    ordering (the JAX package reorders under "auto" only on the TPU)."""
+    if isinstance(reorder, str) and reorder.startswith("hier:"):
+        raise NotImplementedError(f"reorder={reorder!r} is the AMG aggregation ordering, "
+                                  "not ported yet (ROADMAP A9)")
+    if reorder not in ("auto", "rcm", None):
         raise ValueError(f"unknown reorder {reorder!r}")
+    reorder = reorder or "auto"         # one memo entry for the two spellings
     device = torch.device(device)
-    if isinstance(A, (DIA, ELL)):
-        return None, A.to(device), {}
+    if isinstance(A, _EXEC_FORMATS):
+        return None, A.to(device), None, {}
     if not isinstance(A, (CSR, COO)):
-        return None, A, {}
+        return None, A, None, {}
     cache = _memo(A)
-    key = ("prepared", str(device))
+    key = ("prepared", reorder, str(device))
     if key not in cache:
         host = sort_columns(coo_to_csr(A) if isinstance(A, COO) else A)
-        cache[key] = (host, to_device_format(host, device=device))
+        perm = None
+        if reorder == "rcm":
+            permuted, p = maybe_rcm(host)
+            if p is not None:
+                host, perm = permuted, torch.from_numpy(p).to(device)
+        cache[key] = (host, to_device_format(host, device=device), perm)
     return cache[key] + (cache,)
+
+
+def _permute(v, perm):
+    """P·v (v[perm]); v itself without a permutation."""
+    return v if perm is None else v[perm]
+
+
+def _unpermute(x, perm):
+    """Pᵀ·x: the solution of the permuted system back in the user's order."""
+    if perm is None:
+        return x
+    out = torch.empty_like(x)
+    out[perm] = x
+    return out
 
 
 def _system_dtype(A_dev, b):
     """The dtype a solve runs in: b's, promoted with the matrix's."""
-    if isinstance(A_dev, (DIA, ELL)):
+    if isinstance(A_dev, _EXEC_FORMATS):
         return torch.promote_types(A_dev.dtype, b.dtype)
     return b.dtype
 
@@ -125,7 +153,7 @@ def _setup_pc(A_host, pc, pc_options, dtype, device):
 
 def _as_system(A_dev, b, x0, dtype, device):
     """The matrix, b and x0 on ``device`` in ``dtype``."""
-    if isinstance(A_dev, (DIA, ELL)) and A_dev.dtype != dtype:
+    if isinstance(A_dev, _EXEC_FORMATS) and A_dev.dtype != dtype:
         A_dev = A_dev.to(dtype=dtype)
     b = b.to(device=device, dtype=dtype)
     x0 = (torch.zeros_like(b) if x0 is None
@@ -139,20 +167,24 @@ def solve(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
           device=None):
     """Solve A x = b.  Returns ``(x, SolveInfo)``.
 
-    ``A``: host CSR/COO (converted to DIA/ELL on ``device``), an execution
-    container, or a callable ``x ↦ A@x``.  ``pc``: a registry name, or ``M``
-    a prebuilt Preconditioner or callable.  ``device``: where the solve
-    runs; None means b's device (the CPU for a non-tensor b).  The solve
-    runs in b's dtype promoted with the matrix's."""
+    ``A``: host CSR/COO (converted to DIA/HYB/ELL on ``device``), an
+    execution container, or a callable ``x ↦ A@x``.  ``pc``: a registry
+    name, or ``M`` a prebuilt Preconditioner or callable.  ``reorder``:
+    "rcm" solves the RCM-permuted system when ``maybe_rcm`` takes a
+    permutation (x comes back in the original order); "auto" and None keep
+    the ordering.  ``device``: where the solve runs; None means b's device
+    (the CPU for a non-tensor b).  The solve runs in b's dtype promoted
+    with the matrix's."""
     opts = (options or SolverOptions()).resolved()
     device = _resolve_device(device, b)
     b = validate_system(A, b, method)
-    A_host, A_dev, _ = _prepare_matrix(A, reorder=reorder, device=device)
+    A_host, A_dev, perm, _ = _prepare_matrix(A, reorder=reorder, device=device)
     dtype = _system_dtype(A_dev, b)
     if M is None and pc not in (None, "none"):
         M = _setup_pc(A_host, pc, pc_options, dtype, device)
     A_dev, b, x0 = _as_system(A_dev, b, x0, dtype, device)
-    return get_solver(method)(A_dev, b, x0, M, opts=opts)
+    x, info = get_solver(method)(A_dev, _permute(b, perm), _permute(x0, perm), M, opts=opts)
+    return _unpermute(x, perm), info
 
 
 class Solver:
@@ -168,6 +200,7 @@ class Solver:
         self.device = torch.device(device)
         self.A_host = None
         self.A_dev = None
+        self.perm = None
         self.M = None
         self.b = None
         self.x = None
@@ -190,10 +223,12 @@ class Solver:
     def set_idrs(self, v):    return self._set(idrs=v)
 
     def assemble(self, A, b=None, x0=None, reorder: str = "auto"):
-        """Convert the matrix and build the PC (reference
-        lssp_solver_assemble → lssp_pc_assemble)."""
+        """Reorder (``reorder="rcm"``) and convert the matrix and build the PC
+        (reference lssp_solver_assemble → lssp_pc_assemble).  ``b`` and
+        ``x0`` stay in the user's order; each solve permutes them in."""
         b = validate_system(A, b, self.method)
-        self.A_host, self.A_dev, _ = _prepare_matrix(A, reorder=reorder, device=self.device)
+        self.A_host, self.A_dev, self.perm, _ = _prepare_matrix(A, reorder=reorder,
+                                                                device=self.device)
         # the system dtype is fixed here: the matrix's, promoted with b's
         self.dtype = (_system_dtype(self.A_dev, b) if b is not None
                       else getattr(self.A_dev, "dtype", torch.float64))
@@ -228,10 +263,11 @@ class Solver:
             raise ValueError("no right-hand side: pass b to assemble(), "
                              "reset_rhs() or solve()")
         A_dev, b, x0 = _as_system(self.A_dev, self.b, self.x, self.dtype, self.device)
-        x, info = get_solver(self.method)(A_dev, b, x0, self.M,
+        x, info = get_solver(self.method)(A_dev, _permute(b, self.perm),
+                                          _permute(x0, self.perm), self.M,
                                           opts=self.options.resolved())
-        self.x, self.info = x, info
-        return x
+        self.x, self.info = _unpermute(x, self.perm), info
+        return self.x
 
     # -- getters (lssp_solver_get_residual/_nits, reference lssp.cxx:520-528) --
     @property

@@ -23,7 +23,7 @@ from lssp_tpu_torch.config import PCOptions, SolverOptions
 from lssp_tpu_torch.ops.spmv import spmv
 from lssp_tpu_torch.solvers.base import SolveInfo, norm
 from lssp_tpu_torch.solvers.facade import (
-    _prepare_matrix, _resolve_device, validate_system,
+    _permute, _prepare_matrix, _resolve_device, _unpermute, validate_system,
 )
 from lssp_tpu_torch.solvers.registry import get_solver
 from lssp_tpu_torch.sparse.types import numpy_dtype
@@ -49,15 +49,17 @@ def _pc_options_key(pc_options):
 def prepare_ir(A, method: str = "gmres", pc: Optional[str] = "none",
                pc_options: Optional[PCOptions] = None, inner_dtype=torch.float32,
                reorder: str = "auto", device="cpu"):
-    """Setup phase of ``solve_ir`` alone: convert and upload the matrix in
-    both precisions and build the inner-precision preconditioner, memoized
-    on the container so a following ``solve_ir`` finds everything cached.
-    Returns (A_host, A64, A32, M32)."""
+    """Setup phase of ``solve_ir`` alone: reorder (``reorder="rcm"``),
+    convert and upload the matrix in both precisions and build the
+    inner-precision preconditioner from the (reordered) host matrix,
+    memoized on the container so a following ``solve_ir`` finds everything
+    cached.  Returns (A_host, A64, A32, perm, M32); ``perm`` as in
+    ``facade._prepare_matrix``."""
     device = torch.device(device)
-    A_host, A_dev, cache = _prepare_matrix(A, reorder=reorder, device=device)
+    A_host, A_dev, perm, cache = _prepare_matrix(A, reorder=reorder, device=device)
     if A_host is None:
         raise ValueError("solve_ir needs a host CSR or COO matrix")
-    mat_key = ("ir-mat", str(inner_dtype), str(device))
+    mat_key = ("ir-mat", reorder or "auto", str(inner_dtype), str(device))
     if mat_key not in cache:
         cache[mat_key] = (A_dev.to(dtype=torch.float64), A_dev.to(dtype=inner_dtype))
     A64, A32 = cache[mat_key]
@@ -68,7 +70,7 @@ def prepare_ir(A, method: str = "gmres", pc: Optional[str] = "none",
             M32 = pc_mod.setup(A_host.astype(numpy_dtype(inner_dtype)), pc, pc_options,
                                device=device)
         cache[pc_key] = M32
-    return A_host, A64, A32, cache[pc_key]
+    return A_host, A64, A32, perm, cache[pc_key]
 
 
 def _inner_plan(method, opts, inner_rtol):
@@ -93,18 +95,19 @@ def solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
              device=None):
     """Solve to fp64 accuracy with inner solves in ``inner_dtype``.
 
-    ``A``: host CSR/COO.  ``device``: where the solve runs (None: b's
-    device).  Returns (x fp64, SolveInfo) where nits counts the total inner
-    iterations and the residual is the true fp64 residual."""
+    ``A``: host CSR/COO.  ``reorder``: as in ``solve``.  ``device``: where
+    the solve runs (None: b's device).  Returns (x fp64, SolveInfo) where
+    nits counts the total inner iterations and the residual is the true
+    fp64 residual."""
     opts = (options or SolverOptions()).resolved()
     device = _resolve_device(device, b)
     b = validate_system(A, b, method)
-    _, A64, A32, M32 = prepare_ir(A, method=method, pc=pc, pc_options=pc_options,
-                                  inner_dtype=inner_dtype, reorder=reorder,
-                                  device=device)
-    b = b.to(device=device, dtype=torch.float64)
+    _, A64, A32, perm, M32 = prepare_ir(A, method=method, pc=pc, pc_options=pc_options,
+                                        inner_dtype=inner_dtype, reorder=reorder,
+                                        device=device)
+    b = _permute(b.to(device=device, dtype=torch.float64), perm)
     x = (torch.zeros_like(b) if x0 is None
-         else torch.as_tensor(x0).to(device=device, dtype=torch.float64))
+         else _permute(torch.as_tensor(x0).to(device=device, dtype=torch.float64), perm))
     bnorm = norm(b).item()
     tol = max(opts.rtol * bnorm, opts.atol)
     fn, inner_opts = _inner_plan(method, opts, inner_rtol)
@@ -124,5 +127,6 @@ def solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
         if opts.verbosity >= 1:
             print(f"ir outer: {outer:3d}, inner its: {info.nits:4d}, true res: "
                   f"{res:.6e}, rel res: {res / max(r0, np.finfo(np.float64).tiny):.6e}")
-    return x, SolveInfo(nits=total_inner, residual=res, converged=res <= tol,
-                        r0norm=r0, bnorm=bnorm, history=None)
+    return _unpermute(x, perm), SolveInfo(nits=total_inner, residual=res,
+                                          converged=res <= tol, r0norm=r0, bnorm=bnorm,
+                                          history=None)

@@ -1,10 +1,11 @@
 """Sparse containers and host-side tooling: ``COO`` and ``CSR`` (numpy, for
-assembly and factorization), ``DIA`` and ``ELL`` (tensors, the execution
-formats)."""
+assembly and factorization), ``DIA``, ``HYB`` and ``ELL`` (tensors, the
+execution formats), MatrixMarket I/O and the bandwidth-reducing reorder."""
 
-from lssp_tpu_torch.sparse.types import COO, CSR, DIA, ELL
+from lssp_tpu_torch.sparse.types import COO, CSR, DIA, ELL, HYB
 from lssp_tpu_torch.sparse.convert import (
-    coo_to_csr, csr_entry_offsets, csr_to_dia, csr_to_ell, to_device_format,
+    band_occupancy, coo_to_csr, csr_entry_offsets, csr_to_dia, csr_to_ell, csr_to_hyb,
+    to_device_format,
 )
 from lssp_tpu_torch.sparse.utils import (
     adjust_zero_diag, diagonal, is_sorted, sort_columns, split_ldu, split_lu,
@@ -14,13 +15,21 @@ from lssp_tpu_torch.sparse.generators import (
     anisotropic_poisson_2d, convection_diffusion_2d, elasticity_2d,
     laplacian_2d, laplacian_3d, random_sparse,
 )
+from lssp_tpu_torch.sparse.io import read_matrix_market, write_matrix_market
+from lssp_tpu_torch.sparse.reorder import (
+    band_coverage, bandwidth, grid_transpose_perm, maybe_rcm, num_diagonals,
+    permute_symmetric, rcm_permutation,
+)
 
 __all__ = [
-    "COO", "CSR", "DIA", "ELL",
-    "coo_to_csr", "csr_entry_offsets", "csr_to_dia", "csr_to_ell",
-    "to_device_format",
+    "COO", "CSR", "DIA", "ELL", "HYB",
+    "band_occupancy", "coo_to_csr", "csr_entry_offsets", "csr_to_dia", "csr_to_ell",
+    "csr_to_hyb", "to_device_format",
     "adjust_zero_diag", "diagonal", "is_sorted", "sort_columns", "split_ldu",
     "split_lu", "transpose",
     "anisotropic_poisson_2d", "convection_diffusion_2d", "elasticity_2d",
     "laplacian_2d", "laplacian_3d", "random_sparse",
+    "read_matrix_market", "write_matrix_market",
+    "band_coverage", "bandwidth", "grid_transpose_perm", "maybe_rcm", "num_diagonals",
+    "permute_symmetric", "rcm_permutation",
 ]

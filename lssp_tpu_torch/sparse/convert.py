@@ -3,15 +3,16 @@
 Same rules as ``lssp_tpu/sparse/convert.py``: COO→CSR is a counting sort
 that sums duplicates (reference matrix-utils.cxx:324-380); DIA and ELL are
 the execution formats, built on the host and handed out as tensors on the
-requested device.  HYB (band plus remainder) is not carried yet:
-``to_device_format`` takes ELL where the JAX package would try HYB.
+requested device.  ``to_device_format`` tries DIA, then HYB (band plus
+remainder), then ELL, as the JAX package does off the TPU.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from lssp_tpu_torch.sparse.types import COO, CSR, DIA, ELL
+from lssp_tpu_torch import _kernels
+from lssp_tpu_torch.sparse.types import COO, CSR, DIA, ELL, HYB
 
 
 def _round_up(x: int, m: int) -> int:
@@ -90,16 +91,99 @@ def csr_to_dia(A: CSR, max_diags: int = 64, dtype=None, device="cpu") -> DIA:
     return DIA(tuple(int(o) for o in offs), torch.from_numpy(data).to(device), A.shape)
 
 
+def _select_band(counts: np.ndarray, n: int, max_diags: int,
+                 min_occ: float) -> np.ndarray:
+    """The band rule shared by ``csr_to_hyb`` and ``band_occupancy`` (and so
+    RCM's acceptance test): the up-to-``max_diags`` most-occupied diagonals,
+    each holding at least max(min_occ·n, 16) entries.  A stable sort, so
+    ties keep the JAX package's choice.  Returns indices into ``counts``."""
+    order = np.argsort(-counts, kind="stable")
+    take = order[:max_diags]
+    return take[counts[take] >= max(min_occ * n, 16.0)]
+
+
+def band_occupancy(A: CSR, max_diags: int = 256, min_occ: float = 0.02) -> float:
+    """Fraction of nnz a HYB split would stream as DIA diagonals."""
+    n = A.shape[0]
+    _, d, offs = csr_entry_offsets(A.indptr, A.indices, n)
+    if len(d) == 0:
+        return 0.0
+    counts = np.bincount(np.searchsorted(offs, d), minlength=len(offs))
+    take = _select_band(counts, n, max_diags, min_occ)
+    return float(counts[take].sum()) / max(A.nnz, 1)
+
+
+class BandCoverageError(ValueError):
+    """The band of a HYB split would cover too little of the nnz."""
+
+
+def hyb_from_parts(dia: DIA, rows, cols, vals, shape) -> HYB:
+    """A HYB from its band and its remainder triplets (numpy, row-sorted),
+    with the remainder on the band's device.  Builds
+    the per-block index K3 reads (``_kernels.HYB_BLOCK_ROWS`` rows a
+    block) and rejects triplets the kernel cannot take: unsorted rows,
+    indices out of range, or more than 2³¹−1 entries or rows."""
+    n, m = shape
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    if not (len(rows) == len(cols) == len(vals)):
+        raise ValueError("remainder rows, cols and vals differ in length")
+    if max(n, m, len(rows)) >= 2**31:
+        raise ValueError("HYB indexes rows, columns and remainder entries in int32")
+    if len(rows) and (np.any(np.diff(rows) < 0) or rows[0] < 0 or rows[-1] >= n
+                      or cols.min() < 0 or cols.max() >= m):
+        raise ValueError("remainder triplets must be row-sorted and inside the shape")
+    R = _kernels.HYB_BLOCK_ROWS
+    starts = np.arange(-(-n // R) + 1, dtype=np.int64) * R
+    ptr = np.searchsorted(rows, starts, side="left")
+    dev = dia.data.device
+
+    def up(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+    return HYB(dia, up(rows, np.int32), up(cols, np.int32), up(vals), up(ptr, np.int32),
+               (int(n), int(m)))
+
+
+def csr_to_hyb(A: CSR, max_diags: int = 256, min_occ: float = 0.02,
+               min_cover: float = 0.5, device="cpu") -> HYB:
+    """CSR→band plus remainder on ``device``: the diagonals ``_select_band``
+    keeps stream as DIA, the other entries stay as row-sorted triplets.
+    Raises ``BandCoverageError`` (a ``ValueError``) when the band would
+    cover less than ``min_cover`` of the nnz (ELL is then no worse)."""
+    n, _ = A.shape
+    rows, d_all, offs = csr_entry_offsets(A.indptr, A.indices, n)
+    cols = np.asarray(A.indices)
+    dat = np.asarray(A.data)
+    all_idx = np.searchsorted(offs, d_all)
+    counts = np.bincount(all_idx, minlength=len(offs))
+    take = _select_band(counts, n, max_diags, min_occ)
+    if len(take) == 0 or counts[take].sum() < min_cover * max(A.nnz, 1):
+        raise BandCoverageError(f"band coverage {counts[take].sum() / max(A.nnz, 1):.2f} below "
+                         f"min_cover={min_cover}; use ELL")
+    keep = np.zeros(len(offs), dtype=bool)
+    keep[take] = True
+    in_band = keep[all_idx]
+    kept = offs[keep].astype(np.int64)
+    band = np.zeros((len(kept), n), dtype=dat.dtype)
+    band[np.searchsorted(kept, d_all[in_band]), rows[in_band]] = dat[in_band]
+    dia = DIA(tuple(int(o) for o in kept), torch.from_numpy(band).to(device), A.shape)
+    out = ~in_band
+    return hyb_from_parts(dia, rows[out], cols[out], dat[out], A.shape)
+
+
 def to_device_format(A: CSR, max_diags: int = 32, dia_fill: float = 2.0,
-                     device="cpu"):
+                     hyb_diags: int = 256, device="cpu"):
     """Pick the execution format for a CSR matrix, on ``device``: DIA when
     the diagonal count is small and the storage waste bounded (stencils),
-    padded ELL otherwise (HYB waits for its kernel)."""
+    HYB when a dominant band holds most entries, padded ELL otherwise."""
     n = A.shape[0]
     try:
         _, _, offs = csr_entry_offsets(A.indptr, A.indices, n)
-        if len(offs) <= max_diags and len(offs) * n <= dia_fill * max(A.nnz, 1):
-            return csr_to_dia(A, max_diags=max_diags, device=device)
-    except ValueError:      # wide rectangular: offsets beyond n-1
-        pass
-    return csr_to_ell(A, device=device)
+    except ValueError:      # wide rectangular: offsets beyond n-1, no band
+        return csr_to_ell(A, device=device)
+    if len(offs) <= max_diags and len(offs) * n <= dia_fill * max(A.nnz, 1):
+        return csr_to_dia(A, max_diags=max_diags, device=device)
+    try:
+        return csr_to_hyb(A, max_diags=hyb_diags, device=device)
+    except BandCoverageError:
+        return csr_to_ell(A, device=device)

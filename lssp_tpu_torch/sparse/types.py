@@ -1,8 +1,8 @@
 """Sparse-matrix containers: frozen dataclasses, no pytree registration.
 
 Host containers (``COO``, ``CSR``) hold numpy arrays and serve assembly,
-conversion and factorization.  Execution containers (``DIA``, ``ELL``) hold
-torch tensors and move with ``.to(device)``; ``CSR.to(device)`` gives a CSR
+conversion and factorization.  Execution containers (``DIA``, ``HYB``,
+``ELL``) hold torch tensors and move with ``.to(device)``; ``CSR.to(device)`` gives a CSR
 of tensors for the gather SpMV.  Layouts match ``lssp_tpu/sparse/types.py``
 so that state carries across as numpy arrays (see ``interop.py``).
 """
@@ -139,4 +139,45 @@ class DIA:
         for d, off in enumerate(self.offsets):
             i = np.arange(max(0, -off), min(n, m - off))
             out[i, i + off] = dat[d, i]
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class HYB:
+    """Band plus remainder, the execution format for nearly-banded matrices
+    (``lssp_tpu/sparse/types.py: HYB``): the densely occupied diagonals as
+    a ``DIA``, the other entries as row-sorted COO triplets (CSR order, no
+    padding).  ``rem_block_ptr`` (nblocks+1, int32) indexes the triplets by
+    blocks of R = ``_kernels.HYB_BLOCK_ROWS`` rows: the entries of rows
+    [b·R, (b+1)·R) are [ptr[b], ptr[b+1]).  Kernel K3 (``ops/hyb_spmv.py``) runs one block of
+    threads per row block and needs exactly that index.  The TPU's window
+    and tile-compact remainder layouts are not carried."""
+
+    dia: DIA
+    rem_rows: Any               # (nnz_rem,) int32, ascending
+    rem_cols: Any               # (nnz_rem,) int32
+    rem_vals: Any               # (nnz_rem,)
+    rem_block_ptr: Any          # (ceil(n / HYB_BLOCK_ROWS) + 1,) int32
+    shape: Tuple[int, int]
+
+    @property
+    def dtype(self):
+        return self.dia.dtype
+
+    @property
+    def nnz_rem(self) -> int:
+        """Stored remainder entries."""
+        return int(self.rem_vals.shape[0])
+
+    def to(self, device=None, dtype=None) -> "HYB":
+        """Move every tensor to ``device``; ``dtype`` casts the values (band
+        and remainder), never the indices."""
+        return HYB(self.dia.to(device=device, dtype=dtype), self.rem_rows.to(device),
+                   self.rem_cols.to(device), self.rem_vals.to(device=device, dtype=dtype),
+                   self.rem_block_ptr.to(device), self.shape)
+
+    def todense(self) -> np.ndarray:
+        out = self.dia.todense()
+        np.add.at(out, (self.rem_rows.cpu().numpy(), self.rem_cols.cpu().numpy()),
+                  self.rem_vals.cpu().numpy())
         return out

@@ -1,4 +1,4 @@
-"""The two CUDA kernels of lssp_tpu_torch on the card, against their plain
+"""The three CUDA kernels of lssp_tpu_torch on the card, against their plain
 PyTorch versions.  Every test skips without a CUDA device.  This file
 imports no JAX, so on a machine without it run it as
 
@@ -6,15 +6,25 @@ imports no JAX, so on a machine without it run it as
 
 Tolerances are relative to max|ref|: 1e-5 in fp32 and 1e-12 in fp64 (the
 kernel fuses multiply-adds and sums in its own order)."""
+import dataclasses
+import importlib
+import os
+
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import lssp_tpu_torch as lt
 from lssp_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
+from lssp_tpu_torch.ops.hyb_spmv import hyb_spmv, hyb_spmv_plain
 from lssp_tpu_torch.ops.neumann import (fused_neumann_apply, neumann_apply_plain,
                                         plan_fused_neumann)
 from lssp_tpu_torch.pc.ilu_host import iluk_factor
+
+# the modules (``lssp_tpu_torch.ops`` re-exports functions of the same names)
+hyb_mod = importlib.import_module("lssp_tpu_torch.ops.hyb_spmv")
+spmv_mod = importlib.import_module("lssp_tpu_torch.ops.spmv")
 
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
@@ -107,5 +117,96 @@ def test_solve_on_cuda_goes_through_both_kernels(cuda):
     assert info.converged
     assert dia_spmv.launches > k1 and fused_neumann_apply.launches > k2
     xc, ic = lt.solve(A, b, method="cg", pc="ilu0", pc_options=lt.PCOptions(ilu_sweeps=6))
+    assert abs(info.nits - ic.nits) <= 1
+    assert torch.linalg.vector_norm(x.cpu() - xc) <= 1e-8 * torch.linalg.vector_norm(xc)
+
+
+def _hyb_case(kind):
+    """The K3 cases: the JAX tests' nearly banded Laplacian, the vendored
+    coupled3d_25, an empty remainder, a row holding most of the remainder,
+    and n = 37² = 1369, not a multiple of the 256-row block."""
+    conv = lt.sparse.convert
+    if kind == "coupled3d_25":
+        path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "benchmarks", "matrices", "coupled3d_25.mtx.gz")
+        return lt.sparse.csr_to_hyb(lt.sparse.read_matrix_market(path))
+    n1d = {"nearly_banded": 24, "empty": 20, "heavy_row": 30, "ragged": 37}[kind]
+    L = lt.sparse.laplacian_2d(n1d).to_scipy()
+    n = L.shape[0]
+    rng = np.random.default_rng(3)
+    if kind in ("nearly_banded", "ragged"):
+        E = sp.coo_matrix((np.full(60, 0.01), (rng.integers(0, n, 60), rng.integers(0, n, 60))),
+                          shape=L.shape)
+        H = lt.sparse.csr_to_hyb(lt.CSR.from_scipy((L + E).tocsr()))
+        assert H.nnz_rem > 0
+        return H
+    D = lt.sparse.csr_to_dia(lt.CSR.from_scipy(L))
+    if kind == "empty":
+        return conv.hyb_from_parts(D, [], [], np.zeros(0), L.shape)
+    cols = np.arange(0, n, 2)                    # heavy_row: 450 entries in row 517
+    rows = np.concatenate([[3], np.full(len(cols), 517), [890]])
+    cols = np.concatenate([[800], cols, [5]])
+    return conv.hyb_from_parts(D, rows, cols, rng.standard_normal(len(rows)), L.shape)
+
+
+HYB_KINDS = ["nearly_banded", "coupled3d_25", "empty", "heavy_row", "ragged"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", HYB_KINDS)
+def test_hyb_spmv_matches_plain(cuda, kind, dtype):
+    H = _hyb_case(kind).to(device=cuda, dtype=dtype)
+    n = H.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(n)
+    x = torch.rand(n, generator=g, dtype=dtype).to(cuda)
+    z = torch.rand(n, generator=g, dtype=dtype).to(cuda)
+    before = hyb_spmv.launches
+    for alpha, beta, zz in ((1.0, 0.0, None), (0.25, 0.0, None), (1.0, 1.0, z)):
+        y = hyb_spmv(H, x, alpha=alpha, beta=beta, z=zz)
+        ref = hyb_spmv_plain(H, x, alpha, beta, zz)
+        torch.cuda.synchronize()
+        assert y.dtype == dtype and _rel(y, ref) <= TOL[dtype]
+    assert hyb_spmv.launches == before + 3
+
+
+def test_hyb_spmv_is_deterministic(cuda):
+    H = _hyb_case("coupled3d_25").to(device=cuda, dtype=torch.float32)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(H.shape[0])).to(
+        device=cuda, dtype=torch.float32)
+    assert torch.equal(hyb_spmv(H, x), hyb_spmv(H, x))
+
+
+def test_hyb_spmv_rejects_what_it_cannot_take(cuda):
+    H = _hyb_case("nearly_banded").to(device=cuda)
+    x = torch.ones(H.shape[0], dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        hyb_spmv(H.to(dtype=torch.bfloat16), x.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="dtype"):
+        hyb_spmv(H, x.float())
+    with pytest.raises(ValueError, match="shape"):
+        hyb_spmv(H, x[:-1])
+    ptr128 = torch.searchsorted(H.rem_rows, torch.arange(0, H.shape[0] + 128, 128,
+                                                          dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="rem_block_ptr: shape"):   # built for 128-row blocks
+        hyb_spmv(dataclasses.replace(H, rem_block_ptr=ptr128.to(torch.int32)), x)
+
+
+def test_solve_on_cuda_hyb_goes_through_k3(cuda, monkeypatch):
+    """A HYB matrix on the card runs K3 and K2, never the plain product or
+    the ELL gather."""
+    H = _hyb_case("ragged")
+    A = lt.CSR.from_scipy(sp.csr_matrix(H.todense()))
+    b = torch.ones(A.shape[0], dtype=torch.float64)
+    xc, ic = lt.solve(A, b, method="bicgstab", pc="ilu0",
+                      pc_options=lt.PCOptions(ilu_sweeps=6))
+
+    def forbidden(*args, **kw):
+        raise AssertionError("plain path taken on a CUDA tensor")
+    monkeypatch.setattr(hyb_mod, "hyb_spmv_plain", forbidden)
+    monkeypatch.setattr(spmv_mod, "_spmv_ell", forbidden)
+    k3, k2 = hyb_spmv.launches, fused_neumann_apply.launches
+    x, info = lt.solve(A, b.to(cuda), method="bicgstab", pc="ilu0")
+    assert info.converged
+    assert hyb_spmv.launches > k3 and fused_neumann_apply.launches > k2
     assert abs(info.nits - ic.nits) <= 1
     assert torch.linalg.vector_norm(x.cpu() - xc) <= 1e-8 * torch.linalg.vector_norm(xc)

@@ -54,7 +54,9 @@ def test_validate_system_errors():
     with pytest.raises(ValueError, match="1-D"):
         T.solve(T.sparse.laplacian_2d(8), torch.tensor(1.0), method="cg")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.solve(T.sparse.laplacian_2d(8), _ones(64), method="cg", reorder="rcm")
+        T.solve(T.sparse.laplacian_2d(8), _ones(64), method="cg", reorder="hier:4:64:12")
+    with pytest.raises(ValueError, match="unknown reorder"):
+        T.solve(T.sparse.laplacian_2d(8), _ones(64), method="cg", reorder="amd")
     b = T.solvers.validate_system(T.sparse.laplacian_2d(8), np.ones(64, np.int32), "cg")
     assert b.dtype == torch.float64
     x, info = T.solve(T.sparse.laplacian_2d(8), torch.ones(64, dtype=torch.int32), method="cg")
@@ -64,13 +66,21 @@ def test_validate_system_errors():
 def test_prepared_matrix_memo():
     A = T.sparse.laplacian_2d(10)
     T.solve(A, _ones(100), method="cg")
-    cache = A._prepared_cache
-    D = cache[("prepared", "cpu")][1]
+    key = ("prepared", "auto", "cpu")
+    D = A._prepared_cache[key][1]
     T.solve(A, _ones(100), method="gmres")
-    assert A._prepared_cache[("prepared", "cpu")][1] is D     # reused
+    assert A._prepared_cache[key][1] is D                     # reused
+    T.solve(A, _ones(100), method="cg", reorder=None)         # None means "auto"
+    assert A._prepared_cache[key][1] is D
+    assert ("prepared", None, "cpu") not in A._prepared_cache
+    A64 = T.prepare_ir(A, pc="none")[1]
+    assert T.prepare_ir(A, pc="none", reorder=None)[1] is A64
+    T.solve(A, _ones(100), method="gmres", reorder="rcm")     # its own entry
+    assert A._prepared_cache[key][1] is D
+    assert ("prepared", "rcm", "cpu") in A._prepared_cache
     A.data[0] += 1.0                                          # in-place change
     T.solve(A, _ones(100), method="cg")
-    assert A._prepared_cache[("prepared", "cpu")][1] is not D
+    assert A._prepared_cache[key][1] is not D
 
 
 def test_fp32_rhs_promotes_and_coo_input():
@@ -97,8 +107,9 @@ def test_solve_ir_matches_jax(method):
     relres = np.linalg.norm(1 - At.to_scipy() @ xt.numpy()) / np.sqrt(4096)
     assert relres <= 1e-8
     # the inner preconditioner is the fp32 K2 plan, memoized on the container
-    _, A64, A32, M32 = T.prepare_ir(At, method=method, pc="ilu0",
-                                    pc_options=T.PCOptions(ilu_sweeps=6))
+    _, A64, A32, perm, M32 = T.prepare_ir(At, method=method, pc="ilu0",
+                                          pc_options=T.PCOptions(ilu_sweeps=6))
+    assert perm is None
     assert A64.dtype == torch.float64 and A32.dtype == torch.float32
     assert M32.name == "ilu0-fn6" and M32.state.dtype == torch.float32
 

@@ -75,18 +75,18 @@ def test_csr_to_ell_identical(name, args, kw):
     ("laplacian_2d", (10,), {}), ("laplacian_3d", (6,), {}),
     ("elasticity_2d", (5,), {}), ("random_sparse", (300,), {"seed": 2})])
 def test_to_device_format_choice(name, args, kw):
-    """DIA exactly where the JAX package picks DIA; where it picks HYB (or
-    ELL) the port picks ELL, since HYB waits for its kernel."""
+    """The same container class as the JAX package picks: DIA, HYB or ELL,
+    with the same band."""
     Aj, At = _pair(name, *args, **kw)
     fj, ft = J.sparse.to_device_format(Aj), T.sparse.to_device_format(At)
+    assert type(ft).__name__ == type(fj).__name__
     if isinstance(fj, J.sparse.DIA):
-        assert isinstance(ft, T.sparse.DIA)
         assert fj.offsets == ft.offsets
         assert np.array_equal(np.asarray(fj.data), ft.data.numpy())
-    else:
-        assert isinstance(fj, (J.sparse.ELL, J.sparse.HYB))
-        assert isinstance(ft, T.sparse.ELL)
-        assert np.array_equal(ft.todense(), At.todense())
+    elif isinstance(fj, J.sparse.HYB):
+        assert fj.dia.offsets == ft.dia.offsets
+        assert np.array_equal(np.asarray(fj.dia.data), ft.dia.data.numpy())
+    assert np.array_equal(ft.todense(), At.todense())
 
 
 def test_csr_utils_identical():
