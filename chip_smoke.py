@@ -27,7 +27,19 @@ non-zero without the final result line):
 9. the acceptance config bicgstab_iluk_coupled3d_mtx (read from
    benchmarks/matrices, HYB), K3 and K2 checked likewise after it;
 10. the acceptance config gmres30_ilut_convdiff_mtx (DIA), K1 and K2
-   checked likewise after it.
+   checked likewise after it;
+11. K4 (the per-shard DIA SpMV of the distributed solve) alone: the 3-D
+   Laplacian 128³ and the 2-D Laplacian 1000² over 8 shards, fp32 and
+   fp64, against its plain version for the product and the sweep epilogue
+   (−1, 1, z), and the distributed product (halo exchange, then K4)
+   against K1 on the same matrix unpartitioned;
+12. the distributed path: dist_solve_ir, CG + ILU(0) (block-Jacobi, 6
+   Neumann sweeps), on 128³ over 8 shards of this card, every kernel
+   launch counter reset just before; only K4 may launch; then K4 checked
+   against its plain version on that solve's own fp32 partition and
+   per-shard Neumann factors, and timed there;
+13. the DistHYB path: dist_solve_ir, BiCGSTAB + Jacobi, on 128³ + 10,485
+   strays over 8 shards; K4 checked on that solve's band.
 
 Kernel times are given twice: ``ms`` is device time per call, from CUDA
 events around the replay of a CUDA graph that holds back-to-back calls, so
@@ -36,7 +48,8 @@ the time per call of the same calls issued from Python, which at the main
 path's shapes is bound by that host cost.
 
 The line before the last is a JSON object with one entry per kernel, at
-the shape its path gives it (K1 and K2 from phase 4, K3 from phase 8); the
+the shape its path gives it (K1 and K2 from phase 4, K3 from phase 8, K4
+from phase 12); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -460,6 +473,190 @@ def phase_acceptance(lt, np, torch, dev, counters, card, name, method, pc, resta
     check_path_kernels(lt, np, torch, dev, A32, M32, name)
 
 
+def ext_gbps(M, itemsize, ms, with_z=False):
+    """GB/s under P·(ndiag·R + (R+lo+hi) + R [+ R with z])·itemsize."""
+    P, R = M.nshards, M.rows_per_shard
+    nbytes = P * (len(M.offsets) * R + (R + M.lo + M.hi) + R + (R if with_z else 0)) * itemsize
+    return nbytes / (ms * 1e-3) / 1e9
+
+
+def check_k4(torch, M, x_ext, z, tol, name):
+    """K4 against its plain version for the product (1, 0) and the sweep
+    epilogue (−1, 1, z); returns the (max rel err, max abs err) over both."""
+    from lssp_tpu_torch.ops.dia_spmv_ext import dia_spmv_ext, dia_spmv_ext_plain
+    worst = (0.0, 0.0)
+    for alpha, beta, zz in ((1.0, 0.0, None), (-1.0, 1.0, z)):
+        y = dia_spmv_ext(M.data, M.offsets, x_ext, alpha, beta, zz, offsets_t=M.offsets_t)
+        ref = dia_spmv_ext_plain(M.data, M.offsets, x_ext, alpha, beta, zz)
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(y, ref), (y - ref).abs().max().item()
+        check(bool(torch.isfinite(y).all()), f"K4 {name}: non-finite output")
+        check(err <= tol, f"K4 {name} alpha {alpha} beta {beta}: max rel err {err:.3e} "
+              f"> {tol:.0e}")
+        worst = (max(worst[0], err), max(worst[1], abs_err))
+    return worst
+
+
+def phase_k4(lt, np, torch, dev, card):
+    """K4 alone on 128³ and a 1000² Laplacian over 8 shards (R = 262,144
+    and 125,000, the latter not a multiple of the 256-row block): against
+    its plain version, and the distributed product (halo exchange, then
+    K4) against K1 on the same matrix unpartitioned."""
+    from lssp_tpu_torch.ops.dia_spmv import dia_spmv
+    from lssp_tpu_torch.ops.dia_spmv_ext import dia_spmv_ext, dia_spmv_ext_plain
+    from lssp_tpu_torch.parallel import halo_exchange, make_dist_spmv, partition_csr_dia
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12}
+    rng = np.random.default_rng(4)
+    for name, A in (("laplacian_3d(128)", lt.sparse.laplacian_3d(128)),
+                    ("laplacian_2d(1000)", lt.sparse.laplacian_2d(1000))):
+        M64 = partition_csr_dia(A, 8).to(dev)
+        D64 = lt.sparse.csr_to_dia(A, device=dev)
+        n = A.shape[0]
+        P, R = M64.nshards, M64.rows_per_shard
+        for dtype in (torch.float32, torch.float64):
+            M, D = M64.to(dtype=dtype), D64.to(dtype=dtype)
+            x = torch.from_numpy(rng.uniform(-1, 1, n)).to(device=dev, dtype=dtype)
+            z = torch.from_numpy(rng.uniform(-1, 1, (P, R))).to(device=dev, dtype=dtype)
+            x_ext = halo_exchange(x.view(P, R), M.lo, M.hi)
+            err, abs_err = check_k4(torch, M, x_ext, z, tol[dtype], name)
+            y, ref = make_dist_spmv(M)(x), dia_spmv(D, x)
+            torch.cuda.synchronize()
+            err_k1 = rel_err(y, ref)
+            check(err_k1 <= tol[dtype], f"K4 {name} {dtype}: distributed product against K1: "
+                  f"max rel err {err_k1:.3e} > {tol[dtype]:.0e}")
+            t = timings(lambda: dia_spmv_ext(M.data, M.offsets, x_ext, offsets_t=M.offsets_t),
+                        lambda: dia_spmv_ext_plain(M.data, M.offsets, x_ext))
+            t_sweep = graph_ms(lambda: dia_spmv_ext(M.data, M.offsets, x_ext, -1.0, 1.0, z,
+                                                    offsets_t=M.offsets_t))
+            k1_ms = graph_ms(lambda: dia_spmv(D, x))
+            halo_ms = graph_ms(lambda: halo_exchange(x.view(P, R), M.lo, M.hi))
+            isz = x.element_size()
+            print(f"K4 {name} P={P} R={R} ndiag={len(M.offsets)} lo={M.lo} hi={M.hi} "
+                  f"{str(dtype)[6:]} [{card}]: max_rel_err {err:.3e} max_abs_err {abs_err:.3e}, "
+                  f"against K1 {err_k1:.3e}; device: K4 {t['ms'] * 1e3:.2f} us "
+                  f"({ext_gbps(M, isz, t['ms']):.1f} GB/s), sweep epilogue "
+                  f"{t_sweep * 1e3:.2f} us ({ext_gbps(M, isz, t_sweep, True):.1f} GB/s), plain "
+                  f"{t['plain_ms'] * 1e3:.2f} us, K1 on the same band {k1_ms * 1e3:.2f} us, "
+                  f"halo exchange {halo_ms * 1e3:.2f} us; issued from Python: K4 "
+                  f"{t['host_ms'] * 1e3:.2f} us, plain {t['plain_host_ms'] * 1e3:.2f} us")
+            del M, D, x, z, x_ext
+
+
+def timed_dist_ir(lt, np, torch, dev, A, method, pc, counters, runs=5):
+    """dist_solve_ir over 8 shards on the card, b = 1, relres 1e-8: the
+    first call (setup included) and ``runs`` warm ones, every launch counter
+    reset just before.  Returns (x, info, first s, [warm s], launches, the
+    prepared state)."""
+    mesh = lt.make_mesh(8, devices=[dev] * 8)
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    opts = lt.SolverOptions(rtol=1e-8, atol=0, maxit=5000)
+    for fn in counters:
+        fn.launches = 0
+    walls, its = [], []
+    for _ in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = lt.dist_solve_ir(A, b, method=method, pc=pc, mesh=mesh, options=opts)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        its.append(info.nits)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    check(len(set(its)) == 1, f"dist_solve_ir {method}+{pc}: inner iterations {its} differ "
+          "between runs")
+    (prep,) = A._prepared_cache["dist"].values()
+    return x, info, walls[0], walls[1:], launches, prep
+
+
+def check_dist_path(lt, np, torch, dev, prep, name):
+    """K4 against its plain version on a distributed solve's own fp32
+    partition (its band for a DistHYB) and, when it has one, its per-shard
+    Neumann factors, within 1e-5.  Returns (max abs err, the partition's
+    band, the halo-exchanged vector it was given)."""
+    import torch.nn.functional as F
+    from lssp_tpu_torch.parallel import DistHYB, halo_exchange
+    M = prep["M"].band if isinstance(prep["M"], DistHYB) else prep["M"]
+    check(M.data.dtype == torch.float32, f"{name}: the inner partition is {M.data.dtype}")
+    P, R = M.nshards, M.rows_per_shard
+    rng = np.random.default_rng(5)
+    v = torch.from_numpy(rng.uniform(-1, 1, (P, R))).to(device=dev, dtype=torch.float32)
+    x_ext = halo_exchange(v, M.lo, M.hi)
+    bands = [("partition", M, x_ext)]
+    if prep["kind"] == "ilu_nm":
+        st = prep["pc_state"]
+        bands += [(f"Neumann {f}", T, F.pad(v, (T.lo, T.hi))) for f, T in (("L", st.L),
+                                                                            ("U", st.U))]
+    worst = 0.0
+    for bname, T, xe in bands:
+        err, abs_err = check_k4(torch, T, xe, v, 1e-5, f"{name} {bname}")
+        print(f"{name}: K4 against its plain version on the {bname} band (ndiag "
+              f"{len(T.offsets)}, lo {T.lo}, hi {T.hi}), fp32: max_rel_err {err:.3e} "
+              f"max_abs_err {abs_err:.3e}")
+        worst = max(worst, abs_err)
+    return worst, M, x_ext
+
+
+def report_dist(name, A, info, rr, first, warm, launches, card):
+    print(f"{name} n={A.shape[0]} over 8 shards [{card}]: inner its {info.nits}, true relres "
+          f"{rr:.3e}, first call (setup included) {first:.3f} s, setup about "
+          f"{first - min(warm):.3f} s, warm {', '.join(f'{w:.3f}' for w in warm)} s, "
+          f"launches {launches}")
+
+
+def check_only_k4(launches, name):
+    check(launches["dia_spmv_ext"] > 0, f"{name}: kernel dia_spmv_ext was never launched")
+    for other in ("dia_spmv", "fused_neumann_apply", "hyb_spmv"):
+        check(launches[other] == 0, f"{name}: kernel {other} launched {launches[other]} times "
+              "on the distributed path")
+
+
+def phase_dist_main(lt, np, torch, dev, counters, card):
+    """The slice's main path: dist_solve_ir, CG + ILU(0) with the default 6
+    sweeps, on 128³ over 8 shards of one card."""
+    from lssp_tpu_torch.ops.dia_spmv_ext import dia_spmv_ext, dia_spmv_ext_plain
+    A = lt.sparse.laplacian_3d(128)
+    x, info, first, warm, launches, prep = timed_dist_ir(lt, np, torch, dev, A, "cg", "ilu0",
+                                                         counters)
+    rr = true_relres(A, x, np)
+    report_dist("dist 128^3 dist_solve_ir cg+ilu0", A, info, rr, first, warm, launches, card)
+    check(prep["kind"] == "ilu_nm", f"dist 128^3: preconditioner kind {prep['kind']}")
+    check(194 <= info.nits <= 262, f"dist 128^3: {info.nits} inner iterations outside "
+          "[194, 262]")
+    check(rr <= 1e-8, f"dist 128^3: true relres {rr:.3e} > 1e-8")
+    check_only_k4(launches, "dist 128^3")
+    abs_err, M, x_ext = check_dist_path(lt, np, torch, dev, prep, "dist 128^3")
+    t = timings(lambda: dia_spmv_ext(M.data, M.offsets, x_ext, offsets_t=M.offsets_t),
+                lambda: dia_spmv_ext_plain(M.data, M.offsets, x_ext))
+    print(f"K4 at the dist 128^3 fp32 partition [{card}]: device: K4 {t['ms'] * 1e3:.2f} us "
+          f"({ext_gbps(M, 4, t['ms']):.1f} GB/s), plain {t['plain_ms'] * 1e3:.2f} us; issued "
+          f"from Python: K4 {t['host_ms'] * 1e3:.2f} us, plain {t['plain_host_ms'] * 1e3:.2f} us")
+    return launches, dict(max_abs_err=abs_err, **t)
+
+
+def phase_dist_hyb(lt, np, torch, dev, counters, card):
+    """The DistHYB path: dist_solve_ir, BiCGSTAB + Jacobi, on the 128³
+    Laplacian plus 10,485 strays over 8 shards."""
+    from lssp_tpu_torch.parallel import DistHYB, partition_matrix
+    A = strayed_grid(lt, np, 128, "3d", np.float64)
+    t0 = time.perf_counter()
+    M = partition_matrix(A, 8)
+    part_s = time.perf_counter() - t0
+    check(isinstance(M, DistHYB), f"dist hyb: partition_matrix gave {type(M).__name__}")
+    x, info, first, warm, launches, prep = timed_dist_ir(lt, np, torch, dev, A, "bicgstab",
+                                                         "jacobi", counters)
+    rr = true_relres(A, x, np)
+    report_dist(f"dist hyb 128^3+strays (band {len(M.band.offsets)} diags, remainder "
+                f"{tuple(M.rem_vals.shape)}, partition_matrix {part_s:.3f} s) dist_solve_ir "
+                "bicgstab+jacobi", A, info, rr, first, warm, launches, card)
+    # an upper bound only, JAX's 454 + 15 %: BiCGSTAB's count here moves
+    # with the rounding of the reductions (355-428 on this card and the CPU
+    # for one, eight shards and one device), so a lower bound tests nothing
+    check(info.nits <= 522, f"dist hyb: {info.nits} inner iterations > 522")
+    check(rr <= 1e-8, f"dist hyb: true relres {rr:.3e} > 1e-8")
+    check(isinstance(prep["M"], DistHYB), "dist hyb: the solve's partition is not DistHYB")
+    check_only_k4(launches, "dist hyb")
+    check_dist_path(lt, np, torch, dev, prep, "dist hyb")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -469,6 +666,7 @@ def main():
     import lssp_tpu_torch as lt
     from lssp_tpu_torch import _kernels
     from lssp_tpu_torch.ops.dia_spmv import dia_spmv
+    from lssp_tpu_torch.ops.dia_spmv_ext import dia_spmv_ext
     from lssp_tpu_torch.ops.hyb_spmv import hyb_spmv
     from lssp_tpu_torch.ops.neumann import fused_neumann_apply
     check(os.path.dirname(os.path.abspath(lt.__file__)) == os.path.join(HERE, "lssp_tpu_torch"),
@@ -487,6 +685,10 @@ def main():
                      None, 22, "HYB")
     phase_acceptance(lt, np, torch, dev, counters, card, "convdiff_rot_128", "gmres", "ilut",
                      30, 191, "DIA")
+    counters = (dia_spmv, fused_neumann_apply, hyb_spmv, dia_spmv_ext)
+    phase_k4(lt, np, torch, dev, card)
+    dist_launches, k4 = phase_dist_main(lt, np, torch, dev, counters, card)
+    phase_dist_hyb(lt, np, torch, dev, counters, card)
     kernels = [
         dict(name="dia_spmv", route="cuda", source="lssp_tpu_torch/csrc/dia_spmv.cu",
              replaces="lssp_tpu/ops/pallas_spmv.py:91", launches=launches["dia_spmv"], **k1),
@@ -496,6 +698,9 @@ def main():
         dict(name="hyb_spmv", route="cuda", source="lssp_tpu_torch/csrc/hyb_spmv.cu",
              replaces="lssp_tpu/ops/pallas_spmv.py:370, lssp_tpu/ops/pallas_spmv.py:218",
              launches=hyb_launches["hyb_spmv"], **k3),
+        dict(name="dist_spmv_ext", route="cuda", source="lssp_tpu_torch/csrc/dia_spmv_ext.cu",
+             replaces="lssp_tpu/ops/pallas_spmv.py:91 (prepadded=True), :710",
+             launches=dist_launches["dia_spmv_ext"], **k4),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

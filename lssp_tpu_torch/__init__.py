@@ -3,10 +3,11 @@ PyTorch and CUDA for NVIDIA Hopper.
 
 The JAX package ``lssp_tpu`` is the reference; this package imports
 neither it nor JAX.  The solve path runs on CPU tensors through plain
-PyTorch and on CUDA tensors through three hand-written kernels: the DIA
+PyTorch and on CUDA tensors through four hand-written kernels: the DIA
 stencil SpMV (``ops/dia_spmv.py``, K1), the Neumann ILU sweep
-(``ops/neumann.py``, K2) and the HYB band-plus-remainder SpMV
-(``ops/hyb_spmv.py``, K3).
+(``ops/neumann.py``, K2), the HYB band-plus-remainder SpMV
+(``ops/hyb_spmv.py``, K3) and the per-shard DIA SpMV of the distributed
+solve (``ops/dia_spmv_ext.py``, K4; ``parallel/``).
 
     >>> import torch, lssp_tpu_torch as lt
     >>> A = lt.sparse.laplacian_3d(64)              # host CSR
@@ -14,16 +15,18 @@ stencil SpMV (``ops/dia_spmv.py``, K1), the Neumann ILU sweep
     >>> x, info = lt.solve_ir(A, b, method="cg", pc="ilu0")
 """
 
-from lssp_tpu_torch import ops, pc, solvers, sparse
+from lssp_tpu_torch import ops, parallel, pc, solvers, sparse
 from lssp_tpu_torch.config import Defaults, PCOptions, SolverOptions
+from lssp_tpu_torch.parallel import dist_solve, dist_solve_ir, make_mesh
 from lssp_tpu_torch.solvers import SolveInfo, Solver, prepare_ir, solve, solve_ir
 from lssp_tpu_torch.sparse import COO, CSR, DIA, ELL, HYB
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "sparse", "ops", "solvers", "pc",
+    "sparse", "ops", "parallel", "solvers", "pc",
     "SolverOptions", "PCOptions", "Defaults",
     "solve", "solve_ir", "prepare_ir", "Solver", "SolveInfo",
+    "dist_solve", "dist_solve_ir", "make_mesh",
     "COO", "CSR", "DIA", "ELL", "HYB",
 ]

@@ -95,6 +95,9 @@ def load():
             fn = getattr(lib, f"lssp_hyb_spmv_{suf}")
             fn.argtypes = [p, p, i32, i64, i64, p, p, p, p, p, f64, f64, p, p, p]
             fn.restype = ctypes.c_int
+            fn = getattr(lib, f"lssp_dia_spmv_ext_{suf}")
+            fn.argtypes = [p, p, i32, i64, i64, i64, i64, p, f64, f64, p, p, p]
+            fn.restype = ctypes.c_int
         _lib = lib
         return _lib
 

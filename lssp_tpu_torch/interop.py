@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lssp_tpu_torch.parallel.partition import DistDIA, DistELL, DistHYB
 from lssp_tpu_torch.sparse.convert import hyb_from_parts
 from lssp_tpu_torch.sparse.types import CSR, DIA, HYB
 
@@ -47,3 +48,30 @@ def ilu_factors_from_arrays(L_arrays, U_arrays):
     the JAX package's ILU factors (L strictly lower, U upper with the
     diagonal)."""
     return csr_from_arrays(*L_arrays), csr_from_arrays(*U_arrays)
+
+
+def _t(a, device, dtype=None):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+
+def dist_dia_from_arrays(data, offsets, n, nshards, device="cpu") -> DistDIA:
+    """A DistDIA on ``device`` from ``lssp_tpu.parallel.DistDIA`` fields: the
+    (P, ndiag, R) data, the offsets, n and P."""
+    return DistDIA(_t(data, device), tuple(int(o) for o in offsets), int(n), int(nshards))
+
+
+def dist_hyb_from_arrays(band_data, offsets, n, nshards, rem_rows, rem_cols, rem_vals,
+                         device="cpu") -> DistHYB:
+    """A DistHYB on ``device`` from ``lssp_tpu.parallel.DistHYB`` fields: the
+    band's (P, ndiag, R) data and offsets, n, P, and the (P, nrem)
+    remainder triplets (local rows, global columns; the (0, 0, 0.0)
+    padding is kept)."""
+    return DistHYB(dist_dia_from_arrays(band_data, offsets, n, nshards, device),
+                   _t(rem_rows, device, np.int64), _t(rem_cols, device, np.int64),
+                   _t(rem_vals, device))
+
+
+def dist_ell_from_arrays(cols, data, n, nshards, halo, mode, device="cpu") -> DistELL:
+    """A DistELL on ``device`` from ``lssp_tpu.parallel.DistELL`` fields."""
+    return DistELL(_t(cols, device, np.int64), _t(data, device), int(n), int(nshards),
+                   int(halo), str(mode))

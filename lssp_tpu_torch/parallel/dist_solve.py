@@ -1,0 +1,455 @@
+"""Distributed solve: partition on the host, iterate over a shard mesh.
+
+The JAX package runs the whole Krylov iteration inside one ``shard_map``
+over a 1-D device mesh.  Here a ``Mesh`` is P shard slots on one
+``torch.device``: each partitioned matrix and preconditioner state keeps
+its leading shard axis as a tensor dimension, vectors stay flat (n,), and
+the port's ``cg``, ``gmres``, ``rgmres`` and ``bicgstab`` run unchanged on
+the distributed operator (``dist_ops.make_dist_spmv``) and preconditioner
+(``_shard_pc_apply``).  So eight shards run, with every shard boundary, on
+one H100 or one CPU.  A mesh over several devices needs a communicator
+behind ``halo_exchange`` and is not ported yet (ROADMAP A13).
+
+Preconditioning is block-Jacobi: each shard factors its diagonal block and
+applies it with no exchange, by Neumann sweeps through kernel K4 or by
+exact level schedules.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from lssp_tpu_torch.config import Defaults, PCOptions, SolverOptions
+from lssp_tpu_torch.ops.trisolve import (
+    default_ilu_sweeps, ilu_apply, level_schedule, neumann_exact_depth,
+)
+from lssp_tpu_torch.parallel.dist_ops import _dia_local_spmv, make_dist_spmv, make_psum_dot
+from lssp_tpu_torch.parallel.partition import DistDIA, partition_matrix
+from lssp_tpu_torch.pc.ilu_host import iluk_factor, ilut_factor
+from lssp_tpu_torch.solvers.base import SolveInfo
+from lssp_tpu_torch.solvers.facade import _memo, validate_system
+from lssp_tpu_torch.solvers.refine import _inner_plan, _pc_options_key
+from lssp_tpu_torch.solvers.registry import get_solver
+from lssp_tpu_torch.sparse.convert import coo_to_csr
+from lssp_tpu_torch.sparse.types import COO, CSR, numpy_dtype, torch_dtype
+from lssp_tpu_torch.sparse.utils import diagonal, split_ldu
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """P shard slots; repeats of one device are allowed, so P slots can sit
+    on one card.  Slots on more than one distinct device raise
+    ``NotImplementedError``."""
+
+    devices: Tuple[torch.device, ...]
+
+    def __post_init__(self):
+        if not self.devices:
+            raise ValueError("a mesh needs at least one device")
+        if len(set(self.devices)) > 1:
+            raise NotImplementedError(
+                f"a mesh over {len(set(self.devices))} distinct devices needs a "
+                "torch.distributed communicator behind halo_exchange and the dot "
+                "products, not ported yet (ROADMAP A13); put every slot on one device")
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+
+def _as_device(d) -> torch.device:
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def make_mesh(ndevices: Optional[int] = None, devices=None) -> Mesh:
+    """A 1-D shard mesh.  ``devices``: a sequence of devices, one per slot
+    (``[torch.device("cuda:0")] * 8`` is eight shards on one card).  The
+    default is one slot per visible GPU, else one CPU slot, cut to the
+    first ``ndevices``."""
+    if devices is None:
+        if torch.cuda.is_available():
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            devices = [torch.device("cpu")]
+        if ndevices is not None:
+            devices = devices[:ndevices]
+    return Mesh(tuple(_as_device(d) for d in devices))
+
+
+def _extract_diag_block(A: CSR, lo: int, hi: int) -> CSR:
+    """Rows and columns [lo, hi) of A."""
+    ip = np.asarray(A.indptr).astype(np.int64)
+    idx = np.asarray(A.indices).astype(np.int64)
+    dat = np.asarray(A.data)
+    R = hi - lo
+    rows = np.repeat(np.arange(lo, hi, dtype=np.int64), ip[lo + 1:hi + 1] - ip[lo:hi])
+    sl = slice(ip[lo], ip[hi])
+    keep = (idx[sl] >= lo) & (idx[sl] < hi)
+    p = np.zeros(R + 1, dtype=np.int64)
+    np.add.at(p, rows[keep] - lo + 1, 1)
+    return CSR(np.cumsum(p).astype(np.int32), (idx[sl][keep] - lo).astype(np.int32),
+               dat[sl][keep], (R, R))
+
+
+def _csr_to_dia_rows(S: CSR, offsets, R: int) -> np.ndarray:
+    """Shard-local CSR → row-aligned DIA data on a fixed offset set."""
+    ip = np.asarray(S.indptr).astype(np.int64)
+    rows = np.repeat(np.arange(R, dtype=np.int64), ip[1:] - ip[:-1])
+    cols = np.asarray(S.indices).astype(np.int64)
+    data = np.zeros((len(offsets), R), dtype=np.asarray(S.data).dtype)
+    data[np.searchsorted(np.asarray(offsets), cols - rows), rows] = np.asarray(S.data)
+    return data
+
+
+def _entry_offsets(S: CSR, R: int) -> np.ndarray:
+    ip = np.asarray(S.indptr).astype(np.int64)
+    rows = np.repeat(np.arange(R, dtype=np.int64), ip[1:] - ip[:-1])
+    return np.unique(np.asarray(S.indices).astype(np.int64) - rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class _DistNeumannILU:
+    """Per-shard strict factors on the union offset set, for Neumann sweeps
+    that each stream one shard-local band (kernel K4 on CUDA)."""
+
+    L: DistDIA              # strict lower, data (P, ndl, R)
+    U: DistDIA              # strict upper scaled by 1/diag, (P, ndu, R)
+    invdiag: Any            # (P, R)
+    sweeps: int
+
+    def to(self, device) -> "_DistNeumannILU":
+        return dataclasses.replace(self, L=self.L.to(device), U=self.U.to(device),
+                                   invdiag=self.invdiag.to(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class _DistNeumannILUDyn:
+    """Per-shard offset sets as data (padded to the widest shard with
+    offset-0 slots that carry zero data): keeps the sweeps when the union
+    of the shards' offsets exceeds the cap but each shard's factor stays
+    narrow.  Plain torch gathers, as JAX runs this path in XLA."""
+
+    Ldata: Any              # (P, ndl, R)
+    Loff: Any               # (P, ndl) int64
+    Udata: Any              # (P, ndu, R)
+    Uoff: Any               # (P, ndu) int64
+    invdiag: Any            # (P, R)
+    sweeps: int
+
+    def to(self, device) -> "_DistNeumannILUDyn":
+        return dataclasses.replace(self, Ldata=self.Ldata.to(device), Loff=self.Loff.to(device),
+                                   Udata=self.Udata.to(device), Uoff=self.Uoff.to(device),
+                                   invdiag=self.invdiag.to(device))
+
+
+def _build_dist_ilu_neumann(factors, Pn: int, R: int, sweeps: int, max_union: int = 96):
+    """Stack the per-shard (L, U) factors for Neumann sweeps: a
+    ``_DistNeumannILU`` on the union offsets, a ``_DistNeumannILUDyn`` when
+    the union exceeds ``max_union`` but no shard does, else None (exact
+    schedules then)."""
+    Ls_list, Us_list, inv_list = [], [], []
+    offL, offU = set(), set()
+    for L, U in factors:
+        _, d, Us = split_ldu(U)
+        d = np.where(d == 0, 1.0, d)
+        # cast before scaling, or a float32 factor widens to float64
+        inv = (1.0 / d).astype(np.asarray(U.data).dtype)
+        ip = np.asarray(Us.indptr)
+        rr = np.repeat(np.arange(R), ip[1:] - ip[:-1])
+        Us_s = CSR(Us.indptr, Us.indices, np.asarray(Us.data) * inv[rr], Us.shape)
+        Ls, _, _ = split_ldu(L)
+        Ls_list.append(Ls)
+        Us_list.append(Us_s)
+        inv_list.append(inv)
+        offL.update(_entry_offsets(Ls, R).tolist())
+        offU.update(_entry_offsets(Us_s, R).tolist())
+    offL = tuple(sorted(offL)) or (0,)
+    offU = tuple(sorted(offU)) or (0,)
+    if sweeps == -1:        # exact: the complete series, to the dependency depth
+        sweeps = neumann_exact_depth(
+            [(S.indptr, S.indices, R, lower)
+             for S_list, lower in ((Ls_list, True), (Us_list, False)) for S in S_list])
+    invdiag = torch.from_numpy(np.stack(inv_list))
+    if len(offL) > max_union or len(offU) > max_union:
+        offsL = [_entry_offsets(S, R) for S in Ls_list]
+        offsU = [_entry_offsets(S, R) for S in Us_list]
+        ndl = max(max((len(o) for o in offsL), default=0), 1)
+        ndu = max(max((len(o) for o in offsU), default=0), 1)
+        if ndl > max_union or ndu > max_union:
+            return None
+
+        def pad(o, nd):
+            # offset 0 is never a strict-factor offset, so its slots hold
+            # zero data; sorted, as _csr_to_dia_rows' searchsorted needs
+            return np.sort(np.concatenate([o, np.zeros(nd - len(o), np.int64)]))
+        Loff = [pad(o, ndl) for o in offsL]
+        Uoff = [pad(o, ndu) for o in offsU]
+        return _DistNeumannILUDyn(
+            Ldata=torch.from_numpy(np.stack([_csr_to_dia_rows(S, o, R)
+                                             for S, o in zip(Ls_list, Loff)])),
+            Loff=torch.from_numpy(np.stack(Loff)),
+            Udata=torch.from_numpy(np.stack([_csr_to_dia_rows(S, o, R)
+                                             for S, o in zip(Us_list, Uoff)])),
+            Uoff=torch.from_numpy(np.stack(Uoff)), invdiag=invdiag, sweeps=int(sweeps))
+    n = Pn * R
+    L = DistDIA(torch.from_numpy(np.stack([_csr_to_dia_rows(S, offL, R) for S in Ls_list])),
+                offL, n, Pn)
+    U = DistDIA(torch.from_numpy(np.stack([_csr_to_dia_rows(S, offU, R) for S in Us_list])),
+                offU, n, Pn)
+    return _DistNeumannILU(L, U, invdiag, int(sweeps))
+
+
+def _build_dist_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, R: int, device):
+    """``(kind, state)`` with the state's tensors on ``device``; ``kind``
+    selects the apply in ``_shard_pc_apply``."""
+    if pc_type in (None, "none"):
+        return "none", None
+    if pc_type == "jacobi":
+        d = diagonal(A).copy()
+        small = np.abs(d) < Defaults.ZERO_DIAG_TOL
+        d[small] = np.where(d[small] > 0, Defaults.ZERO_DIAG_VALUE, -Defaults.ZERO_DIAG_VALUE)
+        return "jacobi", torch.from_numpy((pc_opts.omega / d).reshape(Pn, R)).to(device)
+    if pc_type in ("amg", "rsamg", "saamg"):
+        raise NotImplementedError(f"distributed pc={pc_type!r} needs the AMG hierarchies, "
+                                  "not ported yet (ROADMAP A9, A13)")
+    if pc_type not in ("bjilu", "iluk", "ilu0", "ilut"):
+        raise ValueError(f"unsupported distributed pc {pc_type!r}")
+    factors = []
+    for p in range(Pn):
+        blk = _extract_diag_block(A, p * R, (p + 1) * R)
+        if pc_type == "ilut":
+            factors.append(ilut_factor(blk, tol=pc_opts.ilut_tol, p=pc_opts.ilut_p))
+        else:
+            factors.append(iluk_factor(blk, level=0 if pc_type == "ilu0" else pc_opts.iluk_level))
+    sweeps = pc_opts.ilu_sweeps
+    if sweeps is None:
+        sweeps = default_ilu_sweeps(device)
+    if sweeps:
+        st = _build_dist_ilu_neumann(factors, Pn, R, sweeps)
+        if st is not None:
+            return ("ilu_nmd" if isinstance(st, _DistNeumannILUDyn) else "ilu_nm"), st.to(device)
+        warnings.warn("distributed ILU: a single shard's factor exceeds the streaming "
+                      "diagonal cap; falling back to exact level schedules (slow); "
+                      "consider RCM ordering or more shards", RuntimeWarning, stacklevel=3)
+    return "ilu", [(level_schedule(L, lower=True, device=device),
+                    level_schedule(U, lower=False, device=device)) for L, U in factors]
+
+
+def _sweep_repeat(step, k: int, x0):
+    """k applications of ``step``."""
+    x = x0
+    for _ in range(k):
+        x = step(x)
+    return x
+
+
+def _dyn_index(offs: torch.Tensor, R: int):
+    """Gather index and validity mask of a per-shard offset set: row i of
+    slot k reads i + offs[p, k] when that lies in [0, R)."""
+    src = torch.arange(R, device=offs.device) + offs[:, :, None]      # (P, nd, R)
+    valid = (src >= 0) & (src < R)
+    return src.clamp(0, R - 1).view(offs.shape[0], -1), valid
+
+
+def _shard_pc_apply(kind, state, Pn: int, R: int):
+    """The preconditioner apply ``r ↦ M⁻¹r`` on the flat vector."""
+    if kind == "none":
+        return lambda r: r
+    if kind == "jacobi":
+        return lambda r: (state * r.view(Pn, R)).view(-1)
+    if kind == "ilu_nm":
+        st = state
+
+        def sweep(T, rhs):
+            # y ← rhs − T·y, each shard's y zero-padded by its own halos:
+            # block-Jacobi needs no exchange
+            return lambda y: _dia_local_spmv(T, F.pad(y, (T.lo, T.hi)), -1.0, 1.0, rhs)
+
+        def fn(r):
+            r2 = r.view(Pn, R)
+            y = _sweep_repeat(sweep(st.L, r2), st.sweeps, r2)
+            zr = st.invdiag * y
+            return _sweep_repeat(sweep(st.U, zr), st.sweeps, zr).view(-1)
+        return fn
+    if kind == "ilu_nmd":
+        st = state
+        iL, vL = _dyn_index(st.Loff, R)
+        iU, vU = _dyn_index(st.Uoff, R)
+
+        def stream(data, idx, valid, v):
+            sh = v.gather(1, idx).view(data.shape)
+            return (data * torch.where(valid, sh, 0.0)).sum(dim=1)
+
+        def fn(r):
+            r2 = r.view(Pn, R)
+            y = _sweep_repeat(lambda y: r2 - stream(st.Ldata, iL, vL, y), st.sweeps, r2)
+            zr = st.invdiag * y
+            return _sweep_repeat(lambda z: zr - stream(st.Udata, iU, vU, z),
+                                 st.sweeps, zr).view(-1)
+        return fn
+    if kind == "ilu":
+        def fn(r):
+            r2 = r.view(Pn, R)
+            return torch.stack([ilu_apply(sl, su, r2[p])
+                                for p, (sl, su) in enumerate(state)]).view(-1)
+        return fn
+    raise ValueError(kind)
+
+
+def _shard_ir(op32, op64, pc_apply, fn, b, x0, opts, inner_opts, max_outer,
+              inner_dtype, pdot):
+    """Mixed-precision refinement over the mesh: fp64 residuals through the
+    fp64 partition, the inner solve in ``inner_dtype`` through the inner
+    partition and preconditioner, fp64 accumulation; norms reduce per
+    shard, then over the shards.  The same rounds as ``solve_ir``."""
+    x = torch.zeros_like(b) if x0 is None else x0
+
+    def norm(v):
+        return torch.sqrt(pdot(v, v)).item()
+
+    bnorm = norm(b)
+    tol = max(opts.rtol * bnorm, opts.atol)
+    r = b - op64(x)
+    res = r0 = norm(r)
+    outer = total = 0
+    while res > tol and outer < max_outer:
+        scale = res if res != 0.0 else 1.0
+        r32 = (r / scale).to(inner_dtype)
+        d32, info = fn(op32, r32, torch.zeros_like(r32), pc_apply, opts=inner_opts)
+        x = x + d32.to(torch.float64) * scale
+        r = b - op64(x)
+        res = norm(r)
+        total += info.nits
+        outer += 1
+    return x, SolveInfo(nits=total, residual=res, converged=res <= tol, r0norm=r0,
+                        bnorm=bnorm, history=None)
+
+
+def _grow_identity(A: CSR, extra: int) -> CSR:
+    """A padded with ``extra`` decoupled identity rows and columns; the rhs
+    and x0 get zero rows to match, which stay 0 through every Krylov
+    recurrence."""
+    import scipy.sparse as sp
+    if extra == 0:
+        return A
+    return CSR.from_scipy(sp.bmat([[A.to_scipy(), None], [None, sp.eye(extra, format="csr")]],
+                                  format="csr"))
+
+
+def _dist_sizing(n_orig: int, Pn: int) -> int:
+    """Identity rows to pad to a multiple of the shard count."""
+    return (-n_orig) % Pn
+
+
+def _prepare_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, npad):
+    """The rhs-independent half of a distributed solve (identity padding,
+    per-shard preconditioner, partition in one or, for ``ir``, two
+    precisions, upload), memoized on the container against its content
+    fingerprint, LRU-bounded to 8 entries: each pins device copies of the
+    partitioned matrix and the preconditioner state."""
+    entries = _memo(A).setdefault("dist", {})
+    key = (mesh, fmt, pc, _pc_options_key(pc_opts), ir, str(dtype), str(inner_dtype), npad)
+    if key in entries:
+        entries[key] = entries.pop(key)         # LRU touch
+        return entries[key]
+    while len(entries) >= 8:
+        entries.pop(next(iter(entries)))
+    entries[key] = out = _build_dist(A, mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, npad)
+    return out
+
+
+def _build_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, npad):
+    A = _grow_identity(A, npad)
+    Pn, device = mesh.size, mesh.device
+    n = A.shape[0]
+    R = n // Pn
+    # ir: the preconditioner and the inner operator live in the inner dtype
+    work = A.astype(numpy_dtype(inner_dtype if ir else dtype))
+    kind, pc_state = _build_dist_pc(work, pc, pc_opts, Pn, R, device)
+    M = partition_matrix(work, Pn, fmt=fmt).to(device)
+    M64 = partition_matrix(A.astype(np.float64), Pn, fmt=fmt).to(device) if ir else None
+    return dict(n=n, R=R, M=M, M64=M64, kind=kind, pc_state=pc_state)
+
+
+def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
+                 ir: bool = False, inner_rtol: float = 1e-3, max_outer: int = 20,
+                 inner_dtype=torch.float32):
+    """The one distributed launcher behind ``dist_solve`` and
+    ``dist_solve_ir``: checks the input, pads the system to a multiple of
+    the shard count, fetches the prepared state and runs the solve."""
+    opts = (options or SolverOptions()).resolved()
+    pc_opts = (pc_options or PCOptions()).resolved()
+    if isinstance(A, COO):
+        A = coo_to_csr(A)
+    if not isinstance(A, CSR):
+        raise TypeError(f"the distributed solve takes a host CSR or COO, got {type(A)}")
+    b = validate_system(A, b, method)
+    if ir:
+        fn, solver_opts = _inner_plan(method, opts, inner_rtol)
+    else:
+        fn, solver_opts = get_solver(method), opts
+    mesh = mesh or make_mesh()
+    Pn, device = mesh.size, mesh.device
+    dtype = torch.float64 if ir else torch.promote_types(torch_dtype(A.dtype), b.dtype)
+    n_orig = A.shape[0]
+    b = b.to(device=device, dtype=dtype)
+    if x0 is not None:
+        x0 = torch.as_tensor(x0).to(device=device, dtype=dtype)
+        if x0.shape != b.shape:
+            raise ValueError(f"x0 must match the rhs shape {tuple(b.shape)}, "
+                             f"got {tuple(x0.shape)}")
+    prep = _prepare_dist(A, mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype,
+                         _dist_sizing(n_orig, Pn))
+    n, R = prep["n"], prep["R"]
+    if n > n_orig:
+        b = torch.cat([b, b.new_zeros(n - n_orig)])
+        if x0 is not None:
+            x0 = torch.cat([x0, x0.new_zeros(n - n_orig)])
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    op = make_dist_spmv(prep["M"])
+    pc_apply = _shard_pc_apply(prep["kind"], prep["pc_state"], Pn, R)
+    if ir:
+        x, info = _shard_ir(op, make_dist_spmv(prep["M64"]), pc_apply, fn, b, x0, opts,
+                            solver_opts, max_outer, inner_dtype, make_psum_dot(Pn))
+    else:
+        x, info = fn(op, b, x0, pc_apply, opts=solver_opts)
+    return x[:n_orig], info
+
+
+def dist_solve(A, b, x0=None, method: str = "cg", pc: Optional[str] = "none",
+               mesh: Optional[Mesh] = None, options: Optional[SolverOptions] = None,
+               pc_options: Optional[PCOptions] = None, fmt: str = "auto"):
+    """Ax = b over a shard mesh.  Returns (x (n,) on the mesh's device,
+    SolveInfo).
+
+    ``fmt`` picks the distributed format: "auto" tries DIA, then HYB, then
+    padded ELL (halo, else all-gather); "dia", "hyb", "ell", "halo" and
+    "allgather" force one.  ``n`` need not divide the shard count: rows
+    are padded with identity equations (zero rhs).  ``pc``: "none",
+    "jacobi", or block-Jacobi "bjilu" (ILU(k) at ``iluk_level``), "iluk",
+    "ilu0", "ilut"."""
+    return _dist_launch(A, b, x0, method, pc, mesh, options, pc_options, fmt)
+
+
+def dist_solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
+                  mesh: Optional[Mesh] = None, options: Optional[SolverOptions] = None,
+                  pc_options: Optional[PCOptions] = None, fmt: str = "auto",
+                  inner_rtol: float = 1e-3, max_outer: int = 20, inner_dtype=torch.float32):
+    """Mixed-precision refinement over a shard mesh: fp64 x, the Krylov
+    loop, the preconditioner and its factors in ``inner_dtype``.  Same
+    inner policy as ``solve_ir``; ``nits`` counts the inner iterations."""
+    return _dist_launch(A, b, x0, method, pc, mesh, options, pc_options, fmt, ir=True,
+                        inner_rtol=inner_rtol, max_outer=max_outer, inner_dtype=inner_dtype)

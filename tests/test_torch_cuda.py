@@ -1,4 +1,4 @@
-"""The three CUDA kernels of lssp_tpu_torch on the card, against their plain
+"""The four CUDA kernels of lssp_tpu_torch on the card, against their plain
 PyTorch versions.  Every test skips without a CUDA device.  This file
 imports no JAX, so on a machine without it run it as
 
@@ -17,6 +17,7 @@ import torch
 
 import lssp_tpu_torch as lt
 from lssp_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
+from lssp_tpu_torch.ops.dia_spmv_ext import dia_spmv_ext, dia_spmv_ext_plain
 from lssp_tpu_torch.ops.hyb_spmv import hyb_spmv, hyb_spmv_plain
 from lssp_tpu_torch.ops.neumann import (fused_neumann_apply, neumann_apply_plain,
                                         plan_fused_neumann)
@@ -24,6 +25,7 @@ from lssp_tpu_torch.pc.ilu_host import iluk_factor
 
 # the modules (``lssp_tpu_torch.ops`` re-exports functions of the same names)
 hyb_mod = importlib.import_module("lssp_tpu_torch.ops.hyb_spmv")
+ext_mod = importlib.import_module("lssp_tpu_torch.ops.dia_spmv_ext")
 spmv_mod = importlib.import_module("lssp_tpu_torch.ops.spmv")
 
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -210,3 +212,82 @@ def test_solve_on_cuda_hyb_goes_through_k3(cuda, monkeypatch):
     assert hyb_spmv.launches > k3 and fused_neumann_apply.launches > k2
     assert abs(info.nits - ic.nits) <= 1
     assert torch.linalg.vector_norm(x.cpu() - xc) <= 1e-8 * torch.linalg.vector_norm(xc)
+
+
+def _ext_case(kind, dtype, cuda):
+    """K4's cases: (P, ndiag, R) bands with R = 216 (ragged), 256, 625."""
+    A, P = {"laplacian_3d_12": (lt.sparse.laplacian_3d(12), 8),
+            "laplacian_2d_32": (lt.sparse.laplacian_2d(32), 4),
+            "convdiff_50": (lt.sparse.convection_diffusion_2d(50), 4)}[kind]
+    return lt.parallel.partition_csr_dia(A, P).to(device=cuda, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["laplacian_3d_12", "laplacian_2d_32", "convdiff_50"])
+def test_dia_spmv_ext_matches_plain(cuda, kind, dtype):
+    M = _ext_case(kind, dtype, cuda)
+    P, R = M.nshards, M.rows_per_shard
+    g = torch.Generator(device="cpu").manual_seed(R)
+    x_ext = torch.rand(P, R + M.lo + M.hi, generator=g, dtype=dtype).to(cuda)
+    z = torch.rand(P, R, generator=g, dtype=dtype).to(cuda)
+    before = dia_spmv_ext.launches
+    for alpha, beta, zz in ((1.0, 0.0, None), (0.25, 0.0, None), (-1.0, 1.0, z)):
+        y = dia_spmv_ext(M.data, M.offsets, x_ext, alpha, beta, zz, offsets_t=M.offsets_t)
+        ref = dia_spmv_ext_plain(M.data, M.offsets, x_ext, alpha, beta, zz)
+        torch.cuda.synchronize()
+        assert y.shape == (P, R) and y.dtype == dtype and _rel(y, ref) <= TOL[dtype]
+    assert dia_spmv_ext.launches == before + 3
+
+
+def test_dia_spmv_ext_rejects_what_it_cannot_take(cuda):
+    M = _ext_case("laplacian_2d_32", torch.float64, cuda)
+    x_ext = torch.ones(4, 256 + 64, dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        dia_spmv_ext(M.data.to(torch.bfloat16), M.offsets, x_ext.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="dtype"):
+        dia_spmv_ext(M.data, M.offsets, x_ext.float())
+    with pytest.raises(ValueError, match="shape"):
+        dia_spmv_ext(M.data, M.offsets, x_ext[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        dia_spmv_ext(M.data, M.offsets, torch.ones(4, 640, dtype=torch.float64,
+                                                    device=cuda)[:, ::2])
+
+
+def test_dist_solve_on_cuda_goes_through_k4(cuda, monkeypatch):
+    """Eight shards on the card: every DistDIA product and Neumann sweep
+    launches K4 (the plain version raises if taken), no other kernel runs,
+    and the count matches the CPU port's."""
+    A = lt.sparse.laplacian_3d(32)
+    b = torch.ones(A.shape[0], dtype=torch.float64)
+    kw = dict(method="cg", pc="ilu0", options=lt.SolverOptions(rtol=1e-8, atol=0))
+    cpu_mesh = lt.make_mesh(8, devices=[torch.device("cpu")] * 8)
+    xc, ic = lt.dist_solve_ir(A, b, mesh=cpu_mesh, pc_options=lt.PCOptions(ilu_sweeps=6), **kw)
+
+    def forbidden(*args, **kw):
+        raise AssertionError("plain path taken on a CUDA tensor")
+    monkeypatch.setattr(ext_mod, "dia_spmv_ext_plain", forbidden)
+    counts = (dia_spmv.launches, fused_neumann_apply.launches, hyb_spmv.launches,
+              dia_spmv_ext.launches)
+    x, info = lt.dist_solve_ir(A, b.to(cuda), mesh=lt.make_mesh(8, devices=[cuda] * 8), **kw)
+    assert info.converged and x.device.type == "cuda"
+    assert (dia_spmv.launches, fused_neumann_apply.launches, hyb_spmv.launches) == counts[:3]
+    # per inner iteration: one product and 2 x 6 sweeps
+    assert dia_spmv_ext.launches - counts[3] >= 13 * info.nits
+    assert abs(info.nits - ic.nits) <= 2
+    assert torch.linalg.vector_norm(x.cpu() - xc) <= 1e-6 * torch.linalg.vector_norm(xc)
+
+
+def test_dist_hyb_solve_on_cuda(cuda):
+    H = _hyb_case("nearly_banded")
+    A = lt.CSR.from_scipy(sp.csr_matrix(H.todense()))
+    b = torch.ones(A.shape[0], dtype=torch.float64)
+    # GMRES: BiCGSTAB's count on this small nonsymmetric system moves by 3
+    # with the order of the remainder's atomic adds
+    kw = dict(method="gmres", pc="jacobi", fmt="hyb",
+              options=lt.SolverOptions(rtol=1e-10, atol=0, rbtol=0, maxit=3000))
+    xc, ic = lt.dist_solve(A, b, mesh=lt.make_mesh(8, devices=["cpu"] * 8), **kw)
+    before = dia_spmv_ext.launches
+    x, info = lt.dist_solve(A, b.to(cuda), mesh=lt.make_mesh(8, devices=[cuda] * 8), **kw)
+    assert info.converged and dia_spmv_ext.launches > before
+    assert abs(info.nits - ic.nits) <= 2
+    assert torch.linalg.vector_norm(x.cpu() - xc) <= 1e-6 * torch.linalg.vector_norm(xc)

@@ -58,7 +58,7 @@ def test_kernels_target_sm_90a():
     from lssp_tpu_torch import _kernels
     assert _kernels.NVCC_FLAGS[:2] == ["-gencode", "arch=compute_90a,code=sm_90a"]
     names = sorted(os.path.basename(s) for s in _kernels._sources())
-    assert names == ["dia_spmv.cu", "hyb_spmv.cu", "neumann.cu"]
+    assert names == ["dia_spmv.cu", "dia_spmv_ext.cu", "hyb_spmv.cu", "neumann.cu"]
 
 
 @pytest.mark.parametrize("modname", MODULES)
