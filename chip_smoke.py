@@ -39,7 +39,28 @@ non-zero without the final result line):
    against its plain version on that solve's own fp32 partition and
    per-shard Neumann factors, and timed there;
 13. the DistHYB path: dist_solve_ir, BiCGSTAB + Jacobi, on 128³ + 10,485
-   strays over 8 shards; K4 checked on that solve's band.
+   strays over 8 shards; K4 checked on that solve's band;
+14. the k-rhs kernels alone, each against its plain version and against k
+   launches of its single-rhs kernel on the same columns: K1k on 128³ at
+   k = 1, 4, 8 in fp32 and fp64; K3k on phase 8's strayed 128³ HYB, K2k on
+   the 128³ ILU(0) plan and K4k on phase 11's 128³ P = 8 partition, all at
+   k = 8 in fp32; device times of the form, its plain version and the k
+   single launches, with GB/s;
+15. serving, the multi-rhs main path: solve_ir_multi, block CG + ILU(0),
+   on 128³ with B = 8 columns of default_rng(0).standard_normal, every
+   kernel launch counter reset just before; only the k-rhs forms may
+   launch; the first and warm walls against 8 sequential solve_ir (cg +
+   ILU(0)) on the same columns (bench.py's serving8 protocol);
+16. the per-column path: solve_multi, CG + ILU(0), fp64, 64³, k = 4, each
+   column's count against its own single solve;
+17. HYB multi: solve_ir_multi, block GMRES + ILU(1), k = 4, on the vendored
+   coupled3d_25; K3k and K2k must launch and nothing else;
+18. distributed multi: dist_solve_ir_multi, block CG + ILU(0), on 128³ over
+   8 shards of this card, k = 8; only K4k may launch.
+After each of phases 15-18 its k-rhs kernels (K1k or K3k and K2k; K4k for
+18, on the partition and the per-shard Neumann factors) are checked on
+that solve's own matrix and plan with its own block, in its own dtype,
+against their plain versions and against k single-rhs launches.
 
 Kernel times are given twice: ``ms`` is device time per call, from CUDA
 events around the replay of a CUDA graph that holds back-to-back calls, so
@@ -49,7 +70,8 @@ path's shapes is bound by that host cost.
 
 The line before the last is a JSON object with one entry per kernel, at
 the shape its path gives it (K1 and K2 from phase 4, K3 from phase 8, K4
-from phase 12); the
+from phase 12, K1k and K2k from phase 15, K3k from phase 17, K4k from
+phase 18; the k-rhs forms' times from phase 14 at k = 8); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -657,6 +679,314 @@ def phase_dist_hyb(lt, np, torch, dev, counters, card):
     check_dist_path(lt, np, torch, dev, prep, "dist hyb")
 
 
+def check_krhs(torch, name, form, plain, singles, tol):
+    """A k-rhs form against its plain version and against the stacked
+    results of k single-rhs launches (last axis = the columns); returns
+    (max rel err vs plain, max abs err vs plain, max rel err vs singles)."""
+    y, ref, one = form(), plain(), torch.stack(singles(), dim=-1)
+    torch.cuda.synchronize()
+    err, abs_err, err1 = rel_err(y, ref), (y - ref).abs().max().item(), rel_err(y, one)
+    check(bool(torch.isfinite(y).all()), f"{name}: non-finite output")
+    check(err <= tol, f"{name}: max rel err {err:.3e} against its plain version > {tol:.0e}")
+    check(err1 <= tol, f"{name}: max rel err {err1:.3e} against k single launches > {tol:.0e}")
+    return err, abs_err, err1
+
+
+def time_krhs(form, plain, singles, calls=10):
+    """Device ms per call of the k-rhs form, its plain version and k single
+    launches (one call = all k)."""
+    return dict(ms=graph_ms(form, calls), plain_ms=graph_ms(plain, calls),
+                singles_ms=graph_ms(singles, calls))
+
+
+def report_krhs(name, card, err, abs_err, err1, t, nbytes):
+    print(f"{name} [{card}]: max_rel_err {err:.3e} (vs plain) {err1:.3e} (vs k single "
+          f"launches) max_abs_err {abs_err:.3e}; device: form {t['ms'] * 1e3:.2f} us "
+          f"({nbytes / (t['ms'] * 1e-3) / 1e9:.1f} GB/s), plain {t['plain_ms'] * 1e3:.2f} us, "
+          f"k single launches {t['singles_ms'] * 1e3:.2f} us")
+
+
+def columns(X):
+    """The k columns of a block (last axis), each contiguous."""
+    return [X[..., c].contiguous() for c in range(X.shape[-1])]
+
+
+def phase_krhs(lt, np, torch, dev, card):
+    """Phase 14: K1k-K4k alone at the multi-rhs path's shapes."""
+    from lssp_tpu_torch.ops.dia_spmv import dia_spmm, dia_spmm_plain, dia_spmv
+    from lssp_tpu_torch.ops.dia_spmv_ext import dia_spmm_ext, dia_spmm_ext_plain, dia_spmv_ext
+    from lssp_tpu_torch.ops.hyb_spmv import hyb_spmm, hyb_spmm_plain, hyb_spmv
+    from lssp_tpu_torch.ops.neumann import (fused_neumann_apply, neumann_apply_plain,
+                                            neumann_block_apply, plan_fused_neumann)
+    from lssp_tpu_torch.parallel import halo_exchange, partition_csr_dia
+    from lssp_tpu_torch.pc.ilu_host import iluk_factor
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12}
+    rng = np.random.default_rng(14)
+    A = lt.sparse.laplacian_3d(128)
+    n = A.shape[0]
+    D64 = lt.sparse.csr_to_dia(A, device=dev)
+    nd = len(D64.offsets)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        D = D64.to(dtype=dtype)
+        for k in (1, 4, 8):
+            X = torch.from_numpy(rng.uniform(-1, 1, (n, k))).to(device=dev, dtype=dtype)
+            cols = columns(X)
+            form = lambda: dia_spmm(D, X)
+            plain = lambda: dia_spmm_plain(D.data, D.offsets, X)
+            singles = lambda: [dia_spmv(D, x) for x in cols]
+            err, abs_err, err1 = check_krhs(torch, "K1k", form, plain, singles, tol[dtype])
+            t = time_krhs(form, plain, singles)
+            report_krhs(f"K1k laplacian_3d(128) n={n} ndiag={nd} k={k} {str(dtype)[6:]}", card,
+                        err, abs_err, err1, t, (nd * n + 2 * k * n) * X.element_size())
+            if dtype == torch.float32 and k == 8:
+                out["dia_spmm"] = dict(max_abs_err=abs_err, **t)
+            del X, cols
+    k = 8
+    A32 = strayed_grid(lt, np, 128, "3d", np.float64)
+    H = lt.sparse.csr_to_hyb(A32, device=dev).to(dtype=torch.float32)
+    X = torch.from_numpy(rng.uniform(-1, 1, (n, k))).to(device=dev, dtype=torch.float32)
+    cols = columns(X)
+    form, plain = lambda: hyb_spmm(H, X), lambda: hyb_spmm_plain(H, X)
+    singles = lambda: [hyb_spmv(H, x) for x in cols]
+    err, abs_err, err1 = check_krhs(torch, "K3k", form, plain, singles, 1e-5)
+    t = time_krhs(form, plain, singles)
+    nbytes = (len(H.dia.offsets) * n + 2 * k * n) * 4 + H.nnz_rem * (4 + 8)
+    report_krhs(f"K3k hyb 128^3+strays nnz_rem={H.nnz_rem} k={k} float32", card, err, abs_err,
+                err1, t, nbytes)
+    out["hyb_spmm"] = dict(max_abs_err=abs_err, **t)
+    del H
+    L, U = iluk_factor(A, level=0)
+    plan = plan_fused_neumann(L, U, 6, dtype=torch.float32, device=dev)
+    form, plain = lambda: neumann_block_apply(plan, X), lambda: neumann_apply_plain(plan, X)
+    singles = lambda: [fused_neumann_apply(plan, x) for x in cols]
+    err, abs_err, err1 = check_krhs(torch, "K2k", form, plain, singles, 1e-5)
+    t = time_krhs(form, plain, singles, calls=5)
+    ndl, ndu = len(plan.L.offsets), len(plan.U.offsets)
+    report_krhs(f"K2k ilu0 laplacian_3d(128) sweeps=6 k={k} float32 (per apply)", card, err,
+                abs_err, err1, t, 6 * ((ndl + ndu) * n + 2 * 3 * k * n) * 4)
+    out["neumann_sweep_block"] = dict(max_abs_err=abs_err, **t)
+    del plan
+    M = partition_csr_dia(A, 8).to(device=dev, dtype=torch.float32)
+    P, R = M.nshards, M.rows_per_shard
+    x_ext = halo_exchange(X.view(P, R, k), M.lo, M.hi)
+    ext_cols = columns(x_ext)
+    form = lambda: dia_spmm_ext(M.data, M.offsets, x_ext, offsets_t=M.offsets_t)
+    plain = lambda: dia_spmm_ext_plain(M.data, M.offsets, x_ext)
+    singles = lambda: [dia_spmv_ext(M.data, M.offsets, x, offsets_t=M.offsets_t)
+                       for x in ext_cols]
+    err, abs_err, err1 = check_krhs(torch, "K4k", form, plain, singles, 1e-5)
+    t = time_krhs(form, plain, singles)
+    nbytes = P * (len(M.offsets) * R + k * (R + M.lo + M.hi) + k * R) * 4
+    report_krhs(f"K4k laplacian_3d(128) P={P} R={R} lo={M.lo} hi={M.hi} k={k} float32", card,
+                err, abs_err, err1, t, nbytes)
+    out["dist_spmm_ext"] = dict(max_abs_err=abs_err, **t)
+    return out
+
+
+def block_relres(A, X, B, np):
+    """Each column's true relative residual, recomputed with scipy."""
+    Bh, Xh = B.cpu().numpy(), X.cpu().numpy()
+    return np.linalg.norm(Bh - A.to_scipy() @ Xh, axis=0) / np.linalg.norm(Bh, axis=0)
+
+
+def serving_block(np, torch, dev, n, k=8):
+    return torch.from_numpy(np.random.default_rng(0).standard_normal((n, k))).to(dev)
+
+
+def check_block_kernels(lt, torch, A_dev, M, V, tol, name):
+    """The k-rhs kernels a multi solve just ran, on its own matrix (K1k on
+    a DIA, K3k on a HYB) and its own Neumann plan (K2k, strays included),
+    with the block V: each against its plain version and against k
+    single-rhs launches on V's columns, within ``tol``.  Returns {kernel:
+    max abs err against plain}."""
+    from lssp_tpu_torch.ops.dia_spmv import dia_spmm, dia_spmm_plain, dia_spmv
+    from lssp_tpu_torch.ops.hyb_spmv import hyb_spmm, hyb_spmm_plain, hyb_spmv
+    from lssp_tpu_torch.ops.neumann import (FusedNeumann, fused_neumann_apply,
+                                            neumann_apply_plain, neumann_block_apply)
+    cols = columns(V)
+    if isinstance(A_dev, lt.HYB):
+        pairs = {"hyb_spmm": (lambda: hyb_spmm(A_dev, V), lambda: hyb_spmm_plain(A_dev, V),
+                              lambda: [hyb_spmv(A_dev, x) for x in cols])}
+    else:
+        pairs = {"dia_spmm": (lambda: dia_spmm(A_dev, V),
+                              lambda: dia_spmm_plain(A_dev.data, A_dev.offsets, V),
+                              lambda: [dia_spmv(A_dev, x) for x in cols])}
+    check(M is not None and isinstance(M.state, FusedNeumann),
+          f"{name}: the preconditioner has no K2 plan")
+    pairs["neumann_sweep_block"] = (lambda: neumann_block_apply(M.state, V),
+                                    lambda: neumann_apply_plain(M.state, V),
+                                    lambda: [fused_neumann_apply(M.state, x) for x in cols])
+    out = {}
+    for kname, (form, plain, singles) in pairs.items():
+        err, abs_err, err1 = check_krhs(torch, f"{name}: {kname}", form, plain, singles, tol)
+        print(f"{name}: {kname} on the solve's own {str(V.dtype)[6:]} "
+              f"{'plan' if kname == 'neumann_sweep_block' else 'matrix'}, k={V.shape[1]}: "
+              f"max_rel_err {err:.3e} (vs plain) {err1:.3e} (vs k single launches) "
+              f"max_abs_err {abs_err:.3e}")
+        out[kname] = abs_err
+    return out
+
+
+def check_only(launches, allowed, name):
+    """Every counter outside ``allowed`` stayed at 0, and every one in it moved."""
+    for kname, count in launches.items():
+        if kname in allowed:
+            check(count > 0, f"{name}: kernel {kname} was never launched")
+        else:
+            check(count == 0, f"{name}: kernel {kname} launched {count} times")
+
+
+def phase_serving(lt, np, torch, dev, counters, card):
+    """Phase 15: the serving path, solve_ir_multi blockcg + ILU(0) on 128³,
+    k = 8, against 8 sequential solve_ir cg + ILU(0) on the same columns."""
+    A = lt.sparse.laplacian_3d(128)
+    B = serving_block(np, torch, dev, A.shape[0])
+    opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=2000)
+    for fn in counters:
+        fn.launches = 0
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        X, info = lt.solve_ir_multi(A, B, method="blockcg", pc="ilu0", options=opts)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if len(walls) == 1:
+            launches = {fn.__name__: fn.launches for fn in counters}
+    rr = block_relres(A, X, B, np)
+    seq = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        singles = [lt.solve_ir(A, B[:, c], method="cg", pc="ilu0", options=opts)
+                   for c in range(B.shape[1])]
+        torch.cuda.synchronize()
+        seq.append(time.perf_counter() - t0)
+    warm = min(walls[1:])
+    print(f"serving 128^3 solve_ir_multi blockcg+ilu0 k=8 [{card}]: inner its {info.nits} "
+          f"(max {info.nits.max()}), true relres max {rr.max():.3e}, first call (setup "
+          f"included) {walls[0]:.3f} s, warm {', '.join(f'{w:.3f}' for w in walls[1:])} s; "
+          f"8 sequential solve_ir cg+ilu0: {', '.join(f'{w:.3f}' for w in seq)} s (inner its "
+          f"{[s[1].nits for s in singles]}); ratio {min(seq) / warm:.2f}; launches of the first "
+          f"call {launches}")
+    check((rr <= 1e-8).all(), f"serving: true relres {rr} > 1e-8")
+    check(info.nits.max() <= 390, f"serving: {info.nits.max()} inner iterations > 390")
+    check_only(launches, {"dia_spmm", "neumann_block_apply"}, "serving")
+    _, _, A32, _, M32 = lt.prepare_ir(A, method="blockcg", pc="ilu0", device=dev)
+    errs = check_block_kernels(lt, torch, A32, M32, B.to(torch.float32), 1e-5, "serving")
+    return launches, errs
+
+
+def phase_per_column(lt, np, torch, dev, counters):
+    """Phase 16: solve_multi cg + ILU(0), fp64, 64³, k = 4 against each
+    column's own solve; then K1k and K2k checked on that solve's own fp64
+    matrix and plan (rebuilt by the same setup through the Solver)."""
+    A = lt.sparse.laplacian_3d(64)
+    B = serving_block(np, torch, dev, A.shape[0], k=4)
+    opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=2000)
+    for fn in counters:
+        fn.launches = 0
+    X, info = lt.solve_multi(A, B, method="cg", pc="ilu0", options=opts)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    singles = [lt.solve(A, B[:, c], method="cg", pc="ilu0", options=opts) for c in range(4)]
+    dx = [(torch.linalg.vector_norm(X[:, c] - x) / torch.linalg.vector_norm(x)).item()
+          for c, (x, _) in enumerate(singles)]
+    its = [i.nits for _, i in singles]
+    print(f"per-column 64^3 solve_multi cg+ilu0 fp64 k=4: nits {info.nits}, single solves "
+          f"{its}, x rel diff {max(dx):.3e}, launches {launches}")
+    check((np.abs(info.nits - np.array(its)) <= 1).all(),
+          f"per-column: counts {info.nits} against single solves {its}")
+    check(max(dx) <= 1e-8, f"per-column: x differs from the single solves by {max(dx):.3e}")
+    check_only(launches, {"dia_spmm", "neumann_block_apply"}, "per-column")
+    S = lt.Solver(method="cg", pc="ilu0", device=dev).assemble(A)
+    check(S.dtype == torch.float64, f"per-column: the solve's system is {S.dtype}")
+    return check_block_kernels(lt, torch, S.A_dev, S.M, B, 1e-12, "per-column")
+
+
+def phase_hyb_multi(lt, np, torch, dev, counters, card):
+    """Phase 17: solve_ir_multi blockgmres + ILU(1) on coupled3d_25 (HYB);
+    then K3k and K2k checked on that solve's own fp32 matrix and plan."""
+    A = lt.sparse.read_matrix_market(os.path.join(HERE, "benchmarks", "matrices",
+                                                  "coupled3d_25.mtx.gz"))
+    B = serving_block(np, torch, dev, A.shape[0], k=4)
+    opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=5000)
+    for fn in counters:
+        fn.launches = 0
+    X, info = lt.solve_ir_multi(A, B, method="blockgmres", pc="iluk", options=opts)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    rr = block_relres(A, X, B, np)
+    _, A64, A32, _, M32 = lt.prepare_ir(A, method="blockgmres", pc="iluk", device=dev)
+    print(f"hyb multi coupled3d_25 n={A.shape[0]} ({type(A64).__name__}) solve_ir_multi "
+          f"blockgmres+iluk k=4 [{card}]: inner its {info.nits}, true relres max {rr.max():.3e}, "
+          f"launches {launches}")
+    check(isinstance(A64, lt.HYB), f"hyb multi: format {type(A64).__name__}, not HYB")
+    check((rr <= 1e-8).all(), f"hyb multi: true relres {rr} > 1e-8")
+    check_only(launches, {"hyb_spmm", "neumann_block_apply"}, "hyb multi")
+    errs = check_block_kernels(lt, torch, A32, M32, B.to(torch.float32), 1e-5, "hyb multi")
+    return launches, errs
+
+
+def phase_dist_multi(lt, np, torch, dev, counters, card):
+    """Phase 18: dist_solve_ir_multi blockcg + ILU(0) on 128³ over 8 shards,
+    k = 8; K4k checked on the solve's own partition and factors."""
+    import torch.nn.functional as F
+    from lssp_tpu_torch.ops.dia_spmv_ext import dia_spmm_ext, dia_spmm_ext_plain, dia_spmv_ext
+    from lssp_tpu_torch.parallel import halo_exchange
+    A = lt.sparse.laplacian_3d(128)
+    B = serving_block(np, torch, dev, A.shape[0])
+    mesh = lt.make_mesh(8, devices=[dev] * 8)
+    opts = lt.SolverOptions(rtol=1e-8, atol=0, maxit=2000)
+    for fn in counters:
+        fn.launches = 0
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        X, info = lt.dist_solve_ir_multi(A, B, method="blockcg", pc="ilu0", mesh=mesh,
+                                         options=opts)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if len(walls) == 1:
+            launches = {fn.__name__: fn.launches for fn in counters}
+    rr = block_relres(A, X, B, np)
+    print(f"dist multi 128^3 dist_solve_ir_multi blockcg+ilu0 k=8 over 8 shards [{card}]: "
+          f"inner its {info.nits} (max {info.nits.max()}), true relres max {rr.max():.3e}, "
+          f"first call (setup included) {walls[0]:.3f} s, warm {walls[1]:.3f} s, launches of "
+          f"the first call {launches}")
+    check((rr <= 1e-8).all(), f"dist multi: true relres {rr} > 1e-8")
+    check(info.nits.max() <= 434, f"dist multi: {info.nits.max()} inner iterations > 434")
+    check_only(launches, {"dia_spmm_ext"}, "dist multi")
+    (prep,) = A._prepared_cache["dist"].values()
+    check(prep["kind"] == "ilu_nm", f"dist multi: preconditioner kind {prep['kind']}")
+    M, st = prep["M"], prep["pc_state"]
+    P, R = M.nshards, M.rows_per_shard
+    V = B.to(torch.float32).view(P, R, -1)
+    v_cols = columns(V)
+    worst = 0.0
+    for bname, T, xe in (("partition", M, halo_exchange(V, M.lo, M.hi)),
+                         ("Neumann L", st.L, F.pad(V, (0, 0, st.L.lo, st.L.hi))),
+                         ("Neumann U", st.U, F.pad(V, (0, 0, st.U.lo, st.U.hi)))):
+        xe_cols = columns(xe)
+        for alpha, beta, z in ((1.0, 0.0, None), (-1.0, 1.0, V)):
+            form = lambda: dia_spmm_ext(T.data, T.offsets, xe, alpha, beta, z,
+                                        offsets_t=T.offsets_t)
+            plain = lambda: dia_spmm_ext_plain(T.data, T.offsets, xe, alpha, beta, z)
+            singles = lambda: [dia_spmv_ext(T.data, T.offsets, x, alpha, beta,
+                                            None if z is None else zc, offsets_t=T.offsets_t)
+                               for x, zc in zip(xe_cols, v_cols)]
+            err, abs_err, err1 = check_krhs(torch, f"dist multi: K4k on the {bname} band "
+                                            f"(alpha {alpha}, beta {beta})", form, plain,
+                                            singles, 1e-5)
+            print(f"dist multi: K4k on the solve's {bname} band (ndiag {len(T.offsets)}), "
+                  f"alpha {alpha} beta {beta}, k=8, fp32: max_rel_err {err:.3e} (vs plain) "
+                  f"{err1:.3e} (vs k single launches) max_abs_err {abs_err:.3e}")
+            worst = max(worst, abs_err)
+    return launches, worst
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -668,7 +998,10 @@ def main():
     from lssp_tpu_torch.ops.dia_spmv import dia_spmv
     from lssp_tpu_torch.ops.dia_spmv_ext import dia_spmv_ext
     from lssp_tpu_torch.ops.hyb_spmv import hyb_spmv
-    from lssp_tpu_torch.ops.neumann import fused_neumann_apply
+    from lssp_tpu_torch.ops.neumann import fused_neumann_apply, neumann_block_apply
+    from lssp_tpu_torch.ops.dia_spmv import dia_spmm
+    from lssp_tpu_torch.ops.dia_spmv_ext import dia_spmm_ext
+    from lssp_tpu_torch.ops.hyb_spmv import hyb_spmm
     check(os.path.dirname(os.path.abspath(lt.__file__)) == os.path.join(HERE, "lssp_tpu_torch"),
           f"lssp_tpu_torch was imported from {lt.__file__}, not from this checkout")
     dev = torch.device("cuda:0")
@@ -689,6 +1022,17 @@ def main():
     phase_k4(lt, np, torch, dev, card)
     dist_launches, k4 = phase_dist_main(lt, np, torch, dev, counters, card)
     phase_dist_hyb(lt, np, torch, dev, counters, card)
+    krhs = phase_krhs(lt, np, torch, dev, card)
+    counters = (dia_spmv, fused_neumann_apply, hyb_spmv, dia_spmv_ext, dia_spmm,
+                neumann_block_apply, hyb_spmm, dia_spmm_ext)
+    serving_launches, serving_errs = phase_serving(lt, np, torch, dev, counters, card)
+    per_column_errs = phase_per_column(lt, np, torch, dev, counters)
+    hyb_multi_launches, hyb_multi_errs = phase_hyb_multi(lt, np, torch, dev, counters, card)
+    dist_multi_launches, k4k_err = phase_dist_multi(lt, np, torch, dev, counters, card)
+    # each k-rhs form's error is the worst over phase 14 and its phases' own data
+    for errs in (serving_errs, per_column_errs, hyb_multi_errs, {"dist_spmm_ext": k4k_err}):
+        for kname, err in errs.items():
+            krhs[kname]["max_abs_err"] = max(krhs[kname]["max_abs_err"], err)
     kernels = [
         dict(name="dia_spmv", route="cuda", source="lssp_tpu_torch/csrc/dia_spmv.cu",
              replaces="lssp_tpu/ops/pallas_spmv.py:91", launches=launches["dia_spmv"], **k1),
@@ -701,6 +1045,19 @@ def main():
         dict(name="dist_spmv_ext", route="cuda", source="lssp_tpu_torch/csrc/dia_spmv_ext.cu",
              replaces="lssp_tpu/ops/pallas_spmv.py:91 (prepadded=True), :710",
              launches=dist_launches["dia_spmv_ext"], **k4),
+        dict(name="dia_spmm", route="cuda", source="lssp_tpu_torch/csrc/dia_spmv.cu",
+             replaces="lssp_tpu/ops/pallas_spmv.py:91 (k-rhs vmap rule :648)",
+             launches=serving_launches["dia_spmm"], **krhs["dia_spmm"]),
+        dict(name="neumann_sweep_block", route="cuda", source="lssp_tpu_torch/csrc/neumann.cu",
+             replaces="lssp_tpu/ops/pallas_neumann.py:196 (k-rhs vmap rule :280)",
+             launches=serving_launches["neumann_block_apply"], **krhs["neumann_sweep_block"]),
+        dict(name="hyb_spmm", route="cuda", source="lssp_tpu_torch/csrc/hyb_spmv.cu",
+             replaces="lssp_tpu/ops/pallas_spmv.py:370 (k-rhs vmap rule :534), "
+                      "lssp_tpu/ops/pallas_spmv.py:218 (k-rhs vmap rule :588)",
+             launches=hyb_multi_launches["hyb_spmm"], **krhs["hyb_spmm"]),
+        dict(name="dist_spmm_ext", route="cuda", source="lssp_tpu_torch/csrc/dia_spmv_ext.cu",
+             replaces="lssp_tpu/ops/pallas_spmv.py:91 (prepadded=True; k-rhs vmap rule :691)",
+             launches=dist_multi_launches["dia_spmm_ext"], **krhs["dist_spmm_ext"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

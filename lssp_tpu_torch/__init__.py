@@ -7,18 +7,26 @@ PyTorch and on CUDA tensors through four hand-written kernels: the DIA
 stencil SpMV (``ops/dia_spmv.py``, K1), the Neumann ILU sweep
 (``ops/neumann.py``, K2), the HYB band-plus-remainder SpMV
 (``ops/hyb_spmv.py``, K3) and the per-shard DIA SpMV of the distributed
-solve (``ops/dia_spmv_ext.py``, K4; ``parallel/``).
+solve (``ops/dia_spmv_ext.py``, K4; ``parallel/``), each with a k-rhs form
+(K1k-K4k) for the multi-rhs path (``solve_multi``, ``solve_ir_multi``,
+``dist_solve_multi``, ``dist_solve_ir_multi``; B is (n, k)).
 
     >>> import torch, lssp_tpu_torch as lt
     >>> A = lt.sparse.laplacian_3d(64)              # host CSR
     >>> b = torch.ones(A.shape[0], dtype=torch.float64, device="cuda")
     >>> x, info = lt.solve_ir(A, b, method="cg", pc="ilu0")
+    >>> B = torch.randn(A.shape[0], 8, dtype=torch.float64, device="cuda")
+    >>> X, info = lt.solve_ir_multi(A, B, method="blockcg", pc="ilu0")
 """
 
 from lssp_tpu_torch import ops, parallel, pc, solvers, sparse
 from lssp_tpu_torch.config import Defaults, PCOptions, SolverOptions
-from lssp_tpu_torch.parallel import dist_solve, dist_solve_ir, make_mesh
-from lssp_tpu_torch.solvers import SolveInfo, Solver, prepare_ir, solve, solve_ir
+from lssp_tpu_torch.parallel import (
+    dist_solve, dist_solve_ir, dist_solve_ir_multi, dist_solve_multi, make_mesh,
+)
+from lssp_tpu_torch.solvers import (
+    SolveInfo, Solver, prepare_ir, solve, solve_ir, solve_ir_multi, solve_multi,
+)
 from lssp_tpu_torch.sparse import COO, CSR, DIA, ELL, HYB
 
 __version__ = "0.1.0"
@@ -27,6 +35,7 @@ __all__ = [
     "sparse", "ops", "parallel", "solvers", "pc",
     "SolverOptions", "PCOptions", "Defaults",
     "solve", "solve_ir", "prepare_ir", "Solver", "SolveInfo",
-    "dist_solve", "dist_solve_ir", "make_mesh",
+    "solve_multi", "solve_ir_multi",
+    "dist_solve", "dist_solve_ir", "dist_solve_multi", "dist_solve_ir_multi", "make_mesh",
     "COO", "CSR", "DIA", "ELL", "HYB",
 ]

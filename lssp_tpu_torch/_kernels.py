@@ -3,9 +3,9 @@
 The sources are compiled on first use with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` into ``lssp_tpu_torch/_build/libkernels.so``
 (a plain C interface, loaded with ctypes), under a lock, and rebuilt when a
-source is newer than the library.  Nothing here runs at import time: the
-CPU never needs the library, because CPU tensors take each kernel's plain
-PyTorch version.
+source or header (``csrc/*.cuh``) is newer than the library.  Nothing here
+runs at import time: the CPU never needs the library, because CPU tensors
+take each kernel's plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -70,7 +70,8 @@ def _stale() -> bool:
     if not os.path.exists(_LIB_PATH):
         return True
     built = os.path.getmtime(_LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in _sources())
+    inputs = _sources() + glob.glob(os.path.join(_CSRC, "*.cuh"))
+    return any(os.path.getmtime(s) > built for s in inputs)
 
 
 def load():
@@ -98,6 +99,19 @@ def load():
             fn = getattr(lib, f"lssp_dia_spmv_ext_{suf}")
             fn.argtypes = [p, p, i32, i64, i64, i64, i64, p, f64, f64, p, p, p]
             fn.restype = ctypes.c_int
+            # the k-rhs forms K1k-K4k: one more int64, k, after the sizes
+            fn = getattr(lib, f"lssp_dia_spmm_{suf}")
+            fn.argtypes = [p, p, i32, i64, i64, i64, p, f64, f64, p, p, p]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"lssp_neumann_sweep_block_{suf}")
+            fn.argtypes = [p, p, i32, i64, i64, p, p, p, p, p, p, p, p]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"lssp_hyb_spmm_{suf}")
+            fn.argtypes = [p, p, i32, i64, i64, i64, p, p, p, p, p, f64, f64, p, p, p]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"lssp_dia_spmm_ext_{suf}")
+            fn.argtypes = [p, p, i32, i64, i64, i64, i64, i64, p, f64, f64, p, p, p]
+            fn.restype = ctypes.c_int
         _lib = lib
         return _lib
 
@@ -117,6 +131,17 @@ def check_cuda(name: str, t: torch.Tensor, dtype, shape=None) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def check_block(name: str, X: torch.Tensor, dtype, rows: int) -> int:
+    """Raise unless ``X`` is an (rows, k) block in the layout of
+    ``ops/spmv.py`` (row-major, contiguous, on CUDA, of ``dtype``); returns
+    k.  A non-contiguous block is rejected, never copied."""
+    if not isinstance(X, torch.Tensor) or X.ndim != 2:
+        raise ValueError(f"{name}: expected an (n, k) block, got "
+                         f"{tuple(getattr(X, 'shape', ()))}")
+    check_cuda(name, X, dtype, (rows, X.shape[1]))
+    return int(X.shape[1])
 
 
 def kernel_dtype(name: str, t: torch.Tensor):

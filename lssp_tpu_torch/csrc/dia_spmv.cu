@@ -24,12 +24,28 @@
 // guarded by 0 <= i + off_d < ncols: the stored data slot is 0 there, but
 // x[i + off_d] would be an illegal address.
 //
+// K1k, the k-rhs form (lssp_tpu/ops/pallas_spmv.py: _vmap_safe_kernel's
+// vmap rule, an XLA shifted-stream SpMM), on an (n, k) block stored
+// row-major, element (i, c) at i * k + c (the layout ops/spmv.py states):
+//
+//   Y[i, c] = alpha * sum_d data[d, i] * X[i + off_d, c]  (+ beta * Z[i, c])
+//
+// One thread per row and register tile of KT columns (csrc/krhs.cuh): the
+// band value data[d, i] is read once and multiplies the tile's KT values of
+// row i + off_d, read as 16-byte vectors, so the band streams once per
+// product for all k columns: (ndiag + 2k) * sizeof(T) bytes per row against
+// k * (ndiag + 2) for k single launches.  Each column sums its diagonals in
+// K1's order, so column c equals K1 on column c up to the compiler's
+// contraction choices.
+//
 // Later work: a shared-memory x window with its halo, 16-byte vector
-// loads, and the k-rhs SpMM form.
+// loads in K1.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "krhs.cuh"
 
 namespace {
 
@@ -53,6 +69,24 @@ __global__ void dia_spmv_kernel(const T* __restrict__ data,
   y[i] = out;
 }
 
+template <typename T, int KT>
+__global__ void dia_spmm_kernel(const T* __restrict__ data,
+                                const int32_t* __restrict__ offsets, int ndiag,
+                                int64_t n, int64_t ncols, int64_t k,
+                                const T* __restrict__ X, T alpha, T beta,
+                                const T* __restrict__ Z, T* __restrict__ Y) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.y) * KT;
+  lssp::Tile<T, KT> acc;
+  acc.zero();
+  for (int d = 0; d < ndiag; ++d) {
+    const int64_t j = i + __ldg(offsets + d);
+    if (j >= 0 && j < ncols) acc.axpy(data[static_cast<int64_t>(d) * n + i], X + j * k + c0);
+  }
+  acc.axpby_store(alpha, beta, Z == nullptr ? nullptr : Z + i * k + c0, Y + i * k + c0);
+}
+
 template <typename T>
 int launch(const void* data, const void* offsets, int ndiag, int64_t n,
            int64_t ncols, const void* x, double alpha, double beta,
@@ -65,6 +99,34 @@ int launch(const void* data, const void* offsets, int ndiag, int64_t n,
       n, ncols, static_cast<const T*>(x), static_cast<T>(alpha),
       static_cast<T>(beta), static_cast<const T*>(z), static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int KT>
+int launch_tile(const void* data, const void* offsets, int ndiag, int64_t n,
+                int64_t ncols, int64_t k, const void* X, double alpha, double beta,
+                const void* Z, void* Y, void* stream) {
+  const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(k / KT));
+  dia_spmm_kernel<T, KT><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(data), static_cast<const int32_t*>(offsets), ndiag,
+      n, ncols, k, static_cast<const T*>(X), static_cast<T>(alpha),
+      static_cast<T>(beta), static_cast<const T*>(Z), static_cast<T*>(Y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_spmm(const void* data, const void* offsets, int ndiag, int64_t n,
+                int64_t ncols, int64_t k, const void* X, double alpha,
+                double beta, const void* Z, void* Y, void* stream) {
+  if (n == 0 || k == 0) return static_cast<int>(cudaSuccess);
+  const int kt = lssp::tile_width<T>(k, X, Z, Y);
+  if (k / kt > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  switch (kt) {
+    case 8: return launch_tile<T, 8>(data, offsets, ndiag, n, ncols, k, X, alpha, beta, Z, Y, stream);
+    case 4: return launch_tile<T, 4>(data, offsets, ndiag, n, ncols, k, X, alpha, beta, Z, Y, stream);
+    case 2: return launch_tile<T, 2>(data, offsets, ndiag, n, ncols, k, X, alpha, beta, Z, Y, stream);
+    default: return launch_tile<T, 1>(data, offsets, ndiag, n, ncols, k, X, alpha, beta, Z, Y, stream);
+  }
 }
 
 }  // namespace
@@ -83,6 +145,25 @@ int lssp_dia_spmv_f64(const void* data, const void* offsets, int ndiag,
                       int64_t n, int64_t ncols, const void* x, double alpha,
                       double beta, const void* z, void* y, void* stream) {
   return launch<double>(data, offsets, ndiag, n, ncols, x, alpha, beta, z, y, stream);
+}
+
+// K1k.  data: (ndiag, n) row-major; offsets: (ndiag,) int32; X: (ncols, k),
+// Z: (n, k) or null, Y: (n, k), all three row-major.  All on the device.
+// Returns cudaGetLastError().
+int lssp_dia_spmm_f32(const void* data, const void* offsets, int ndiag,
+                      int64_t n, int64_t ncols, int64_t k, const void* X,
+                      double alpha, double beta, const void* Z, void* Y,
+                      void* stream) {
+  return launch_spmm<float>(data, offsets, ndiag, n, ncols, k, X, alpha, beta, Z, Y,
+                            stream);
+}
+
+int lssp_dia_spmm_f64(const void* data, const void* offsets, int ndiag,
+                      int64_t n, int64_t ncols, int64_t k, const void* X,
+                      double alpha, double beta, const void* Z, void* Y,
+                      void* stream) {
+  return launch_spmm<double>(data, offsets, ndiag, n, ncols, k, X, alpha, beta, Z, Y,
+                             stream);
 }
 
 }  // extern "C"

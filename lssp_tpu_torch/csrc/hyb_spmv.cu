@@ -36,12 +36,23 @@
 // atomics, so two runs give bitwise-equal y.  A row with many entries is
 // simply a long loop for its thread; columns are not bounded.
 //
+// K3k, the k-rhs form (the vmap rules of both HYB kernels,
+// pallas_spmv.py: _vmap_safe_hyb_tc_kernel and _vmap_safe_hyb_kernel), on
+// (n, k) row-major blocks, element (i, c) at i * k + c: K1k's band loop
+// (csrc/dia_spmv.cu; one thread per row and register tile of KT columns,
+// csrc/krhs.cuh) plus the row's remainder entries, each value read once
+// for the tile and each column summed in K3's order.  The remainder index
+// stays the one for kThreads-row blocks, and a thread block still holds
+// kThreads rows (grid.y walks the column tiles).
+//
 // Later work: a shared-memory x window with its halo, 16-byte vector
-// loads, warp-cooperative sums for heavy remainder rows, the k-rhs form.
+// loads, warp-cooperative sums for heavy remainder rows.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "krhs.cuh"
 
 namespace {
 
@@ -81,6 +92,40 @@ __global__ void hyb_spmv_kernel(const T* __restrict__ data,
   y[i] = out;
 }
 
+template <typename T, int KT>
+__global__ void hyb_spmm_kernel(const T* __restrict__ data,
+                                const int32_t* __restrict__ offsets, int ndiag,
+                                int64_t n, int64_t ncols, int64_t k,
+                                const int32_t* __restrict__ rem_rows,
+                                const int32_t* __restrict__ rem_cols,
+                                const T* __restrict__ rem_vals,
+                                const int32_t* __restrict__ rem_block_ptr,
+                                const T* __restrict__ X, T alpha, T beta,
+                                const T* __restrict__ Z, T* __restrict__ Y) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.y) * KT;
+  lssp::Tile<T, KT> acc;
+  acc.zero();
+  for (int d = 0; d < ndiag; ++d) {
+    const int64_t j = i + __ldg(offsets + d);
+    if (j >= 0 && j < ncols) acc.axpy(data[static_cast<int64_t>(d) * n + i], X + j * k + c0);
+  }
+  const int32_t end = __ldg(rem_block_ptr + blockIdx.x + 1);
+  int32_t lo = __ldg(rem_block_ptr + blockIdx.x);
+  if (lo < end) {
+    const int32_t row = static_cast<int32_t>(i);
+    int32_t hi = end;
+    while (lo < hi) {                    // first entry with rem_rows >= row
+      const int32_t mid = lo + ((hi - lo) >> 1);
+      if (__ldg(rem_rows + mid) < row) lo = mid + 1; else hi = mid;
+    }
+    for (int32_t e = lo; e < end && __ldg(rem_rows + e) == row; ++e)
+      acc.axpy(__ldg(rem_vals + e), X + static_cast<int64_t>(__ldg(rem_cols + e)) * k + c0);
+  }
+  acc.axpby_store(alpha, beta, Z == nullptr ? nullptr : Z + i * k + c0, Y + i * k + c0);
+}
+
 template <typename T>
 int launch(const void* data, const void* offsets, int ndiag, int64_t n,
            int64_t ncols, const void* rem_rows, const void* rem_cols,
@@ -97,6 +142,45 @@ int launch(const void* data, const void* offsets, int ndiag, int64_t n,
       static_cast<T>(alpha), static_cast<T>(beta), static_cast<const T*>(z),
       static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int KT>
+int launch_tile(const void* data, const void* offsets, int ndiag, int64_t n,
+                int64_t ncols, int64_t k, const void* rem_rows,
+                const void* rem_cols, const void* rem_vals,
+                const void* rem_block_ptr, const void* X, double alpha,
+                double beta, const void* Z, void* Y, void* stream) {
+  const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(k / KT));
+  hyb_spmm_kernel<T, KT><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(data), static_cast<const int32_t*>(offsets), ndiag,
+      n, ncols, k, static_cast<const int32_t*>(rem_rows),
+      static_cast<const int32_t*>(rem_cols), static_cast<const T*>(rem_vals),
+      static_cast<const int32_t*>(rem_block_ptr), static_cast<const T*>(X),
+      static_cast<T>(alpha), static_cast<T>(beta), static_cast<const T*>(Z),
+      static_cast<T*>(Y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_spmm(const void* data, const void* offsets, int ndiag, int64_t n,
+                int64_t ncols, int64_t k, const void* rem_rows,
+                const void* rem_cols, const void* rem_vals,
+                const void* rem_block_ptr, const void* X, double alpha,
+                double beta, const void* Z, void* Y, void* stream) {
+  if (n == 0 || k == 0) return static_cast<int>(cudaSuccess);
+  const int kt = lssp::tile_width<T>(k, X, Z, Y);
+  if (k / kt > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+#define LSSP_HYB_TILE(KT)                                                         \
+  return launch_tile<T, KT>(data, offsets, ndiag, n, ncols, k, rem_rows, rem_cols, \
+                            rem_vals, rem_block_ptr, X, alpha, beta, Z, Y, stream)
+  switch (kt) {
+    case 8: LSSP_HYB_TILE(8);
+    case 4: LSSP_HYB_TILE(4);
+    case 2: LSSP_HYB_TILE(2);
+    default: LSSP_HYB_TILE(1);
+  }
+#undef LSSP_HYB_TILE
 }
 
 }  // namespace
@@ -128,6 +212,26 @@ int lssp_hyb_spmv_f64(const void* data, const void* offsets, int ndiag,
   return launch<double>(data, offsets, ndiag, n, ncols, rem_rows, rem_cols,
                         rem_vals, rem_block_ptr, x, alpha, beta, z,
                         y, stream);
+}
+
+// K3k.  As above, with X: (ncols, k), Z: (n, k) or null and Y: (n, k),
+// all three row-major.  Returns cudaGetLastError().
+int lssp_hyb_spmm_f32(const void* data, const void* offsets, int ndiag,
+                      int64_t n, int64_t ncols, int64_t k, const void* rem_rows,
+                      const void* rem_cols, const void* rem_vals,
+                      const void* rem_block_ptr, const void* X, double alpha,
+                      double beta, const void* Z, void* Y, void* stream) {
+  return launch_spmm<float>(data, offsets, ndiag, n, ncols, k, rem_rows, rem_cols,
+                            rem_vals, rem_block_ptr, X, alpha, beta, Z, Y, stream);
+}
+
+int lssp_hyb_spmm_f64(const void* data, const void* offsets, int ndiag,
+                      int64_t n, int64_t ncols, int64_t k, const void* rem_rows,
+                      const void* rem_cols, const void* rem_vals,
+                      const void* rem_block_ptr, const void* X, double alpha,
+                      double beta, const void* Z, void* Y, void* stream) {
+  return launch_spmm<double>(data, offsets, ndiag, n, ncols, k, rem_rows, rem_cols,
+                             rem_vals, rem_block_ptr, X, alpha, beta, Z, Y, stream);
 }
 
 }  // extern "C"

@@ -28,6 +28,16 @@
 // consecutively across a warp, so band and iterate loads coalesce; the
 // stray gathers are scattered but few (2% occupancy floor per diagonal).
 //
+// K2k, the k-rhs form (pallas_neumann.py: _vmap_safe_apply's vmap rule,
+// which runs _batched_band_apply for pure-band factors and a per-column
+// lax.map of the kernel when the factors have strays): the same sweep on
+// (n, k) row-major blocks y, base and out, element (i, c) at i * k + c,
+// with the wrapper's same ping-pong of 2 * sweeps launches.  One thread per
+// row and register tile of KT columns (csrc/krhs.cuh): each band value and
+// each stray (value, column) pair is read once for the tile, so the factors
+// stream once per sweep for all k columns, strays included (no per-column
+// fallback).  Each column sums in K2's order.
+//
 // Later work: one persistent kernel with a grid-wide sync between sweeps,
 // so the factors stream once per apply from L2 (the 64^3 fp32 factors fit
 // the 50 MB L2).
@@ -35,6 +45,8 @@
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "krhs.cuh"
 
 namespace {
 
@@ -66,6 +78,40 @@ __global__ void neumann_sweep_kernel(const T* __restrict__ band,
   out[i] = v;
 }
 
+template <typename T, int KT>
+__global__ void neumann_sweep_block_kernel(const T* __restrict__ band,
+                                           const int32_t* __restrict__ offsets,
+                                           int ndiag, int64_t n, int64_t k,
+                                           const int32_t* __restrict__ sptr,
+                                           const int32_t* __restrict__ scol,
+                                           const T* __restrict__ sval,
+                                           const T* y, const T* base,
+                                           const T* __restrict__ invd,
+                                           T* __restrict__ out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.y) * KT;
+  lssp::Tile<T, KT> acc, v;
+  acc.zero();
+  for (int d = 0; d < ndiag; ++d) {
+    const int64_t j = i + __ldg(offsets + d);
+    if (j >= 0 && j < n) acc.axpy(band[static_cast<int64_t>(d) * n + i], y + j * k + c0);
+  }
+  if (sptr != nullptr) {
+    const int32_t e = sptr[i + 1];
+    for (int32_t s = sptr[i]; s < e; ++s)
+      acc.axpy(sval[s], y + static_cast<int64_t>(scol[s]) * k + c0);
+  }
+  v.load(base + i * k + c0);
+  const T scale = invd != nullptr ? invd[i] : T(1);
+#pragma unroll
+  for (int c = 0; c < KT; ++c) {
+    v.v[c] -= acc.v[c];
+    if (invd != nullptr) v.v[c] *= scale;
+  }
+  v.store(out + i * k + c0);
+}
+
 template <typename T>
 int launch(const void* band, const void* offsets, int ndiag, int64_t n,
            const void* sptr, const void* scol, const void* sval, const void* y,
@@ -80,6 +126,42 @@ int launch(const void* band, const void* offsets, int ndiag, int64_t n,
       static_cast<const T*>(base), static_cast<const T*>(invd),
       static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int KT>
+int launch_tile(const void* band, const void* offsets, int ndiag, int64_t n,
+                int64_t k, const void* sptr, const void* scol, const void* sval,
+                const void* y, const void* base, const void* invd, void* out,
+                void* stream) {
+  const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(k / KT));
+  neumann_sweep_block_kernel<T, KT><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(band), static_cast<const int32_t*>(offsets), ndiag, n, k,
+      static_cast<const int32_t*>(sptr), static_cast<const int32_t*>(scol),
+      static_cast<const T*>(sval), static_cast<const T*>(y),
+      static_cast<const T*>(base), static_cast<const T*>(invd),
+      static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_block(const void* band, const void* offsets, int ndiag, int64_t n,
+                 int64_t k, const void* sptr, const void* scol, const void* sval,
+                 const void* y, const void* base, const void* invd, void* out,
+                 void* stream) {
+  if (n == 0 || k == 0) return static_cast<int>(cudaSuccess);
+  int kt = lssp::tile_width<T>(k, y, base, out);
+  if (k / kt > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+#define LSSP_SWEEP_TILE(KT)                                                        \
+  return launch_tile<T, KT>(band, offsets, ndiag, n, k, sptr, scol, sval, y, base, \
+                            invd, out, stream)
+  switch (kt) {
+    case 8: LSSP_SWEEP_TILE(8);
+    case 4: LSSP_SWEEP_TILE(4);
+    case 2: LSSP_SWEEP_TILE(2);
+    default: LSSP_SWEEP_TILE(1);
+  }
+#undef LSSP_SWEEP_TILE
 }
 
 }  // namespace
@@ -104,6 +186,26 @@ int lssp_neumann_sweep_f64(const void* band, const void* offsets, int ndiag,
                            const void* invd, void* out, void* stream) {
   return launch<double>(band, offsets, ndiag, n, sptr, scol, sval, y, base, invd,
                         out, stream);
+}
+
+// K2k.  As above, with y, base, out: (n, k) row-major; invd stays (n,).
+// out must not alias y.  Returns cudaGetLastError().
+int lssp_neumann_sweep_block_f32(const void* band, const void* offsets, int ndiag,
+                                 int64_t n, int64_t k, const void* sptr,
+                                 const void* scol, const void* sval, const void* y,
+                                 const void* base, const void* invd, void* out,
+                                 void* stream) {
+  return launch_block<float>(band, offsets, ndiag, n, k, sptr, scol, sval, y, base,
+                             invd, out, stream);
+}
+
+int lssp_neumann_sweep_block_f64(const void* band, const void* offsets, int ndiag,
+                                 int64_t n, int64_t k, const void* sptr,
+                                 const void* scol, const void* sval, const void* y,
+                                 const void* base, const void* invd, void* out,
+                                 void* stream) {
+  return launch_block<double>(band, offsets, ndiag, n, k, sptr, scol, sval, y, base,
+                              invd, out, stream);
 }
 
 }  // extern "C"

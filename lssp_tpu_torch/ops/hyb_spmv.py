@@ -9,6 +9,11 @@ fallback from one to the other.  Replaces both HYB kernels of
 ``lssp_tpu/ops/pallas_spmv.py`` (``_dia_spmv_hyb_tc_pallas`` and
 ``_dia_spmv_hyb_pallas``) and the XLA remainder scatter around them
 (``lssp_tpu/ops/spmv.py: _spmv_hyb``).
+
+``hyb_spmm(H, X, alpha, beta, Z)`` is the same on an (n, k) block (the
+layout ``ops/spmv.py`` states) in one launch of K3k, the counterpart of
+the k-rhs ``custom_vmap`` rules of both HYB kernels; ``hyb_spmm_plain`` is
+its plain version.
 """
 from __future__ import annotations
 
@@ -24,9 +29,11 @@ from lssp_tpu_torch.sparse.types import HYB
 def hyb_spmv_plain(H: HYB, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
                    z: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``alpha·(band·x + remainder·x) + beta·z`` in plain PyTorch: the shifted
-    band sum, then ``rem_vals·x[rem_cols]`` added into ``rem_rows``."""
+    band sum, then ``rem_vals·x[rem_cols]`` added into ``rem_rows``.  ``x``
+    may be an (n, k) block (``hyb_spmm_plain``)."""
     y = shifted_sum(H.dia.data, H.dia.offsets, x)
-    y = y.index_add(0, H.rem_rows.long(), H.rem_vals * x[H.rem_cols.long()])
+    vals = H.rem_vals[:, None] if x.ndim == 2 else H.rem_vals
+    y = y.index_add(0, H.rem_rows.long(), vals * x[H.rem_cols.long()])
     if alpha != 1.0:
         y = alpha * y
     if z is not None:
@@ -34,10 +41,15 @@ def hyb_spmv_plain(H: HYB, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.
     return y
 
 
-def _check(H: HYB, x: torch.Tensor, z) -> None:
+def _check(H: HYB, x: torch.Tensor, z, block: bool = False) -> None:
+    """Raise unless H, x and z are what K3 (``block``: K3k, x an (m, k)
+    block) takes."""
     n, m = H.shape
     dt, nrem = x.dtype, H.nnz_rem
-    _kernels.check_cuda("hyb_spmv x", x, dt, (m,))
+    if block:
+        k = _kernels.check_block("hyb_spmm X", x, dt, m)
+    else:
+        _kernels.check_cuda("hyb_spmv x", x, dt, (m,))
     _kernels.check_cuda("hyb_spmv band", H.dia.data, dt, (len(H.dia.offsets), n))
     _kernels.check_cuda("hyb_spmv offsets", H.dia.offsets_t, torch.int32)
     _kernels.check_cuda("hyb_spmv rem_rows", H.rem_rows, torch.int32, (nrem,))
@@ -48,7 +60,7 @@ def _check(H: HYB, x: torch.Tensor, z) -> None:
                         (nblocks + 1,))
     tensors = [H.dia.data, H.rem_rows, H.rem_cols, H.rem_vals, H.rem_block_ptr]
     if z is not None:
-        _kernels.check_cuda("hyb_spmv z", z, dt, (n,))
+        _kernels.check_cuda("hyb_spmv z", z, dt, (n, k) if block else (n,))
         tensors.append(z)
     for t in tensors:
         if t.device != x.device:
@@ -77,3 +89,37 @@ def hyb_spmv(H: HYB, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
 
 
 hyb_spmv.launches = 0
+
+
+def hyb_spmm_plain(H: HYB, X: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
+                   Z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``alpha·(H@X) + beta·Z`` on an (n, k) block in plain PyTorch."""
+    if X.ndim != 2:
+        raise ValueError(f"hyb_spmm_plain: expected an (n, k) block, got {tuple(X.shape)}")
+    return hyb_spmv_plain(H, X, alpha, beta, Z)
+
+
+def hyb_spmm(H: HYB, X: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
+             Z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``Y = alpha·(H@X) + beta·Z`` for an (n, k) block (``Z`` optional).
+    CUDA tensors launch K3k once for all k columns; CPU tensors take
+    ``hyb_spmm_plain``."""
+    if X.device.type == "cpu":
+        return hyb_spmm_plain(H, X, alpha, beta, Z)
+    suf = _kernels.kernel_dtype("hyb_spmm X", X)
+    _check(H, X, Z, block=True)
+    n, m = H.shape
+    k = X.shape[1]
+    Y = torch.empty(n, k, dtype=X.dtype, device=X.device)
+    p = _kernels.ptr
+    fn = getattr(_kernels.load(), f"lssp_hyb_spmm_{suf}")
+    status = fn(p(H.dia.data), p(H.dia.offsets_t), len(H.dia.offsets), n, m, k,
+                p(H.rem_rows), p(H.rem_cols), p(H.rem_vals), p(H.rem_block_ptr),
+                p(X), float(alpha), float(beta), p(Z), p(Y),
+                _kernels.stream_ptr(X.device))
+    _kernels.check_status("hyb_spmm", status)
+    hyb_spmm.launches += 1
+    return Y
+
+
+hyb_spmm.launches = 0

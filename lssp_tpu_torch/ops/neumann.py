@@ -12,6 +12,13 @@ The plan keeps the TPU plan's band/stray split (``split_band``: the up to
 are laid out as in ``lssp_tpu``; strays go in as row-sorted CSR.  The TPU
 kernel is fp32 only; this one runs in the plan's dtype (float32 or
 float64), and ``fused_neumann_apply`` requires ``r`` in that dtype.
+
+On an (n, k) block (the layout ``ops/spmv.py`` states)
+``fused_neumann_apply`` runs ``neumann_block_apply``: the same 2k sweeps
+as launches of K2k (``lssp_neumann_sweep_block``), which reads the factors
+once per sweep for all k columns, strays included — JAX's k-rhs rule
+(``_vmap_safe_apply``) falls back to per-column kernel calls when the
+factors have strays; this does not.
 """
 from __future__ import annotations
 
@@ -118,36 +125,30 @@ def plan_fused_neumann(L: CSR, U: CSR, sweeps: int, max_diags: int = 48,
 
 
 def _factor_plain(F: NeumannFactor, y: torch.Tensor) -> torch.Tensor:
-    """(Ls·y) or ((D⁻¹Us)·y) in plain PyTorch."""
+    """(Ls·y) or ((D⁻¹Us)·y) in plain PyTorch; ``y`` (n,) or (n, k)."""
     acc = shifted_sum(F.band, F.offsets, y)
     if F.stray_ptr is not None:
         n = y.shape[0]
         rows = torch.repeat_interleave(torch.arange(n, device=y.device),
                                        (F.stray_ptr[1:] - F.stray_ptr[:-1]).long(),
                                        output_size=F.stray_cols.shape[0])
-        acc = acc.index_add(0, rows, F.stray_vals * y[F.stray_cols.long()])
+        vals = F.stray_vals[:, None] if y.ndim == 2 else F.stray_vals
+        acc = acc.index_add(0, rows, vals * y[F.stray_cols.long()])
     return acc
 
 
 def neumann_apply_plain(plan: FusedNeumann, r: torch.Tensor) -> torch.Tensor:
-    """The whole apply in plain PyTorch (the math of K2's 2k sweeps)."""
+    """The whole apply in plain PyTorch (the math of K2's 2k sweeps), on
+    ``r`` (n,) or an (n, k) block (the math of K2k)."""
+    invdiag = plan.invdiag[:, None] if r.ndim == 2 else plan.invdiag
     y = r
     for _ in range(plan.sweeps):
         y = r - _factor_plain(plan.L, y)
-    z0 = plan.invdiag * y
+    z0 = invdiag * y
     z = z0
     for _ in range(plan.sweeps):
         z = z0 - _factor_plain(plan.U, z)
     return z
-
-
-def _sweep(fn, F: NeumannFactor, n, y, base, invd, out, stream) -> None:
-    status = fn(_kernels.ptr(F.band), _kernels.ptr(F.offsets_t), len(F.offsets), n,
-                _kernels.ptr(F.stray_ptr), _kernels.ptr(F.stray_cols),
-                _kernels.ptr(F.stray_vals), _kernels.ptr(y), _kernels.ptr(base),
-                _kernels.ptr(invd), _kernels.ptr(out), stream)
-    _kernels.check_status("neumann_sweep", status)
-    fused_neumann_apply.launches += 1
 
 
 def _check_plan(plan: FusedNeumann, device) -> None:
@@ -166,34 +167,70 @@ def _check_plan(plan: FusedNeumann, device) -> None:
                 raise ValueError(f"plan on {t.device}, r on {device}")
 
 
-def fused_neumann_apply(plan: FusedNeumann, r: torch.Tensor) -> torch.Tensor:
-    """z ≈ U⁻¹L⁻¹r.  CUDA tensors run K2 as 2·sweeps launches; CPU tensors
-    take ``neumann_apply_plain``.  ``r`` must have the plan's dtype."""
-    if r.dtype != plan.dtype:
-        raise TypeError(f"fused_neumann_apply: r is {r.dtype}, the plan {plan.dtype}")
-    if r.device.type == "cpu":
-        return neumann_apply_plain(plan, r)
-    suf = _kernels.kernel_dtype("fused_neumann_apply r", r)
-    _kernels.check_cuda("fused_neumann_apply r", r, plan.dtype, (plan.n,))
-    _check_plan(plan, r.device)
+def _run_sweeps(plan: FusedNeumann, r: torch.Tensor, entry: str, sizes, counter):
+    """The 2·sweeps launches of ``entry`` (K2, or K2k with ``sizes`` (n,
+    k)), ping-ponging between two buffers; each launch adds one to
+    ``counter.launches``."""
     if plan.sweeps < 1:
         raise ValueError("fused_neumann_apply needs sweeps >= 1")
-    fn = getattr(_kernels.load(), f"lssp_neumann_sweep_{suf}")
+    _check_plan(plan, r.device)
+    fn = getattr(_kernels.load(), entry)
     stream = _kernels.stream_ptr(r.device)
-    n, k = plan.n, plan.sweeps
+    p = _kernels.ptr
+
+    def sweep(F: NeumannFactor, y, base, invd, out):
+        status = fn(p(F.band), p(F.offsets_t), len(F.offsets), *sizes, p(F.stray_ptr),
+                    p(F.stray_cols), p(F.stray_vals), p(y), p(base), p(invd), p(out),
+                    stream)
+        _kernels.check_status(entry, status)
+        counter.launches += 1
+
+    k = plan.sweeps
     z0 = torch.empty_like(r)
     bufs = (torch.empty_like(r), torch.empty_like(r))
     y = r
     for s in range(k):                   # y <- r - Ls y; the last one scales
         last = s == k - 1
         out = z0 if last else bufs[s % 2]
-        _sweep(fn, plan.L, n, y, r, plan.invdiag if last else None, out, stream)
+        sweep(plan.L, y, r, plan.invdiag if last else None, out)
         y = out
     for s in range(k):                   # z <- z0 - (D^-1 Us) z
         out = bufs[s % 2]
-        _sweep(fn, plan.U, n, y, z0, None, out, stream)
+        sweep(plan.U, y, z0, None, out)
         y = out
     return y
 
 
+def fused_neumann_apply(plan: FusedNeumann, r: torch.Tensor) -> torch.Tensor:
+    """z ≈ U⁻¹L⁻¹r.  CUDA tensors run K2 as 2·sweeps launches (an (n, k)
+    block goes to ``neumann_block_apply``, K2k); CPU tensors take
+    ``neumann_apply_plain``.  ``r`` must have the plan's dtype."""
+    if r.dtype != plan.dtype:
+        raise TypeError(f"fused_neumann_apply: r is {r.dtype}, the plan {plan.dtype}")
+    if r.device.type == "cpu":
+        return neumann_apply_plain(plan, r)
+    if r.ndim == 2:
+        return neumann_block_apply(plan, r)
+    suf = _kernels.kernel_dtype("fused_neumann_apply r", r)
+    _kernels.check_cuda("fused_neumann_apply r", r, plan.dtype, (plan.n,))
+    return _run_sweeps(plan, r, f"lssp_neumann_sweep_{suf}", (plan.n,), fused_neumann_apply)
+
+
 fused_neumann_apply.launches = 0
+
+
+def neumann_block_apply(plan: FusedNeumann, R: torch.Tensor) -> torch.Tensor:
+    """Z ≈ U⁻¹L⁻¹R for an (n, k) block.  CUDA tensors run K2k as
+    2·sweeps launches, each sweep over all k columns; CPU tensors take
+    ``neumann_apply_plain``.  ``R`` must have the plan's dtype."""
+    if R.dtype != plan.dtype:
+        raise TypeError(f"neumann_block_apply: R is {R.dtype}, the plan {plan.dtype}")
+    if R.device.type == "cpu":
+        return neumann_apply_plain(plan, R)
+    suf = _kernels.kernel_dtype("neumann_block_apply R", R)
+    k = _kernels.check_block("neumann_block_apply R", R, plan.dtype, plan.n)
+    return _run_sweeps(plan, R, f"lssp_neumann_sweep_block_{suf}", (plan.n, k),
+                       neumann_block_apply)
+
+
+neumann_block_apply.launches = 0

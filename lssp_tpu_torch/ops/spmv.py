@@ -6,13 +6,25 @@ reference include/mvops.h:9-19) plus ``spmv``.  DIA goes through kernel K1
 fold the α/β epilogue into the product.  CSR
 and ELL are plain PyTorch gathers: on a GPU a gather is a real path, not a
 fallback.  Transpose products wait for the methods that need them.
+
+**Block layout.**  Every entry point also takes a block of k vectors, the
+multi-rhs path's operand.  A block is an (n, k) tensor, one column per
+right-hand side (as JAX's ``solve_multi`` takes B), stored row-major and
+contiguous: element (i, c) at offset i·k + c, so the k values of one row
+are adjacent.  A distributed block is the view (P, R, k) of the same
+memory, the shard axis still dim 0.  The k-rhs kernels K1k-K4k
+(``dia_spmm``, ``hyb_spmm``, ``neumann_block_apply``, ``dia_spmm_ext``)
+take exactly this layout and check it at entry: a non-contiguous block
+raises and is never copied.  DIA blocks go to K1k and HYB blocks to K3k,
+one launch for all k columns; ELL and device CSR gather on the block.
+A 1-column block gives the vector path's values.
 """
 from __future__ import annotations
 
 import torch
 
-from lssp_tpu_torch.ops.dia_spmv import dia_spmv
-from lssp_tpu_torch.ops.hyb_spmv import hyb_spmv
+from lssp_tpu_torch.ops.dia_spmv import dia_spmm, dia_spmv
+from lssp_tpu_torch.ops.hyb_spmv import hyb_spmm, hyb_spmv
 from lssp_tpu_torch.sparse.types import CSR, DIA, ELL, HYB
 
 
@@ -20,20 +32,36 @@ def _spmv_csr(A: CSR, x):
     n = A.shape[0]
     rows = torch.repeat_interleave(torch.arange(n, device=x.device),
                                    A.indptr[1:] - A.indptr[:-1])
-    y = torch.zeros(n, dtype=torch.promote_types(A.data.dtype, x.dtype), device=x.device)
-    return y.index_add_(0, rows, A.data * x[A.indices])
+    y = torch.zeros((n,) + tuple(x.shape[1:]),
+                    dtype=torch.promote_types(A.data.dtype, x.dtype), device=x.device)
+    vals = A.data[:, None] if x.ndim == 2 else A.data
+    return y.index_add_(0, rows, vals * x[A.indices])
 
 
 def _spmv_ell(A: ELL, x):
+    if x.ndim == 2:
+        return (A.data[:, :, None] * x[A.cols]).sum(dim=1)
     return (A.data * x[A.cols]).sum(dim=1)
 
 
-def spmv(A, x):
-    """y = A @ x for a DIA, HYB, ELL or device CSR container, or a callable."""
+def _kernel_product(A, x, alpha=1.0, beta=0.0, y=None):
+    """The DIA or HYB product through its kernel (the block form for an
+    (n, k) x), or None for other formats."""
     if isinstance(A, DIA):
-        return dia_spmv(A, x)
-    if isinstance(A, HYB):
-        return hyb_spmv(A, x)
+        fn = dia_spmm if x.ndim == 2 else dia_spmv
+    elif isinstance(A, HYB):
+        fn = hyb_spmm if x.ndim == 2 else hyb_spmv
+    else:
+        return None
+    return fn(A, x, alpha, beta, y)
+
+
+def spmv(A, x):
+    """y = A @ x for a DIA, HYB, ELL or device CSR container, or a callable;
+    ``x`` (n,) or an (n, k) block."""
+    y = _kernel_product(A, x)
+    if y is not None:
+        return y
     if isinstance(A, ELL):
         return _spmv_ell(A, x)
     if isinstance(A, CSR):
@@ -47,11 +75,8 @@ def spmv(A, x):
 
 def mv_amxpby(alpha, A, x, beta, y):
     """beta*y + alpha*A@x (reference mvops.cxx:5-39)."""
-    if isinstance(A, DIA):
-        return dia_spmv(A, x, alpha=alpha, beta=beta, z=y)
-    if isinstance(A, HYB):
-        return hyb_spmv(A, x, alpha=alpha, beta=beta, z=y)
-    return beta * y + alpha * spmv(A, x)
+    out = _kernel_product(A, x, alpha, beta, y)
+    return beta * y + alpha * spmv(A, x) if out is None else out
 
 
 def mv_amxpbyz(alpha, A, x, beta, y):
@@ -62,11 +87,8 @@ def mv_amxpbyz(alpha, A, x, beta, y):
 def mv_amxy(alpha, A, x):
     """alpha*A@x (reference mvops.cxx:81-115); for DIA and HYB the scale is
     K1's or K3's epilogue, not a second pass over y."""
-    if isinstance(A, DIA):
-        return dia_spmv(A, x, alpha=alpha)
-    if isinstance(A, HYB):
-        return hyb_spmv(A, x, alpha=alpha)
-    return alpha * spmv(A, x)
+    out = _kernel_product(A, x, alpha)
+    return alpha * spmv(A, x) if out is None else out
 
 
 def mv_mxy(A, x):

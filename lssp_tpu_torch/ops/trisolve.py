@@ -108,15 +108,20 @@ def level_schedule(T: CSR, lower: bool = True, diag: Optional[np.ndarray] = None
 def _sweep(sched: TriSchedule, b: torch.Tensor) -> torch.Tensor:
     """One exact triangular solve: a loop over levels, each a gather, a
     row sum and a scatter into the extended iterate (slot n is a dummy that
-    stays 0)."""
+    stays 0).  ``b`` is (n,) or an (n, k) block, solved column by column
+    in the same gathers."""
     n = sched.n
-    zero = b.new_zeros(1)
-    be = torch.cat([b, zero])
+    tail = tuple(b.shape[1:])
+    be = torch.cat([b, b.new_zeros((1,) + tail)])
     ide = None
     if sched.invdiag is not None:
         ide = torch.cat([sched.invdiag.to(b.dtype), b.new_ones(1)])
+        if tail:
+            ide = ide[:, None]
     vals = sched.vals.to(b.dtype)
-    xe = b.new_zeros(n + 1)
+    if tail:
+        vals = vals[..., None]
+    xe = b.new_zeros((n + 1,) + tail)
     for lev in range(sched.nlevels):
         rows = sched.rows[lev]
         s = be[rows] - (vals[lev] * xe[sched.cols[lev]]).sum(dim=1)

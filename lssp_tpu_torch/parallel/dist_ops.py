@@ -5,7 +5,10 @@ is two ring ``ppermute`` shifts and a dot is a local sum plus ``psum``.
 Here the P shards are the leading axis of one tensor, so a ``ppermute`` is
 a shift along that axis (``torch.roll``), an ``all_gather`` is the flat
 vector itself, and a ``psum`` is a sum over the shard axis.  Every operator
-takes and returns the flat (n,) vector; shard p owns rows [p·R, (p+1)·R).
+takes and returns the flat (n,) vector, or an (n, k) block (the layout of
+``ops/spmv.py``, viewed as (P, R, k)); shard p owns rows [p·R, (p+1)·R).
+A DIA band's block product is kernel K4k, one launch for every shard and
+column; the HYB remainder and the ELL products gather on the block.
 """
 from __future__ import annotations
 
@@ -13,13 +16,14 @@ from typing import Optional
 
 import torch
 
-from lssp_tpu_torch.ops.dia_spmv_ext import dia_spmv_ext
+from lssp_tpu_torch.ops.dia_spmv_ext import dia_spmm_ext, dia_spmv_ext
 from lssp_tpu_torch.parallel.partition import DistDIA, DistELL, DistHYB
 
 
 def halo_exchange(x2: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    """(P, R) → (P, lo + R + hi): shard p's rows between the last ``lo``
-    values of shard p−1 and the first ``hi`` values of shard p+1.  The ring
+    """(P, R) → (P, lo + R + hi), or (P, R, k) → (P, lo + R + hi, k) for a
+    block: shard p's rows between the last ``lo`` rows of shard p−1 and
+    the first ``hi`` rows of shard p+1.  The ring
     wraps around unmasked, as the ``ppermute`` pair does: shard 0's left
     halo holds shard P−1's tail and shard P−1's right halo shard 0's head,
     which a DistDIA only ever multiplies by stored zeros."""
@@ -34,16 +38,19 @@ def halo_exchange(x2: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
 
 def _dia_local_spmv(M: DistDIA, x_ext: torch.Tensor, alpha: float = 1.0,
                     beta: float = 0.0, z: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Every shard's DIA product over its extended vector, (P, R): kernel
-    K4 on CUDA, its plain version on the CPU."""
-    return dia_spmv_ext(M.data, M.offsets, x_ext, alpha, beta, z, offsets_t=M.offsets_t)
+    """Every shard's DIA product over its extended vector, (P, R), or over
+    its extended block, (P, R, k): kernel K4 (K4k) on CUDA, its plain
+    version on the CPU."""
+    fn = dia_spmm_ext if x_ext.ndim == 3 else dia_spmv_ext
+    return fn(M.data, M.offsets, x_ext, alpha, beta, z, offsets_t=M.offsets_t)
 
 
 def _make_dia_spmv(M: DistDIA):
     P, R = M.nshards, M.rows_per_shard
 
     def op(x):
-        return _dia_local_spmv(M, halo_exchange(x.view(P, R), M.lo, M.hi)).view(-1)
+        x2 = x.view(P, R, *x.shape[1:])
+        return _dia_local_spmv(M, halo_exchange(x2, M.lo, M.hi)).view(x.shape)
 
     return op
 
@@ -59,7 +66,8 @@ def _make_hyb_spmv(M: DistHYB):
     vals = M.rem_vals.view(-1)
 
     def op(x):
-        return band_op(x).index_add_(0, rows, vals * x[cols])
+        v = vals[:, None] if x.ndim == 2 else vals
+        return band_op(x).index_add_(0, rows, v * x[cols])
 
     return op
 
@@ -68,11 +76,16 @@ def _make_ell_spmv(M: DistELL):
     P, R, h = M.nshards, M.rows_per_shard, M.halo
     k = M.cols.shape[2]
     if M.mode != "halo":
-        return lambda x: (M.data * x[M.cols]).sum(dim=2).view(-1)
+        def gather_all(x):
+            if x.ndim == 2:
+                return (M.data[..., None] * x[M.cols]).sum(dim=2).view(x.shape)
+            return (M.data * x[M.cols]).sum(dim=2).view(-1)
+        return gather_all
     cols = M.cols.view(P, R * k)
 
     def op(x):
-        x2 = x.view(P, R)
+        tail = tuple(x.shape[1:])
+        x2 = x.view(P, R, *tail)
         if h > 0:
             from_left = torch.roll(x2[:, -h:], 1, dims=0)
             from_right = torch.roll(x2[:, :h], -1, dims=0)
@@ -81,6 +94,9 @@ def _make_ell_spmv(M: DistELL):
             from_left[0] = 0
             from_right[P - 1] = 0
             x2 = torch.cat([from_left, x2, from_right], dim=1)
+        if tail:
+            g = x2.gather(1, cols[..., None].expand(P, R * k, *tail)).view(P, R, k, *tail)
+            return (M.data[..., None] * g).sum(dim=2).view(x.shape)
         return (M.data * x2.gather(1, cols).view(P, R, k)).sum(dim=2).view(-1)
 
     return op
@@ -110,3 +126,4 @@ def make_psum_dot(nshards: int):
         return (x.view(nshards, -1) * y.view(nshards, -1)).sum(dim=1).sum()
 
     return dot
+

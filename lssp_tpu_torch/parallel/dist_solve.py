@@ -13,6 +13,13 @@ behind ``halo_exchange`` and is not ported yet (ROADMAP A13).
 Preconditioning is block-Jacobi: each shard factors its diagonal block and
 applies it with no exchange, by Neumann sweeps through kernel K4 or by
 exact level schedules.
+
+``dist_solve_multi`` / ``dist_solve_ir_multi`` take B (n, k): blocks are
+the (P, R, k) view of the (n, k) layout of ``ops/spmv.py``, so every DIA
+product and every Neumann sweep is one launch of K4k for all shards and
+columns.  A block method (``blockcg``, ``blockgmres``) takes each Gram
+over the flat rows (``solvers/base.chunked_gram``), which is the sum of
+the per-shard Grams; any other method runs its per-column batched form.
 """
 from __future__ import annotations
 
@@ -28,13 +35,17 @@ from lssp_tpu_torch.config import Defaults, PCOptions, SolverOptions
 from lssp_tpu_torch.ops.trisolve import (
     default_ilu_sweeps, ilu_apply, level_schedule, neumann_exact_depth,
 )
-from lssp_tpu_torch.parallel.dist_ops import _dia_local_spmv, make_dist_spmv, make_psum_dot
+from lssp_tpu_torch.parallel.dist_ops import (
+    _dia_local_spmv, make_dist_spmv, make_psum_dot,
+)
 from lssp_tpu_torch.parallel.partition import DistDIA, partition_matrix
 from lssp_tpu_torch.pc.ilu_host import iluk_factor, ilut_factor
-from lssp_tpu_torch.solvers.base import SolveInfo
-from lssp_tpu_torch.solvers.facade import _memo, validate_system
-from lssp_tpu_torch.solvers.refine import _inner_plan, _pc_options_key
-from lssp_tpu_torch.solvers.registry import get_solver
+from lssp_tpu_torch.solvers.base import SolveInfo, col_norms
+from lssp_tpu_torch.solvers.facade import (
+    _memo, reject_block_method, validate_block, validate_system,
+)
+from lssp_tpu_torch.solvers.refine import _inner_plan, _pc_options_key, refine_multi
+from lssp_tpu_torch.solvers.registry import get_batched_solver, get_block_solver, get_solver
 from lssp_tpu_torch.sparse.convert import coo_to_csr
 from lssp_tpu_torch.sparse.types import COO, CSR, numpy_dtype, torch_dtype
 from lssp_tpu_torch.sparse.utils import diagonal, split_ldu
@@ -264,24 +275,34 @@ def _dyn_index(offs: torch.Tensor, R: int):
 
 
 def _shard_pc_apply(kind, state, Pn: int, R: int):
-    """The preconditioner apply ``r ↦ M⁻¹r`` on the flat vector."""
+    """The preconditioner apply ``r ↦ M⁻¹r`` on the flat vector or on an
+    (n, k) block (seen per shard as (P, R) or (P, R, k))."""
     if kind == "none":
         return lambda r: r
+
+    def shards(r):
+        return r.view(Pn, R, *r.shape[1:])
+
+    def per_row(t, r):
+        """A (P, R) state broadcast over a block's k columns."""
+        return t[..., None] if r.ndim == 2 else t
+
     if kind == "jacobi":
-        return lambda r: (state * r.view(Pn, R)).view(-1)
+        return lambda r: (per_row(state, r) * shards(r)).view(r.shape)
     if kind == "ilu_nm":
         st = state
 
         def sweep(T, rhs):
             # y ← rhs − T·y, each shard's y zero-padded by its own halos:
             # block-Jacobi needs no exchange
-            return lambda y: _dia_local_spmv(T, F.pad(y, (T.lo, T.hi)), -1.0, 1.0, rhs)
+            pad = (0, 0, T.lo, T.hi) if rhs.ndim == 3 else (T.lo, T.hi)
+            return lambda y: _dia_local_spmv(T, F.pad(y, pad), -1.0, 1.0, rhs)
 
         def fn(r):
-            r2 = r.view(Pn, R)
+            r2 = shards(r)
             y = _sweep_repeat(sweep(st.L, r2), st.sweeps, r2)
-            zr = st.invdiag * y
-            return _sweep_repeat(sweep(st.U, zr), st.sweeps, zr).view(-1)
+            zr = per_row(st.invdiag, r) * y
+            return _sweep_repeat(sweep(st.U, zr), st.sweeps, zr).view(r.shape)
         return fn
     if kind == "ilu_nmd":
         st = state
@@ -289,21 +310,25 @@ def _shard_pc_apply(kind, state, Pn: int, R: int):
         iU, vU = _dyn_index(st.Uoff, R)
 
         def stream(data, idx, valid, v):
+            if v.ndim == 3:
+                sh = v.gather(1, idx[..., None].expand(*idx.shape, v.shape[2]))
+                sh = sh.view(*data.shape, v.shape[2])
+                return (data[..., None] * torch.where(valid[..., None], sh, 0.0)).sum(dim=1)
             sh = v.gather(1, idx).view(data.shape)
             return (data * torch.where(valid, sh, 0.0)).sum(dim=1)
 
         def fn(r):
-            r2 = r.view(Pn, R)
+            r2 = shards(r)
             y = _sweep_repeat(lambda y: r2 - stream(st.Ldata, iL, vL, y), st.sweeps, r2)
-            zr = st.invdiag * y
+            zr = per_row(st.invdiag, r) * y
             return _sweep_repeat(lambda z: zr - stream(st.Udata, iU, vU, z),
-                                 st.sweeps, zr).view(-1)
+                                 st.sweeps, zr).view(r.shape)
         return fn
     if kind == "ilu":
         def fn(r):
-            r2 = r.view(Pn, R)
+            r2 = shards(r)
             return torch.stack([ilu_apply(sl, su, r2[p])
-                                for p, (sl, su) in enumerate(state)]).view(-1)
+                                for p, (sl, su) in enumerate(state)]).view(r.shape)
         return fn
     raise ValueError(kind)
 
@@ -385,28 +410,35 @@ def _build_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, np
 
 def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
                  ir: bool = False, inner_rtol: float = 1e-3, max_outer: int = 20,
-                 inner_dtype=torch.float32):
-    """The one distributed launcher behind ``dist_solve`` and
-    ``dist_solve_ir``: checks the input, pads the system to a multiple of
-    the shard count, fetches the prepared state and runs the solve."""
+                 inner_dtype=torch.float32, multi: bool = False):
+    """The one distributed launcher behind ``dist_solve``, ``dist_solve_ir``
+    and their multi-rhs forms (``multi``: b is an (n, k) block): checks
+    the input, pads the system to a multiple of the shard count, fetches
+    the prepared state and runs the solve."""
     opts = (options or SolverOptions()).resolved()
     pc_opts = (pc_options or PCOptions()).resolved()
     if isinstance(A, COO):
         A = coo_to_csr(A)
     if not isinstance(A, CSR):
         raise TypeError(f"the distributed solve takes a host CSR or COO, got {type(A)}")
-    b = validate_system(A, b, method)
+    if multi:
+        b = validate_block(A, b, "dist_solve_ir_multi" if ir else "dist_solve_multi")
+    else:
+        b = validate_system(A, b, method)
+        reject_block_method(method, "dist_solve_ir_multi" if ir else "dist_solve_multi")
     if ir:
-        fn, solver_opts = _inner_plan(method, opts, inner_rtol)
+        fn, solver_opts = _inner_plan(method, opts, inner_rtol, multi=multi)
+    elif multi:
+        fn, solver_opts = get_block_solver(method) or get_batched_solver(method), opts
     else:
         fn, solver_opts = get_solver(method), opts
     mesh = mesh or make_mesh()
     Pn, device = mesh.size, mesh.device
     dtype = torch.float64 if ir else torch.promote_types(torch_dtype(A.dtype), b.dtype)
     n_orig = A.shape[0]
-    b = b.to(device=device, dtype=dtype)
+    b = b.to(device=device, dtype=dtype).contiguous()
     if x0 is not None:
-        x0 = torch.as_tensor(x0).to(device=device, dtype=dtype)
+        x0 = torch.as_tensor(x0).to(device=device, dtype=dtype).contiguous()
         if x0.shape != b.shape:
             raise ValueError(f"x0 must match the rhs shape {tuple(b.shape)}, "
                              f"got {tuple(x0.shape)}")
@@ -414,14 +446,22 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
                          _dist_sizing(n_orig, Pn))
     n, R = prep["n"], prep["R"]
     if n > n_orig:
-        b = torch.cat([b, b.new_zeros(n - n_orig)])
+        pad = (n - n_orig,) + tuple(b.shape[1:])
+        b = torch.cat([b, b.new_zeros(pad)])
         if x0 is not None:
-            x0 = torch.cat([x0, x0.new_zeros(n - n_orig)])
+            x0 = torch.cat([x0, x0.new_zeros(pad)])
     if x0 is None:
         x0 = torch.zeros_like(b)
     op = make_dist_spmv(prep["M"])
     pc_apply = _shard_pc_apply(prep["kind"], prep["pc_state"], Pn, R)
-    if ir:
+    if ir and multi:
+        op64 = make_dist_spmv(prep["M64"])
+
+        def inner(R32):
+            return fn(op, R32, torch.zeros_like(R32), pc_apply, opts=solver_opts)
+
+        x, info = refine_multi(op64, inner, b, x0, opts, max_outer, inner_dtype, col_norms)
+    elif ir:
         x, info = _shard_ir(op, make_dist_spmv(prep["M64"]), pc_apply, fn, b, x0, opts,
                             solver_opts, max_outer, inner_dtype, make_psum_dot(Pn))
     else:
@@ -444,6 +484,19 @@ def dist_solve(A, b, x0=None, method: str = "cg", pc: Optional[str] = "none",
     return _dist_launch(A, b, x0, method, pc, mesh, options, pc_options, fmt)
 
 
+def dist_solve_multi(A, B, X0=None, method: str = "cg", pc: Optional[str] = "none",
+                     mesh: Optional[Mesh] = None, options: Optional[SolverOptions] = None,
+                     pc_options: Optional[PCOptions] = None, fmt: str = "auto"):
+    """A·X = B over a shard mesh for k right-hand sides (B: (n, k)), the
+    sharded ``solve_multi``: a block method shares one search block with
+    every Gram reduced per shard, then over the shards; any other method
+    runs column by column in one batched loop.  Every DIA product and
+    Neumann sweep is one K4k launch for all shards and columns.  Returns
+    (X (n, k), SolveInfo with (k,) fields).  Other arguments as in
+    ``dist_solve``."""
+    return _dist_launch(A, B, X0, method, pc, mesh, options, pc_options, fmt, multi=True)
+
+
 def dist_solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
                   mesh: Optional[Mesh] = None, options: Optional[SolverOptions] = None,
                   pc_options: Optional[PCOptions] = None, fmt: str = "auto",
@@ -453,3 +506,18 @@ def dist_solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "non
     inner policy as ``solve_ir``; ``nits`` counts the inner iterations."""
     return _dist_launch(A, b, x0, method, pc, mesh, options, pc_options, fmt, ir=True,
                         inner_rtol=inner_rtol, max_outer=max_outer, inner_dtype=inner_dtype)
+
+
+def dist_solve_ir_multi(A, B, X0=None, method: str = "blockgmres", pc: Optional[str] = "none",
+                        mesh: Optional[Mesh] = None, options: Optional[SolverOptions] = None,
+                        pc_options: Optional[PCOptions] = None, fmt: str = "auto",
+                        inner_rtol: float = 1e-3, max_outer: int = 20,
+                        inner_dtype=torch.float32):
+    """Mixed-precision refinement over a shard mesh for k right-hand sides
+    (B: (n, k)), the sharded ``solve_ir_multi``: fp64 residuals per column,
+    one ``inner_dtype`` inner solve per round for the whole block (block
+    GMRES by default), converged columns frozen.  Returns (X fp64 (n, k),
+    SolveInfo with (k,) fields counting each column's inner iterations)."""
+    return _dist_launch(A, B, X0, method, pc, mesh, options, pc_options, fmt, ir=True,
+                        inner_rtol=inner_rtol, max_outer=max_outer, inner_dtype=inner_dtype,
+                        multi=True)

@@ -2,7 +2,8 @@
 
 A ``Preconditioner`` is an apply function plus its device state; calling
 ``M(r)`` applies M⁻¹, the contract every Krylov solver uses (reference
-LSSP_PC_SOLVE).  ``setup`` builds one from a host CSR matrix on a given
+LSSP_PC_SOLVE).  Every ported PC applies to r (n,) and to an (n, k) block
+column by column (the multi-rhs path).  ``setup`` builds one from a host CSR matrix on a given
 device (reference lssp_pc_assemble, pc.cxx:81-239).
 """
 from __future__ import annotations
@@ -70,7 +71,8 @@ def _setup_none(A, opts, device):
 
 
 def _jacobi_apply(state, r):
-    return state * r
+    """D⁻¹r for r (n,) or an (n, k) block."""
+    return (state[:, None] if r.ndim == 2 else state) * r
 
 
 @register_pc("jacobi")

@@ -1,10 +1,15 @@
-"""Krylov solvers (cg, gmres, rgmres, bicgstab), the solve facade and
-mixed-precision iterative refinement."""
+"""Krylov solvers (cg, gmres, rgmres, bicgstab, with their per-column
+batched forms, and the block methods blockcg and blockgmres), the solve
+facade and mixed-precision iterative refinement, single- and multi-rhs."""
 
 from lssp_tpu_torch.solvers.base import SolveInfo
-from lssp_tpu_torch.solvers.registry import SOLVERS, get_solver, register_solver
-from lssp_tpu_torch.solvers.facade import Solver, solve, validate_system
-from lssp_tpu_torch.solvers.refine import prepare_ir, solve_ir
+from lssp_tpu_torch.solvers.registry import (
+    BATCHED_SOLVERS, SOLVERS, get_batched_solver, get_block_solver, get_solver,
+    register_solver,
+)
+from lssp_tpu_torch.solvers.facade import Solver, solve, solve_multi, validate_system
+from lssp_tpu_torch.solvers.refine import prepare_ir, solve_ir, solve_ir_multi
 
-__all__ = ["SolveInfo", "SOLVERS", "get_solver", "register_solver", "Solver",
-           "solve", "validate_system", "prepare_ir", "solve_ir"]
+__all__ = ["SolveInfo", "SOLVERS", "BATCHED_SOLVERS", "get_solver", "get_batched_solver",
+           "get_block_solver", "register_solver", "Solver", "solve", "solve_multi",
+           "validate_system", "prepare_ir", "solve_ir", "solve_ir_multi"]

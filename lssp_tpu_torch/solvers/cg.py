@@ -6,12 +6,14 @@ x, r update → ‖r‖ check), so iteration counts compare with ``lssp_tpu``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from lssp_tpu_torch.solvers.base import (
-    SolveInfo, history_init, history_update, init_state, norm, stopping_tol,
+    SolveInfo, col_dots, col_norms, history_init, history_init_block, history_update,
+    history_update_block, init_state, norm, stopping_tol, to_host,
 )
-from lssp_tpu_torch.solvers.registry import register_solver
+from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
 @register_solver("cg")
@@ -37,3 +39,47 @@ def cg(A, b, x0=None, M=None, opts=None):
         history_update(opts, hist, it, res, r0norm, bnorm)
     return x, SolveInfo(nits=it, residual=res, converged=res <= tol,
                         r0norm=r0norm, bnorm=bnorm, history=hist)
+
+
+@register_batched("cg")
+def cg_batched(A, B, X0=None, M=None, opts=None):
+    """CG on every column of an (n, k) block: the per-column path of
+    ``solve_multi`` (JAX runs ``jax.vmap(cg)``).  Each column follows its
+    own single-rhs trajectory and keeps its own count: a column whose
+    stopping rule is met stops updating (``torch.where`` on X and R) while
+    the others go on, as a vmapped ``while_loop`` keeps a finished lane's
+    carry.  The matrix and preconditioner stream once per iteration for
+    all k columns; one host sync per iteration brings the k residuals and
+    the active mask over together."""
+    op, pc, X, R = init_state(A, B, X0, M)
+    r0_t = col_norms(R)
+    bnorm, r0norm = to_host(col_norms(B), r0_t)
+    tol = np.maximum(np.maximum(opts.rtol * r0norm, opts.atol), opts.rbtol * bnorm)
+    tol_t = torch.from_numpy(tol).to(B.device)
+    hist = history_init_block(opts, B.shape[1], r0norm)
+    it = np.zeros(B.shape[1], np.int64)
+    res = r0norm.copy()
+    active = (it < opts.maxit) & (res > tol)
+    act_t = (r0_t.double() > tol_t) & (opts.maxit > 0)
+    it_t = torch.zeros_like(act_t, dtype=torch.int64)
+    P = rho_old = None
+    first = True
+    while active.any():
+        Z = pc(R)
+        rho = col_dots(Z, R)
+        P = Z if first else Z + (rho / rho_old) * P
+        Q = op(P)
+        alpha = rho / col_dots(Q, P)
+        X = torch.where(act_t, X + alpha * P, X)
+        R = torch.where(act_t, R - alpha * Q, R)
+        rho_old, first = rho, False
+        res_t = col_norms(R)
+        it_t = it_t + act_t
+        act_t = act_t & (res_t.double() > tol_t) & (it_t < opts.maxit)
+        res_h, act_h = to_host(res_t, act_t)
+        it += active
+        res = np.where(active, res_h, res)
+        history_update_block(opts, hist, it, res, r0norm, bnorm, cols=active)
+        active = act_h.astype(bool)
+    return X, SolveInfo(nits=it, residual=res, converged=res <= tol, r0norm=r0norm,
+                        bnorm=bnorm, history=hist)

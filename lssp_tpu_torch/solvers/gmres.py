@@ -19,9 +19,10 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch.solvers.base import (
-    SolveInfo, history_init, history_update, init_state, norm, stopping_tol,
+    SolveInfo, col_dots, col_norms, history_init, history_init_block, history_update,
+    history_update_block, init_state, nonzero, norm, stopping_tol, to_host,
 )
-from lssp_tpu_torch.solvers.registry import register_solver
+from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 from lssp_tpu_torch.sparse.types import numpy_dtype
 
 
@@ -136,3 +137,144 @@ def gmres(A, b, x0=None, M=None, opts=None):
 def gmres_r(A, b, x0=None, M=None, opts=None):
     """Right-preconditioned GMRES(m) (reference LSSP_SOLVER_RGMRES)."""
     return _gmres(A, b, x0, M, opts, right=True)
+
+
+def _givens_step(hcol, i, c, s, gg, breakdown, dt):
+    """Column i of one rhs's Arnoldi cycle through its accumulated Givens
+    rotations (``_arnoldi_cycle``'s host arithmetic).  Returns (broke
+    down, ci, si); on no breakdown ``gg`` and ``hcol`` are updated."""
+    brk = abs(hcol[i + 1]) <= breakdown
+    for j in range(i):
+        h1 = c[j] * hcol[j] + s[j] * hcol[j + 1]
+        h2 = -s[j] * hcol[j] + c[j] * hcol[j + 1]
+        hcol[j], hcol[j + 1] = h1, h2
+    gma = np.sqrt(hcol[i] ** 2 + hcol[i + 1] ** 2)
+    if gma == 0.0:
+        gma = dt(1e-20)
+    ci, si = hcol[i] / gma, hcol[i + 1] / gma
+    if not brk:
+        gg[i], gg[i + 1] = ci * gg[i], -si * gg[i]
+        hcol[i] = ci * hcol[i] + si * hcol[i + 1]
+    return brk, ci, si
+
+
+def _arnoldi_cycle_batched(op, pc, V0, beta_p, m, maxit, itr, gstol, right, breakdown,
+                           live):
+    """``_arnoldi_cycle`` on every column in the mask ``live`` at once: the
+    products and Gram-Schmidt run on the (n, k) block, the Givens
+    recurrence on the host per column, and a column leaves the inner loop
+    on its own breakdown or tolerance while the others go on.  Returns
+    (V (m, n, k), H (k, m+1, m), gg (k, m+1), kk (k,), itr, gs_norm)."""
+    dt = numpy_dtype(V0.dtype).type
+    n, k = V0.shape
+    V = V0.new_zeros((m, n, k))
+    V[0] = V0
+    H = np.zeros((k, m + 1, m), dt)
+    gg = np.zeros((k, m + 1), dt)
+    gg[:, 0] = beta_p
+    c = np.zeros((k, m), dt)
+    s = np.zeros((k, m), dt)
+    kk = np.zeros(k, np.int64)
+    gs_norm = np.full(k, np.inf, dt)
+    itr, inner = itr.copy(), live.copy()
+    for i in range(m):
+        if right:
+            inner &= itr < maxit
+        if not inner.any():
+            break
+        itr += inner
+        w = op(pc(V[i])) if right else pc(op(V[i]))
+        hs = []
+        for j in range(i + 1):              # modified Gram–Schmidt, per column
+            hij = col_dots(w, V[j])
+            w = w - hij * V[j]
+            hs.append(hij)
+        hnorm = col_norms(w)
+        hcols = torch.stack(hs + [hnorm]).cpu().numpy()       # (i+2, k)
+        if i + 1 < m:                       # a column that broke down never reads it
+            V[i + 1] = w / nonzero(hnorm)
+        for col in np.flatnonzero(inner):
+            hcol = np.zeros(m + 1, dt)
+            hcol[:i + 2] = hcols[:, col]
+            brk, ci, si = _givens_step(hcol, i, c[col], s[col], gg[col], breakdown, dt)
+            if brk:                         # the reference discards column i
+                inner[col] = False
+                continue
+            H[col, :, i] = hcol
+            c[col, i], s[col, i] = ci, si
+            kk[col], gs_norm[col] = i + 1, abs(gg[col, i + 1])
+            if gs_norm[col] <= gstol[col]:
+                inner[col] = False
+    return V, H, gg, kk, itr, gs_norm
+
+
+def _gmres_batched(A, B, X0, M, opts, right):
+    """``_gmres`` on every column of an (n, k) block, each column on its
+    own single-rhs trajectory: the restart cycles run for every column
+    still above its tolerance, a column's own count and gstol steer its
+    inner loop, and a finished column keeps its X."""
+    m, maxit = opts.restart, opts.maxit
+    op, pc, X, RG = init_state(A, B, X0, M)
+    dt = numpy_dtype(B.dtype).type
+    tiny = np.finfo(dt).tiny
+    k = B.shape[1]
+    bnorm, beta0 = to_host(col_norms(B), col_norms(RG))
+    tol = np.array([stopping_tol(b0, bn, opts) for b0, bn in zip(beta0, bnorm)], dt)
+    rtol = tol / np.maximum(beta0.astype(dt), tiny)
+    hist = history_init_block(opts, k, beta0)
+    itr = np.zeros(k, np.int64)
+    beta = beta0.astype(dt)
+    gstol = np.zeros(k, dt)
+    while True:
+        live = (itr < maxit) & (beta > tol)
+        if not live.any():
+            break
+        if right:
+            bp_t = col_norms(RG)
+            V0 = RG / nonzero(bp_t)
+        else:
+            Z0 = pc(RG)
+            bp_t = col_norms(Z0)
+            V0 = Z0 / nonzero(bp_t)
+        bp = bp_t.cpu().numpy().astype(dt)
+        if not right:                       # a column's first cycle seeds its gstol
+            seed = live & (itr == 0)
+            gstol[seed] = rtol[seed] * bp[seed] * dt(0.5)
+        V, H, gg, kk, itr_new, gs_norm = _arnoldi_cycle_batched(
+            op, pc, V0, bp, m, maxit, itr, tol if right else gstol, right,
+            opts.breakdown, live)
+        ym = np.stack([_solve_ym(H[c], gg[c], kk[c], m) if live[c] else np.zeros(m, dt)
+                       for c in range(k)])
+        ym_t = torch.from_numpy(ym).to(V.device)
+        vy = torch.zeros_like(X)
+        for j in range(int(kk.max())):
+            vy = vy + ym_t[:, j] * V[j]
+        live_t = torch.from_numpy(live).to(V.device)
+        if right:
+            X = torch.where(live_t, X + pc(vy), X)
+            beta = np.where(live, gs_norm, beta)    # the Givens estimate is the residual
+            RG = B - op(X)
+        else:
+            X = torch.where(live_t, X + vy, X)
+            RG = B - op(X)
+            res = col_norms(RG).cpu().numpy().astype(dt)     # true residual each restart
+            beta = np.where(live, res, beta)
+            safe = np.maximum(beta / np.maximum(beta0.astype(dt), tiny), tiny)
+            gstol = np.where(live, rtol * gs_norm / safe * dt(0.5), gstol)
+        itr = itr_new
+        history_update_block(opts, hist, itr, beta, cols=live)
+    return X, SolveInfo(nits=itr, residual=beta.astype(np.float64), converged=beta <= tol,
+                        r0norm=beta0, bnorm=bnorm, history=hist)
+
+
+@register_batched("gmres")
+def gmres_batched(A, B, X0=None, M=None, opts=None):
+    """Left-preconditioned GMRES(m) on every column of an (n, k) block (the
+    per-column path of ``solve_multi``)."""
+    return _gmres_batched(A, B, X0, M, opts, right=False)
+
+
+@register_batched("rgmres")
+def gmres_r_batched(A, B, X0=None, M=None, opts=None):
+    """Right-preconditioned GMRES(m) on every column of an (n, k) block."""
+    return _gmres_batched(A, B, X0, M, opts, right=True)

@@ -7,7 +7,9 @@
 The inner solve only needs a few digits (inner_rtol 1e-3 by default), so
 the hot loop runs in fp32 and the fp64 outer loop recovers the rest.  The
 same policy as ``lssp_tpu/solvers/refine.py``; its fused device program
-(``_fused_ir``) is a Python loop here.
+(``_fused_ir``) is a Python loop here.  ``solve_ir_multi`` runs the same
+rounds on an (n, k) block (JAX's ``_fused_ir_multi``): one inner solve per
+round for the whole block, a block method by default.
 """
 from __future__ import annotations
 
@@ -21,11 +23,12 @@ import torch
 from lssp_tpu_torch import pc as pc_mod
 from lssp_tpu_torch.config import PCOptions, SolverOptions
 from lssp_tpu_torch.ops.spmv import spmv
-from lssp_tpu_torch.solvers.base import SolveInfo, norm
+from lssp_tpu_torch.solvers.base import SolveInfo, col_norms, norm, to_host
 from lssp_tpu_torch.solvers.facade import (
-    _permute, _prepare_matrix, _resolve_device, _unpermute, validate_system,
+    _permute, _prepare_matrix, _resolve_device, _unpermute, reject_block_method,
+    validate_block, validate_system,
 )
-from lssp_tpu_torch.solvers.registry import get_solver
+from lssp_tpu_torch.solvers.registry import get_batched_solver, get_block_solver, get_solver
 from lssp_tpu_torch.sparse.types import numpy_dtype
 
 
@@ -73,19 +76,62 @@ def prepare_ir(A, method: str = "gmres", pc: Optional[str] = "none",
     return A_host, A64, A32, perm, cache[pc_key]
 
 
-def _inner_plan(method, opts, inner_rtol):
+def _inner_plan(method, opts, inner_rtol, multi=False):
     """The fp32-inner policy: the inner solver and its options.
 
     The inner cap bounds a round that stalls on the fp32 floor just above
     inner_rtol (the outer loop collects the progress either way): 2 restart
-    cycles for GMRES, 200 iterations otherwise.  Inner GMRES is the
-    right-preconditioned variant, whose Givens estimate does not stall on
-    the fp32 floor the left variant hits with strong preconditioners."""
+    cycles for GMRES and block GMRES, 200 iterations otherwise.  Inner
+    GMRES is the right-preconditioned variant, whose Givens estimate does
+    not stall on the fp32 floor the left variant hits with strong
+    preconditioners.  Block GMRES runs inner cycles of min(restart, 16)
+    steps: the ~1e-3 inner target needs far fewer steps than an outer
+    restart.  ``multi``: a block method gives its block solver, any other
+    method its per-column batched form."""
     key = method.lower()
-    inner_cap = max(2 * opts.restart, 64) if key in ("gmres", "rgmres") else 200
+    gmres_like = key in ("gmres", "rgmres", "blockgmres", "block_gmres")
+    inner_cap = max(2 * opts.restart, 64) if gmres_like else 200
     inner_opts = dataclasses.replace(opts, rtol=inner_rtol, atol=0.0, rbtol=0.0,
                                      maxit=min(opts.maxit, inner_cap))
-    return get_solver({"gmres": "rgmres"}.get(key, key)), inner_opts
+    if key in ("blockgmres", "block_gmres"):
+        inner_opts = dataclasses.replace(inner_opts, restart=min(opts.restart, 16))
+    inner = {"gmres": "rgmres"}.get(key, key)
+    if multi:
+        return get_block_solver(inner) or get_batched_solver(inner), inner_opts
+    return get_solver(inner), inner_opts
+
+
+def refine_multi(op64, inner, B, X, opts, max_outer, inner_dtype, norms):
+    """The multi-rhs refinement rounds (JAX's ``_fused_ir_multi``), shared
+    with the distributed launcher: per-column fp64 residuals through
+    ``op64``, one inner solve ``inner(R32) -> (D32, info)`` per round for
+    the whole block, fp64 accumulation.  A converged column is frozen: its
+    inner rhs is zero, so the inner solver finishes it at 0 iterations and
+    leaves it unchanged while the slowest column finishes.  ``norms``:
+    the (k,) column norms.  Returns (X, SolveInfo with (k,) fields; nits
+    counts each column's inner iterations)."""
+    (bnorm,) = to_host(norms(B))
+    tol = np.maximum(opts.rtol * bnorm, opts.atol)
+    R = B - op64(X)
+    (res,) = to_host(norms(R))
+    r0 = res
+    total = np.zeros(B.shape[1], np.int64)
+    outer = 0
+    while (res > tol).any() and outer < max_outer:
+        active = res > tol
+        scale = torch.from_numpy(np.where(res == 0.0, 1.0, res)).to(B.device)
+        R32 = torch.where(torch.from_numpy(active).to(B.device), R / scale, 0.0)
+        D32, info = inner(R32.to(inner_dtype))
+        X = X + D32.to(torch.float64) * scale
+        R = B - op64(X)
+        (res,) = to_host(norms(R))
+        total += np.asarray(info.nits)
+        outer += 1
+        if opts.verbosity >= 1:
+            print(f"ir outer: {outer:3d}, inner its: {np.asarray(info.nits)}, true res: "
+                  f"{res}, rel res: {res / np.maximum(r0, np.finfo(np.float64).tiny)}")
+    return X, SolveInfo(nits=total, residual=res, converged=res <= tol, r0norm=r0,
+                        bnorm=bnorm, history=None)
 
 
 def solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
@@ -99,6 +145,7 @@ def solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
     the solve runs (None: b's device).  Returns (x fp64, SolveInfo) where
     nits counts the total inner iterations and the residual is the true
     fp64 residual."""
+    reject_block_method(method, "solve_ir_multi")
     opts = (options or SolverOptions()).resolved()
     device = _resolve_device(device, b)
     b = validate_system(A, b, method)
@@ -130,3 +177,41 @@ def solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
     return _unpermute(x, perm), SolveInfo(nits=total_inner, residual=res,
                                           converged=res <= tol, r0norm=r0, bnorm=bnorm,
                                           history=None)
+
+
+def solve_ir_multi(A, B, X0=None, method: str = "blockgmres", pc: Optional[str] = "none",
+                   options: Optional[SolverOptions] = None,
+                   pc_options: Optional[PCOptions] = None, inner_rtol: float = 1e-3,
+                   max_outer: int = 20, inner_dtype=torch.float32, reorder: str = "auto",
+                   device=None):
+    """Mixed-precision refinement for k right-hand sides at once: fp64
+    residuals per column, one ``inner_dtype`` inner solve per round for the
+    whole block, fp64 accumulation.  ``B``: (n, k).  Returns (X fp64
+    (n, k), SolveInfo with (k,) fields: nits counts each column's inner
+    iterations, the residual is the true fp64 one).
+
+    The default inner is ``blockgmres`` (``blockcg`` for SPD matrices): the
+    k corrections share one block-Krylov basis.  Any other method runs its
+    per-column batched form.  The serving path for many-rhs fp64
+    workloads: the matrix streams once per iteration for all k columns
+    (kernels K1k-K3k on CUDA).  Other arguments as in ``solve_ir``."""
+    opts = (options or SolverOptions()).resolved()
+    device = _resolve_device(device, B)
+    B = validate_block(A, B, "solve_ir_multi")
+    fn, inner_opts = _inner_plan(method, opts, inner_rtol, multi=True)
+    _, A64, A32, perm, M32 = prepare_ir(A, method=method, pc=pc, pc_options=pc_options,
+                                        inner_dtype=inner_dtype, reorder=reorder,
+                                        device=device)
+    B = _permute(B.to(device=device, dtype=torch.float64), perm).contiguous()
+    X = (torch.zeros_like(B) if X0 is None
+         else _permute(torch.as_tensor(X0).to(device=device, dtype=torch.float64),
+                       perm).contiguous())
+    if X.shape != B.shape:
+        raise ValueError(f"X0 must match B's shape {tuple(B.shape)}, got {tuple(X.shape)}")
+
+    def inner(R32):
+        return fn(A32, R32, torch.zeros_like(R32), M32, opts=inner_opts)
+
+    X, info = refine_multi(lambda V: spmv(A64, V), inner, B, X, opts, max_outer,
+                           inner_dtype, col_norms)
+    return _unpermute(X, perm), info

@@ -1,5 +1,6 @@
-"""The four CUDA kernels of lssp_tpu_torch on the card, against their plain
-PyTorch versions.  Every test skips without a CUDA device.  This file
+"""The four CUDA kernels of lssp_tpu_torch and their k-rhs forms on the
+card, against their plain PyTorch versions (and each k-rhs form against k
+launches of its single-rhs kernel).  Every test skips without a CUDA device.  This file
 imports no JAX, so on a machine without it run it as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -16,11 +17,12 @@ import scipy.sparse as sp
 import torch
 
 import lssp_tpu_torch as lt
-from lssp_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
-from lssp_tpu_torch.ops.dia_spmv_ext import dia_spmv_ext, dia_spmv_ext_plain
-from lssp_tpu_torch.ops.hyb_spmv import hyb_spmv, hyb_spmv_plain
+from lssp_tpu_torch.ops.dia_spmv import dia_spmm, dia_spmm_plain, dia_spmv, dia_spmv_plain
+from lssp_tpu_torch.ops.dia_spmv_ext import (dia_spmm_ext, dia_spmm_ext_plain, dia_spmv_ext,
+                                             dia_spmv_ext_plain)
+from lssp_tpu_torch.ops.hyb_spmv import hyb_spmm, hyb_spmm_plain, hyb_spmv, hyb_spmv_plain
 from lssp_tpu_torch.ops.neumann import (fused_neumann_apply, neumann_apply_plain,
-                                        plan_fused_neumann)
+                                        neumann_block_apply, plan_fused_neumann)
 from lssp_tpu_torch.pc.ilu_host import iluk_factor
 
 # the modules (``lssp_tpu_torch.ops`` re-exports functions of the same names)
@@ -291,3 +293,161 @@ def test_dist_hyb_solve_on_cuda(cuda):
     assert info.converged and dia_spmv_ext.launches > before
     assert abs(info.nits - ic.nits) <= 2
     assert torch.linalg.vector_norm(x.cpu() - xc) <= 1e-6 * torch.linalg.vector_norm(xc)
+
+
+# ----------------------------------------------------------- the k-rhs forms K1k-K4k
+
+def _cols(Y):
+    return [Y[..., c].contiguous() for c in range(Y.shape[-1])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k,offset", [(1, 0), (2, 0), (3, 0), (4, 0), (8, 0), (16, 0), (8, 1)])
+def test_dia_spmm_matches_plain_and_k1(cuda, k, offset, dtype):
+    """Every register-tile width (k = 1, 2, 4, 8 and two tiles of 8; k = 3
+    and a block one element off 16-byte alignment take width 1)."""
+    A = lt.sparse.convection_diffusion_2d(50)
+    D = lt.sparse.csr_to_dia(A, device=cuda).to(dtype=dtype)
+    g = torch.Generator(device="cpu").manual_seed(k)
+    X = torch.rand(A.shape[0] * k + offset, generator=g, dtype=dtype).to(cuda)
+    X = X[offset:].view(A.shape[0], k)
+    Z = torch.rand(A.shape[0], k, generator=g, dtype=dtype).to(cuda)
+    before = (dia_spmm.launches, dia_spmv.launches)
+    for alpha, beta, zz in ((1.0, 0.0, None), (0.25, 0.0, None), (-1.0, 1.0, Z)):
+        Y = dia_spmm(D, X, alpha=alpha, beta=beta, Z=zz)
+        ref = dia_spmm_plain(D.data, D.offsets, X, alpha, beta, zz)
+        singles = [dia_spmv(D, x, alpha, beta, None if zz is None else z)
+                   for x, z in zip(_cols(X), _cols(Z))]
+        torch.cuda.synchronize()
+        assert Y.shape == (A.shape[0], k) and _rel(Y, ref) <= TOL[dtype]
+        assert _rel(Y, torch.stack(singles, dim=1)) <= TOL[dtype]
+    assert dia_spmm.launches == before[0] + 3 and dia_spmv.launches == before[1] + 3 * k
+
+
+def test_dia_spmm_rejects_what_it_cannot_take(cuda):
+    D = lt.sparse.csr_to_dia(lt.sparse.laplacian_2d(8), device=cuda)
+    X = torch.ones(64, 4, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        dia_spmm(D, torch.ones(4, 64, dtype=torch.float64, device=cuda).T)
+    with pytest.raises(ValueError, match="shape"):
+        dia_spmm(D, X[:63])
+    with pytest.raises(TypeError, match="dtype"):
+        dia_spmm(D, X.float())
+    with pytest.raises(ValueError, match="block"):
+        dia_spmm(D, X[:, 0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", HYB_KINDS)
+@pytest.mark.parametrize("k", [4, 5, 8])
+def test_hyb_spmm_matches_plain_and_k3(cuda, kind, k, dtype):
+    H = _hyb_case(kind).to(device=cuda, dtype=dtype)
+    n = H.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(n)
+    X = torch.rand(n, k, generator=g, dtype=dtype).to(cuda)
+    Z = torch.rand(n, k, generator=g, dtype=dtype).to(cuda)
+    before = hyb_spmm.launches
+    for alpha, beta, zz in ((1.0, 0.0, None), (0.25, 0.0, None), (1.0, 1.0, Z)):
+        Y = hyb_spmm(H, X, alpha=alpha, beta=beta, Z=zz)
+        ref = hyb_spmm_plain(H, X, alpha, beta, zz)
+        singles = [hyb_spmv(H, x, alpha, beta, None if zz is None else z)
+                   for x, z in zip(_cols(X), _cols(Z))]
+        torch.cuda.synchronize()
+        assert _rel(Y, ref) <= TOL[dtype] and _rel(Y, torch.stack(singles, 1)) <= TOL[dtype]
+    assert hyb_spmm.launches == before + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind,sweeps", [("banded", 1), ("banded", 6), ("strayed", 4)])
+@pytest.mark.parametrize("k", [3, 4, 8])
+def test_neumann_block_matches_plain_and_k2(cuda, kind, sweeps, k, dtype):
+    A = lt.sparse.laplacian_3d(12) if kind == "banded" else _strayed(45, 300)
+    L, U = iluk_factor(A, level=0 if kind == "banded" else 1)
+    plan = plan_fused_neumann(L, U, sweeps, dtype=dtype, device=cuda)
+    R = torch.from_numpy(np.random.default_rng(sweeps).standard_normal((A.shape[0], k)))
+    R = R.to(device=cuda, dtype=dtype)
+    before = (neumann_block_apply.launches, fused_neumann_apply.launches)
+    Z = fused_neumann_apply(plan, R)                  # a block goes to K2k
+    assert (neumann_block_apply.launches, fused_neumann_apply.launches) == \
+        (before[0] + 2 * sweeps, before[1])
+    ref = neumann_apply_plain(plan, R)
+    singles = torch.stack([fused_neumann_apply(plan, r) for r in _cols(R)], 1)
+    torch.cuda.synchronize()
+    assert _rel(Z, ref) <= TOL[dtype] and _rel(Z, singles) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["laplacian_3d_12", "convdiff_50"])
+@pytest.mark.parametrize("k", [3, 8])
+def test_dia_spmm_ext_matches_plain_and_k4(cuda, kind, k, dtype):
+    M = _ext_case(kind, dtype, cuda)
+    P, R = M.nshards, M.rows_per_shard
+    g = torch.Generator(device="cpu").manual_seed(R)
+    x_ext = torch.rand(P, R + M.lo + M.hi, k, generator=g, dtype=dtype).to(cuda)
+    z = torch.rand(P, R, k, generator=g, dtype=dtype).to(cuda)
+    before = dia_spmm_ext.launches
+    for alpha, beta, zz in ((1.0, 0.0, None), (-1.0, 1.0, z)):
+        y = dia_spmm_ext(M.data, M.offsets, x_ext, alpha, beta, zz, offsets_t=M.offsets_t)
+        ref = dia_spmm_ext_plain(M.data, M.offsets, x_ext, alpha, beta, zz)
+        singles = [dia_spmv_ext(M.data, M.offsets, x, alpha, beta, None if zz is None else zc,
+                                offsets_t=M.offsets_t) for x, zc in zip(_cols(x_ext), _cols(z))]
+        torch.cuda.synchronize()
+        assert y.shape == (P, R, k) and _rel(y, ref) <= TOL[dtype]
+        assert _rel(y, torch.stack(singles, -1)) <= TOL[dtype]
+    assert dia_spmm_ext.launches == before + 2
+
+
+def _counts():
+    return dict(k1=dia_spmv.launches, k2=fused_neumann_apply.launches, k3=hyb_spmv.launches,
+                k4=dia_spmv_ext.launches, k1k=dia_spmm.launches,
+                k2k=neumann_block_apply.launches, k3k=hyb_spmm.launches,
+                k4k=dia_spmm_ext.launches)
+
+
+def _moved(before):
+    return {name: n - before[name] for name, n in _counts().items() if n != before[name]}
+
+
+def test_solve_ir_multi_on_cuda_launches_only_k_rhs_forms(cuda):
+    """blockcg + ILU(0) on 16³, k = 4: K1k and K2k run, K1-K4 never; the
+    result matches the CPU port's."""
+    A = lt.sparse.laplacian_3d(16)
+    B = torch.from_numpy(np.random.default_rng(0).standard_normal((A.shape[0], 4)))
+    kw = dict(method="blockcg", pc="ilu0", options=lt.SolverOptions(rtol=1e-8, atol=0))
+    Xc, ic = lt.solve_ir_multi(A, B, pc_options=lt.PCOptions(ilu_sweeps=6), **kw)
+    before = _counts()
+    X, info = lt.solve_ir_multi(A, B.to(cuda), **kw)
+    moved = _moved(before)
+    assert info.converged.all() and set(moved) == {"k1k", "k2k"}, moved
+    assert (np.abs(info.nits - ic.nits) <= 2).all()
+    assert torch.linalg.vector_norm(X.cpu() - Xc) <= 1e-6 * torch.linalg.vector_norm(Xc)
+
+
+def test_solve_multi_hyb_on_cuda_goes_through_k3k(cuda, monkeypatch):
+    H = _hyb_case("ragged")
+    A = lt.CSR.from_scipy(sp.csr_matrix(H.todense()))
+    B = torch.from_numpy(np.random.default_rng(1).standard_normal((A.shape[0], 3)))
+
+    def forbidden(*args, **kw):
+        raise AssertionError("plain path taken on a CUDA tensor")
+    monkeypatch.setattr(hyb_mod, "hyb_spmm_plain", forbidden)
+    before = _counts()
+    X, info = lt.solve_ir_multi(A, B.to(cuda), method="blockgmres", pc="iluk",
+                                options=lt.SolverOptions(rtol=1e-8, atol=0))
+    moved = _moved(before)
+    assert info.converged.all() and set(moved) == {"k3k", "k2k"}, moved
+
+
+def test_dist_solve_ir_multi_on_cuda_launches_only_k4k(cuda):
+    A = lt.sparse.laplacian_3d(16)
+    B = torch.from_numpy(np.random.default_rng(2).standard_normal((A.shape[0], 3)))
+    kw = dict(method="blockcg", pc="ilu0", options=lt.SolverOptions(rtol=1e-8, atol=0))
+    Xc, ic = lt.dist_solve_ir_multi(A, B, mesh=lt.make_mesh(8, devices=["cpu"] * 8),
+                                    pc_options=lt.PCOptions(ilu_sweeps=6), **kw)
+    before = _counts()
+    X, info = lt.dist_solve_ir_multi(A, B.to(cuda), mesh=lt.make_mesh(8, devices=[cuda] * 8),
+                                     **kw)
+    moved = _moved(before)
+    assert info.converged.all() and set(moved) == {"k4k"}, moved
+    assert (np.abs(info.nits - ic.nits) <= 2).all()
+    assert torch.linalg.vector_norm(X.cpu() - Xc) <= 1e-6 * torch.linalg.vector_norm(Xc)
