@@ -9,7 +9,8 @@ non-zero without the final result line):
 1. stack: the card's name and power limit, torch.version.cuda, nvcc, and
    the seconds it took to build the CUDA kernels from this checkout;
 2. K1 (DIA SpMV) against its plain PyTorch version on the card;
-3. K2 (Neumann ILU apply) against its plain PyTorch version;
+3. K2 (Neumann ILU apply) against its plain PyTorch version (ILU(0) 64³
+   and 128³, ILU(1) with strays);
 4. the main path at the acceptance size: solve_ir, CG + ILU(0), on the
    3-D Poisson 64³, with every kernel launch counter reset just before;
 5. the same solve on 128³;
@@ -61,6 +62,31 @@ After each of phases 15-18 its k-rhs kernels (K1k or K3k and K2k; K4k for
 18, on the partition and the per-shard Neumann factors) are checked on
 that solve's own matrix and plan with its own block, in its own dtype,
 against their plain versions and against k single-rhs launches.
+The AMG phases (every kernel launch counter reset just before each solve):
+19. the slice's main path, ``bench.py``'s tts1e8_gmres_saamg: solve_ir,
+   GMRES(30) + saamg, on the anisotropic Poisson 1024² (epsilon 0.01,
+   1,048,576 rows), b = 1: ≤ 24 inner iterations (the TPU's 21 + 15 %),
+   true relres ≤ 1e-8, only K1 among the kernels; the setup split, the
+   hierarchy, launches per inner iteration and the device-busy share of a
+   profiled warm solve; then K1 against its plain version on every DIA
+   level's A, B and C, in fp32 and fp64;
+20. the classical ``amg`` route, acceptance's gmres_amg_aniso as it runs
+   off the TPU (the Solver, fp64, GMRES(30)) on the anisotropic Poisson
+   512² (epsilon 1e-3): ≤ the JAX CPU count + 15 %; each level's format;
+   K1 (and K3 on a HYB level) checked on the levels;
+21. ``rsamg``: solve_ir, CG + rsamg, on the 3-D Laplacian 64³;
+22. the block path: solve_ir_multi, block GMRES + saamg, on the
+   anisotropic Poisson 512² (epsilon 0.01) with 8 columns: only K1k (and
+   K1) may launch; K1k checked on the levels against its plain version and
+   8 single launches.
+The JAX CPU counts of phases 20-22 come from
+``scripts/jax_amg_reference.py``.  Then one step that no solve path uses
+times, for each kernel of the JSON line at its shape there, the one
+PyTorch call that computes the same function (a ``torch.sparse_csr_tensor``
+product through cuSPARSE; 12 ``torch.addmm`` for a Neumann apply) as
+``library_ms``, and computes ``bound_ms``: the larger of the bytes each
+input read once and each output written once over 3.35 TB/s and the
+floating-point operations over 67 TFLOP/s (fp32) or 34 TFLOP/s (fp64).
 
 Kernel times are given twice: ``ms`` is device time per call, from CUDA
 events around the replay of a CUDA graph that holds back-to-back calls, so
@@ -68,11 +94,15 @@ the Python wrapper's checks and ctypes call are not in it; ``host_ms`` is
 the time per call of the same calls issued from Python, which at the main
 path's shapes is bound by that host cost.
 
-The line before the last is a JSON object with one entry per kernel, at
-the shape its path gives it (K1 and K2 from phase 4, K3 from phase 8, K4
-from phase 12, K1k and K2k from phase 15, K3k from phase 17, K4k from
-phase 18; the k-rhs forms' times from phase 14 at k = 8); the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel: its
+launches on its path (K1 and K2 from phase 4, K3 from phase 8, K4 from
+phase 12, K1k and K2k from phase 15, K3k from phase 17, K4k from phase
+18) and its times, library time and bound at one shape whose inputs do
+not fit the 50 MB L2, so that back-to-back calls read HBM as the bound
+assumes (K1 on the 2-D Laplacian 2048² from phase 2, K2 on ILU(0) 128³
+from phase 3, K3 from phase 8, K4 from phase 12, the k-rhs forms from
+phase 14 at 128³, k = 8); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 import json
 import os
@@ -202,7 +232,8 @@ def phase_k1(lt, np, torch, dev):
                       f"{t['ms'] * 1e3:.2f} us ({gbps:.1f} GB/s), plain "
                       f"{t['plain_ms'] * 1e3:.2f} us; issued from Python: K1 "
                       f"{t['host_ms'] * 1e3:.2f} us, plain {t['plain_host_ms'] * 1e3:.2f} us")
-                if name == "laplacian_3d(64)" and dtype == torch.float32 and scale == 1.0:
+                # the JSON line's shape: 4.2M rows, 117 MB, out of the 50 MB L2
+                if name == "laplacian_2d(2048)" and dtype == torch.float32 and scale == 1.0:
                     main = dict(max_abs_err=abs_err, **t)
     return main
 
@@ -231,6 +262,7 @@ def phase_k2(lt, np, torch, dev):
     tol = {torch.float32: 1e-5, torch.float64: 1e-12}
     rng = np.random.default_rng(1)
     cases = [("ilu0 laplacian_3d(64)", lt.sparse.laplacian_3d(64), 0),
+             ("ilu0 laplacian_3d(128)", lt.sparse.laplacian_3d(128), 0),
              ("iluk(1) laplacian_2d(256)+0.5% strays",
               strayed_laplacian(lt, np, 256, 0.005), 1)]
     main = None
@@ -258,7 +290,8 @@ def phase_k2(lt, np, torch, dev):
                   f"us/apply, plain {t['plain_ms'] * 1e3:.1f} us/apply; issued from "
                   f"Python: K2 {t['host_ms'] * 1e3:.1f} us/apply, plain "
                   f"{t['plain_host_ms'] * 1e3:.1f} us/apply")
-            if level == 0 and dtype == torch.float32:
+            # the JSON line's shape: 2.1M rows, 75 MB, out of the 50 MB L2
+            if name == "ilu0 laplacian_3d(128)" and dtype == torch.float32:
                 main = dict(max_abs_err=abs_err, **t)
     return main
 
@@ -987,6 +1020,414 @@ def phase_dist_multi(lt, np, torch, dev, counters, card):
     return launches, worst
 
 
+# ---------------------------------------------------------------------------
+# AMG (phases 19-22)
+# ---------------------------------------------------------------------------
+
+# JAX's inner iteration counts on the CPU for the phases' systems
+# (scripts/jax_amg_reference.py; phase 22: the largest column's)
+JAX_CPU_NITS = {20: 11, 21: 13, 22: 9}
+
+
+def count_limit(ref):
+    """A reference count + 15 %, at least one iteration more."""
+    return max(ref + 1, int(ref * 1.15))
+
+
+def profile_solve(torch, fn):
+    """One call of ``fn`` under torch.profiler: (profiled wall s, device-busy
+    share of that wall (the union of the device's kernel and copy
+    intervals), device launches, the six kernels with the most device time
+    as {name: ms})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            # the kernel's own name, without its namespace and template
+            short = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+            short = short.split("<")[0].split("(")[0].split("::")[-1]
+            by_name[short] = by_name.get(short, 0.0) + (e.time_range.end - e.time_range.start)
+    spans.sort()
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return wall, busy * 1e-6 / wall, len(spans), {k: round(v * 1e-3, 3) for k, v in top}
+
+
+def profiled(torch, fn, nits):
+    """``profile_solve`` of one more warm solve, as a line of text."""
+    wall, busy, launches, top = profile_solve(torch, fn)
+    return (f"profiled warm solve {wall:.3f} s, device busy {busy:.1%}, {launches} device "
+            f"launches ({launches / max(int(max(nits) if hasattr(nits, '__len__') else nits), 1):.1f} "
+            "per inner iteration), "
+            f"device ms by kernel {top}")
+
+
+def level_table(levels, names=("A", "B", "C")):
+    """Each level's rows, and each operator's format and diagonal count."""
+    rows = []
+    for i, lev in enumerate(levels):
+        parts = []
+        for nm in names:
+            M = getattr(lev, nm, None)
+            if M is None:
+                continue
+            kind = type(M).__name__
+            nd = (len(M.offsets) if kind == "DIA" else len(M.dia.offsets) if kind == "HYB"
+                  else M.data.shape[1])
+            parts.append(f"{nm} {kind}({nd})")
+        rows.append(f"L{i} n={lev.A.shape[0]} " + " ".join(parts))
+    return "; ".join(rows)
+
+
+def check_level_kernels(lt, np, torch, dev, levels, name, names=("A", "B", "C")):
+    """K1 (on a DIA) and K3 (on a HYB) against their plain versions on every
+    level operator of a hierarchy, in its dtype and in the other one of
+    fp32 / fp64 (1e-5 / 1e-12).  Returns {kernel: max abs err} and the
+    number of operators checked."""
+    from lssp_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
+    from lssp_tpu_torch.ops.hyb_spmv import hyb_spmv, hyb_spmv_plain
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12}
+    rng = np.random.default_rng(19)
+    worst, count = {}, 0
+    for i, lev in enumerate(levels):
+        for nm in names:
+            M = getattr(lev, nm, None)
+            if not isinstance(M, (lt.DIA, lt.HYB)):
+                continue
+            for dtype in (torch.float32, torch.float64):
+                Md = M.to(dtype=dtype)
+                x = torch.from_numpy(rng.uniform(-1, 1, M.shape[1])).to(device=dev, dtype=dtype)
+                if isinstance(Md, lt.DIA):
+                    kname, y, ref = "dia_spmv", dia_spmv(Md, x), dia_spmv_plain(
+                        Md.data, Md.offsets, x)
+                else:
+                    kname, y, ref = "hyb_spmv", hyb_spmv(Md, x), hyb_spmv_plain(Md, x)
+                torch.cuda.synchronize()
+                err, abs_err = rel_err(y, ref), (y - ref).abs().max().item()
+                check(bool(torch.isfinite(y).all()), f"{name} L{i} {nm}: non-finite output")
+                check(err <= tol[dtype], f"{name} L{i} {nm} ({kname}, {dtype}): max rel err "
+                      f"{err:.3e} > {tol[dtype]:.0e}")
+                worst[kname] = max(worst.get(kname, 0.0), abs_err)
+                count += 1
+    print(f"{name}: {count} level products (fp32 and fp64) against their plain versions: "
+          f"max abs err {worst}")
+    return worst, count
+
+
+def phase_saamg_main(lt, np, torch, dev, counters, card):
+    """Phase 19: bench.py's tts1e8_gmres_saamg on the card."""
+    A = lt.sparse.anisotropic_poisson_2d(1024, epsilon=0.01)
+    opts = lt.SolverOptions(rtol=1e-8, atol=0.0, rbtol=0.0, maxit=2000, restart=30)
+    for fn in counters:
+        fn.launches = 0
+    (_, A64, A32, _, M32), x, info, setup_s, runs = timed_ir(lt, torch, dev, A, "gmres",
+                                                            "saamg", opts)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    rr = true_relres(A, x, np)
+    h = M32.state
+    # the counts cover the two solves of timed_ir
+    per_it = {k: round(v / (2 * max(info.nits, 1)), 1) for k, v in launches.items() if v}
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    prof = profiled(torch, lambda: lt.solve_ir(A, b, method="gmres", pc="saamg", options=opts),
+                    info.nits)
+    print(f"saamg main aniso 1024^2 eps 0.01 n={A.shape[0]} nnz={A.nnz} solve_ir "
+          f"gmres(30)+saamg [{card}]: inner its {info.nits} (limit 24), true relres {rr:.3e}, "
+          f"setup {setup_s:.3f} s (saamg: {', '.join(f'{k} {v:.3f} s' for k, v in h.setup_s.items())}), "
+          f"solve first {runs[0]:.3f} s, warm {runs[1]:.3f} s; launches {launches}, per inner "
+          f"iteration {per_it}; {prof}")
+    print(f"saamg main hierarchy ({len(h.levels)} levels + coarse {h.coarse_inv.shape[0]}): "
+          f"{level_table(h.levels)}")
+    check(info.nits <= 24, f"saamg main: {info.nits} inner iterations > 24")
+    check(rr <= 1e-8, f"saamg main: true relres {rr:.3e} > 1e-8")
+    check_only(launches, {"dia_spmv"}, "saamg main")
+    errs, _ = check_level_kernels(lt, np, torch, dev, h.levels, "saamg main")
+    return launches, errs
+
+
+def phase_amg_classical(lt, np, torch, dev, counters, card):
+    """Phase 20: gmres_amg_aniso as it runs off the TPU (Solver, fp64,
+    GMRES(30) + amg), at 512²."""
+    A = lt.sparse.anisotropic_poisson_2d(512)
+    opts = lt.SolverOptions(rtol=1e-8, atol=0.0, rbtol=0.0, maxit=5000, restart=30)
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    for fn in counters:
+        fn.launches = 0
+    s = lt.Solver(method="gmres", pc="amg", options=opts, device=dev)
+    t0 = time.perf_counter()
+    s.assemble(A, b)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = s.solve(x0=torch.zeros_like(b))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    rr = true_relres(A, x, np)
+    h = s.M.state
+    limit = count_limit(JAX_CPU_NITS[20])
+    prof = profiled(torch, lambda: s.solve(x0=torch.zeros_like(b)), s.nits)
+    print(f"amg classical aniso 512^2 eps 1e-3 Solver gmres(30)+amg fp64 [{card}]: nits "
+          f"{s.nits} (JAX CPU {JAX_CPU_NITS[20]}, limit {limit}), true relres {rr:.3e}, setup "
+          f"{setup_s:.3f} s, solve {walls[0]:.3f} s, {walls[1]:.3f} s; launches of both solves "
+          f"{launches}; {prof}")
+    print(f"amg classical hierarchy ({len(h.levels)} levels): "
+          f"{level_table(h.levels, names=('A', 'P', 'R'))}")
+    check(s.nits <= limit, f"amg classical: {s.nits} iterations > {limit}")
+    check(rr <= 1e-8, f"amg classical: true relres {rr:.3e} > 1e-8")
+    check(launches["dia_spmv"] > 0, "amg classical: K1 was never launched")
+    errs, _ = check_level_kernels(lt, np, torch, dev, h.levels, "amg classical", names=("A",))
+    return launches, errs
+
+
+def phase_rsamg(lt, np, torch, dev, counters, card):
+    """Phase 21: solve_ir, CG + rsamg, on the 3-D Laplacian 64³."""
+    A = lt.sparse.laplacian_3d(64)
+    opts = lt.SolverOptions(rtol=1e-8, atol=0.0, rbtol=0.0, maxit=2000)
+    for fn in counters:
+        fn.launches = 0
+    (_, _, _, _, M32), x, info, setup_s, runs = timed_ir(lt, torch, dev, A, "cg", "rsamg", opts)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    rr = true_relres(A, x, np)
+    limit = count_limit(JAX_CPU_NITS[21])
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    prof = profiled(torch, lambda: lt.solve_ir(A, b, method="cg", pc="rsamg", options=opts),
+                    info.nits)
+    print(f"rsamg 64^3 solve_ir cg+rsamg [{card}]: inner its {info.nits} (JAX CPU "
+          f"{JAX_CPU_NITS[21]}, limit {limit}), true relres {rr:.3e}, setup {setup_s:.3f} s, "
+          f"solve first {runs[0]:.3f} s, warm {runs[1]:.3f} s, launches {launches}; {prof}; "
+          f"hierarchy {level_table(M32.state.levels, names=('A',))}")
+    check(info.nits <= limit, f"rsamg: {info.nits} inner iterations > {limit}")
+    check(rr <= 1e-8, f"rsamg: true relres {rr:.3e} > 1e-8")
+    check_only(launches, {"dia_spmv"}, "rsamg")
+    return check_level_kernels(lt, np, torch, dev, M32.state.levels, "rsamg", names=("A",))[0]
+
+
+def phase_saamg_block(lt, np, torch, dev, counters, card):
+    """Phase 22: solve_ir_multi, block GMRES + saamg, 512², k = 8."""
+    from lssp_tpu_torch.ops.dia_spmv import dia_spmm, dia_spmm_plain, dia_spmv
+    A = lt.sparse.anisotropic_poisson_2d(512, epsilon=0.01)
+    B = serving_block(np, torch, dev, A.shape[0])
+    opts = lt.SolverOptions(rtol=1e-8, atol=0.0, rbtol=0.0, maxit=2000, restart=30)
+    for fn in counters:
+        fn.launches = 0
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        X, info = lt.solve_ir_multi(A, B, method="blockgmres", pc="saamg", options=opts)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if len(walls) == 1:
+            launches = {fn.__name__: fn.launches for fn in counters}
+    rr = block_relres(A, X, B, np)
+    limit = count_limit(JAX_CPU_NITS[22])
+    prof = profiled(torch, lambda: lt.solve_ir_multi(A, B, method="blockgmres", pc="saamg",
+                                                     options=opts), info.nits)
+    print(f"saamg block aniso 512^2 eps 0.01 solve_ir_multi blockgmres+saamg k=8 [{card}]: "
+          f"inner its {info.nits} (JAX CPU {JAX_CPU_NITS[22]}, limit {limit}), true relres max "
+          f"{rr.max():.3e}, first call (setup included) {walls[0]:.3f} s, warm {walls[1]:.3f} s, "
+          f"launches of the first call {launches}; {prof}")
+    check((rr <= 1e-8).all(), f"saamg block: true relres {rr} > 1e-8")
+    check(info.nits.max() <= limit, f"saamg block: {info.nits.max()} inner iterations > {limit}")
+    check(launches["dia_spmm"] > 0, "saamg block: K1k was never launched")
+    for kname, count in launches.items():
+        check(kname in ("dia_spmm", "dia_spmv") or count == 0,
+              f"saamg block: kernel {kname} launched {count} times")
+    _, _, _, _, M32 = lt.prepare_ir(A, method="blockgmres", pc="saamg", device=dev)
+    worst, count = 0.0, 0
+    for i, lev in enumerate(M32.state.levels):
+        for nm in ("A", "B", "C"):
+            D = getattr(lev, nm)
+            if not isinstance(D, lt.DIA):
+                continue
+            X32 = torch.from_numpy(np.random.default_rng(i).uniform(
+                -1, 1, (D.shape[1], 8))).to(device=dev, dtype=torch.float32)
+            cols = columns(X32)
+            err, abs_err, err1 = check_krhs(
+                torch, f"saamg block L{i} {nm}: dia_spmm", lambda: dia_spmm(D, X32),
+                lambda: dia_spmm_plain(D.data, D.offsets, X32),
+                lambda: [dia_spmv(D, c) for c in cols], 1e-5)
+            worst = max(worst, abs_err)
+            count += 1
+    print(f"saamg block: K1k on {count} level operators, k=8 fp32, against its plain version "
+          f"and 8 single launches: max abs err {worst:.3e}")
+    return launches, worst
+
+
+# ---------------------------------------------------------------------------
+# the library yardstick and the bound of every kernel in the JSON line
+# ---------------------------------------------------------------------------
+
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(nbytes, flops, dtype_peak):
+    """The least time the card could take: the larger of the bytes over
+    3.35 TB/s and the operations over the type's peak."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / dtype_peak * 1e3
+    return dict(bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations")
+
+
+FP32_PEAK = 67e12
+
+
+def csr_tensor(np, torch, S, dev, dtype):
+    """A scipy CSR as a torch.sparse_csr_tensor on the card (int32 indices)."""
+    S = S.tocsr()
+    return torch.sparse_csr_tensor(torch.from_numpy(S.indptr.astype(np.int32)),
+                                   torch.from_numpy(S.indices.astype(np.int32)),
+                                   torch.from_numpy(S.data), size=S.shape).to(
+        device=dev, dtype=dtype)
+
+
+def factor_csr(np, F, n):
+    """A Neumann plan factor (band plus strays) as a scipy CSR."""
+    import scipy.sparse as sp
+    band = F.band.cpu().double().numpy()
+    rows, cols, vals = [], [], []
+    for d, off in enumerate(F.offsets):
+        i = np.arange(max(0, -off), min(n, n - off))
+        rows.append(i), cols.append(i + off), vals.append(band[d, i])
+    if F.stray_ptr is not None:
+        ptr = F.stray_ptr.cpu().numpy().astype(np.int64)
+        rows.append(np.repeat(np.arange(n), np.diff(ptr)))
+        cols.append(F.stray_cols.cpu().numpy())
+        vals.append(F.stray_vals.cpu().double().numpy())
+    r, c, v = (np.concatenate(a) for a in (rows, cols, vals))
+    keep = v != 0
+    return sp.csr_matrix((v[keep], (r[keep], c[keep])), shape=(n, n))
+
+
+def library_ms(torch, fn):
+    """Device ms per call of a PyTorch library call, from a CUDA graph replay
+    as the kernels' ``ms``; a call that cannot be captured in a graph is
+    timed with CUDA events around host-issued calls instead, and said so."""
+    try:
+        return graph_ms(fn, calls=10, samples=10)
+    except RuntimeError as e:
+        print(f"library call not capturable ({str(e).splitlines()[0][:120]}); timed "
+              "host-issued")
+        torch.cuda.synchronize()
+        return cuda_ms(fn, inner=10)
+
+
+def phase_library(lt, np, torch, dev, card):
+    """For each kernel of the JSON line, at the shape its entry reports: the
+    time of the one PyTorch call that computes the same function (cuSPARSE
+    through torch.sparse; the Neumann apply as its 12 addmm), its output
+    against the kernel's, and the kernel's bound.  No solve path calls any
+    of these library functions."""
+    from lssp_tpu_torch.ops.dia_spmv import dia_spmm, dia_spmv
+    from lssp_tpu_torch.ops.dia_spmv_ext import dia_spmm_ext, dia_spmv_ext
+    from lssp_tpu_torch.ops.hyb_spmv import hyb_spmm, hyb_spmv
+    from lssp_tpu_torch.ops.neumann import fused_neumann_apply, plan_fused_neumann
+    from lssp_tpu_torch.parallel import halo_exchange, partition_csr_dia
+    from lssp_tpu_torch.pc.ilu_host import iluk_factor
+    f32 = torch.float32
+    rng = np.random.default_rng(20)
+    out = {}
+
+    def vec(n, k=None):
+        shape = (n,) if k is None else (n, k)
+        return torch.from_numpy(rng.uniform(-1, 1, shape)).to(device=dev, dtype=f32)
+
+    def record(name, kernel_y, lib, nbytes, flops):
+        y_lib = lib()
+        torch.cuda.synchronize()
+        diff = rel_err(y_lib.reshape(kernel_y.shape), kernel_y)
+        check(diff <= 1e-4, f"library {name}: the library call differs from the kernel by "
+              f"{diff:.3e}, not the same function")
+        out[name] = dict(library_ms=library_ms(torch, lib), **bound(nbytes, flops, FP32_PEAK))
+        print(f"library {name} [{card}]: {out[name]['library_ms'] * 1e3:.2f} us, against the "
+              f"kernel {diff:.1e}; bound {out[name]['bound_ms'] * 1e3:.2f} us "
+              f"({out[name]['bound_by']})")
+
+    # K1 at phase 2's out-of-L2 shape: laplacian_2d(2048), fp32
+    A = lt.sparse.laplacian_2d(2048)
+    n = A.shape[0]
+    D = lt.sparse.csr_to_dia(A, device=dev).to(dtype=f32)
+    C = csr_tensor(np, torch, A.to_scipy(), dev, f32)
+    x = vec(n)
+    nd = len(D.offsets)
+    record("dia_spmv", dia_spmv(D, x), lambda: C @ x, (nd * n + 2 * n) * 4, 2 * A.nnz)
+    del C, D, x
+    # K2 at phase 3's out-of-L2 shape (and K2k at phase 14's): ILU(0) 128^3,
+    # 6 sweeps, fp32, per apply
+    A4 = lt.sparse.laplacian_3d(128)
+    L4, U4 = iluk_factor(A4, level=0)
+    plan = plan_fused_neumann(L4, U4, 6, dtype=f32, device=dev)
+    n4 = A4.shape[0]
+    Ls = csr_tensor(np, torch, factor_csr(np, plan.L, n4), dev, f32)
+    Us = csr_tensor(np, torch, factor_csr(np, plan.U, n4), dev, f32)
+    ndl, ndu = len(plan.L.offsets), len(plan.U.offsets)
+    neumann_bytes = lambda k: ((ndl + ndu + 1) * n4 + 2 * k * n4) * 4
+    neumann_flops = 2 * 6 * (ndl + ndu) * n4 + n4
+    r = vec(n4)
+
+    def neumann_lib(R):
+        y = R
+        for _ in range(6):
+            y = torch.addmm(R, Ls, y, beta=1.0, alpha=-1.0)
+        z0 = plan.invdiag[:, None] * y
+        z = z0
+        for _ in range(6):
+            z = torch.addmm(z0, Us, z, beta=1.0, alpha=-1.0)
+        return z
+
+    record("neumann_sweep", fused_neumann_apply(plan, r), lambda: neumann_lib(r[:, None]),
+           neumann_bytes(1), neumann_flops)
+    # K3 at phase 8's shape: 128^3 + strays, fp32
+    A3 = strayed_grid(lt, np, 128, "3d", np.float64)
+    H = lt.sparse.csr_to_hyb(A3, device=dev).to(dtype=f32)
+    C3 = csr_tensor(np, torch, A3.to_scipy(), dev, f32)
+    n3 = A3.shape[0]
+    x3 = vec(n3)
+    nd3 = len(H.dia.offsets)
+    hyb_bytes = lambda k: (nd3 * n3 + 2 * k * n3) * 4 + H.nnz_rem * 12 + H.rem_block_ptr.numel() * 4
+    record("hyb_spmv", hyb_spmv(H, x3), lambda: C3 @ x3, hyb_bytes(1), 2 * A3.nnz)
+    X3 = vec(n3, 8)
+    record("hyb_spmm", hyb_spmm(H, X3), lambda: C3 @ X3, hyb_bytes(8), 2 * 8 * A3.nnz)
+    # K4 at phase 12's partition: 128^3 over 8 shards, fp32 (library: unpartitioned CSR)
+    C4 = csr_tensor(np, torch, A4.to_scipy(), dev, f32)
+    M = partition_csr_dia(A4, 8).to(device=dev, dtype=f32)
+    P, R = M.nshards, M.rows_per_shard
+    x4 = vec(P * R)
+    xe = halo_exchange(x4.view(P, R), M.lo, M.hi)
+    ext_bytes = lambda k: P * (len(M.offsets) * R + k * (R + M.lo + M.hi) + k * R) * 4
+    record("dist_spmv_ext", dia_spmv_ext(M.data, M.offsets, xe, offsets_t=M.offsets_t),
+           lambda: C4 @ x4, ext_bytes(1), 2 * A4.nnz)
+    X4 = vec(P * R, 8)
+    Xe = halo_exchange(X4.view(P, R, 8), M.lo, M.hi)
+    record("dist_spmm_ext", dia_spmm_ext(M.data, M.offsets, Xe, offsets_t=M.offsets_t),
+           lambda: C4 @ X4, ext_bytes(8), 2 * 8 * A4.nnz)
+    # K1k and K2k at phase 14's shapes: 128^3, k = 8, fp32
+    D4 = lt.sparse.csr_to_dia(A4, device=dev).to(dtype=f32)
+    nd4 = len(D4.offsets)
+    record("dia_spmm", dia_spmm(D4, X4), lambda: C4 @ X4, (nd4 * P * R + 2 * 8 * P * R) * 4,
+           2 * 8 * A4.nnz)
+    record("neumann_sweep_block", fused_neumann_apply(plan, X4), lambda: neumann_lib(X4),
+           neumann_bytes(8), 8 * neumann_flops)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1029,10 +1470,20 @@ def main():
     per_column_errs = phase_per_column(lt, np, torch, dev, counters)
     hyb_multi_launches, hyb_multi_errs = phase_hyb_multi(lt, np, torch, dev, counters, card)
     dist_multi_launches, k4k_err = phase_dist_multi(lt, np, torch, dev, counters, card)
-    # each k-rhs form's error is the worst over phase 14 and its phases' own data
-    for errs in (serving_errs, per_column_errs, hyb_multi_errs, {"dist_spmm_ext": k4k_err}):
+    _, saamg_errs = phase_saamg_main(lt, np, torch, dev, counters, card)
+    _, classical_errs = phase_amg_classical(lt, np, torch, dev, counters, card)
+    rsamg_errs = phase_rsamg(lt, np, torch, dev, counters, card)
+    _, block_err = phase_saamg_block(lt, np, torch, dev, counters, card)
+    library = phase_library(lt, np, torch, dev, card)
+    # each kernel's error is the worst over its own phase and the later
+    # phases' checks on their own data
+    for errs in (serving_errs, per_column_errs, hyb_multi_errs, {"dist_spmm_ext": k4k_err},
+                 {"dia_spmm": block_err}):
         for kname, err in errs.items():
             krhs[kname]["max_abs_err"] = max(krhs[kname]["max_abs_err"], err)
+    for errs in (saamg_errs, classical_errs, rsamg_errs):
+        k1["max_abs_err"] = max(k1["max_abs_err"], errs.get("dia_spmv", 0.0))
+        k3["max_abs_err"] = max(k3["max_abs_err"], errs.get("hyb_spmv", 0.0))
     kernels = [
         dict(name="dia_spmv", route="cuda", source="lssp_tpu_torch/csrc/dia_spmv.cu",
              replaces="lssp_tpu/ops/pallas_spmv.py:91", launches=launches["dia_spmv"], **k1),
@@ -1059,6 +1510,8 @@ def main():
              replaces="lssp_tpu/ops/pallas_spmv.py:91 (prepadded=True; k-rhs vmap rule :691)",
              launches=dist_multi_launches["dia_spmm_ext"], **krhs["dist_spmm_ext"]),
     ]
+    for entry in kernels:
+        entry.update(library[entry["name"]])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

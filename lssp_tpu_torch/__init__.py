@@ -9,7 +9,12 @@ stencil SpMV (``ops/dia_spmv.py``, K1), the Neumann ILU sweep
 (``ops/hyb_spmv.py``, K3) and the per-shard DIA SpMV of the distributed
 solve (``ops/dia_spmv_ext.py``, K4; ``parallel/``), each with a k-rhs form
 (K1k-K4k) for the multi-rhs path (``solve_multi``, ``solve_ir_multi``,
-``dist_solve_multi``, ``dist_solve_ir_multi``; B is (n, k)).
+``dist_solve_multi``, ``dist_solve_ir_multi``; B is (n, k)).  The AMG
+preconditioners ``amg``, ``saamg`` and ``rsamg`` (``amg/``) run their
+cycles on the same kernels, and ``amg_solve`` is the standalone AMG solver.
+
+Entry points run on the current CUDA device unless given a CPU tensor or
+``device="cpu"``; without a CUDA device they raise rather than fall back.
 
     >>> import torch, lssp_tpu_torch as lt
     >>> A = lt.sparse.laplacian_3d(64)              # host CSR
@@ -19,7 +24,8 @@ solve (``ops/dia_spmv_ext.py``, K4; ``parallel/``), each with a k-rhs form
     >>> X, info = lt.solve_ir_multi(A, B, method="blockcg", pc="ilu0")
 """
 
-from lssp_tpu_torch import ops, parallel, pc, solvers, sparse
+from lssp_tpu_torch import amg, ops, parallel, pc, solvers, sparse
+from lssp_tpu_torch.amg import amg_solve
 from lssp_tpu_torch.config import Defaults, PCOptions, SolverOptions
 from lssp_tpu_torch.parallel import (
     dist_solve, dist_solve_ir, dist_solve_ir_multi, dist_solve_multi, make_mesh,
@@ -32,7 +38,7 @@ from lssp_tpu_torch.sparse import COO, CSR, DIA, ELL, HYB
 __version__ = "0.1.0"
 
 __all__ = [
-    "sparse", "ops", "parallel", "solvers", "pc",
+    "sparse", "ops", "parallel", "solvers", "pc", "amg", "amg_solve",
     "SolverOptions", "PCOptions", "Defaults",
     "solve", "solve_ir", "prepare_ir", "Solver", "SolveInfo",
     "solve_multi", "solve_ir_multi",

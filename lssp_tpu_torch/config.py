@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional
 
+import torch
+
 
 class Defaults:
     """Global defaults, mirroring the reference's lssp.cxx:5-14."""
@@ -32,6 +34,21 @@ class Defaults:
     ILUT_P = -1             # lssp_pc_ilut_p  (-1 => auto: avg nnz/row)
     ZERO_DIAG_VALUE = 1e-3  # mat_zero_diag_value
     ZERO_DIAG_TOL = 1e-10   # mat_zero_diag_tol
+
+
+def resolve_device(device, b=None) -> torch.device:
+    """The device rule of every entry point: an explicit ``device`` wins, a
+    tensor ``b`` gives its own, otherwise the current CUDA device; without
+    a CUDA device that is an error, never a quiet CPU run."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(b, torch.Tensor):
+        return b.device
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the solve runs on the card unless asked "
+                           "otherwise; pass device=\"cpu\" (or a CPU tensor) to solve "
+                           "on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def _resolve(value, default):
@@ -134,3 +151,14 @@ class PCOptions:
             ilut_tol=_resolve(self.ilut_tol, d.ILUT_TOL),
             ilut_p=self.ilut_p if self.ilut_p is not None else d.ILUT_P,
         )
+
+
+def smoother_degree(pre: int, post: int) -> int:
+    """The reference's separate pre- and post-smoothing counts as the one
+    symmetric degree of the multigrid cycles (which smooth the same number
+    of times on both sides of the coarse correction): the total work kept,
+    degree = ceil((pre + post) / 2); 0/0 disables smoothing."""
+    pre, post = int(pre), int(post)
+    if pre <= 0 and post <= 0:
+        return 0
+    return max(1, (pre + post + 1) // 2)

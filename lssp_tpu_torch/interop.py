@@ -1,8 +1,9 @@
 """Carry state from the JAX package across, as numpy arrays.
 
 Each function takes the fields of an ``lssp_tpu`` container (after
-``np.asarray``) and builds the matching container here.  Nothing here
-imports JAX: the caller converts.
+``np.asarray``) and builds the matching container here; the AMG hierarchies
+(``amg_from_jax``, ``sa_from_jax``, ``rs_from_jax``) are read attribute by
+attribute, every array copied through numpy.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch
 
 from lssp_tpu_torch.parallel.partition import DistDIA, DistELL, DistHYB
 from lssp_tpu_torch.sparse.convert import hyb_from_parts
-from lssp_tpu_torch.sparse.types import CSR, DIA, HYB
+from lssp_tpu_torch.sparse.types import CSR, DIA, ELL, HYB
 
 
 def csr_from_arrays(indptr, indices, data, shape) -> CSR:
@@ -51,7 +52,7 @@ def ilu_factors_from_arrays(L_arrays, U_arrays):
 
 
 def _t(a, device, dtype=None):
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+    return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
 
 
 def dist_dia_from_arrays(data, offsets, n, nshards, device="cpu") -> DistDIA:
@@ -75,3 +76,64 @@ def dist_ell_from_arrays(cols, data, n, nshards, halo, mode, device="cpu") -> Di
     """A DistELL on ``device`` from ``lssp_tpu.parallel.DistELL`` fields."""
     return DistELL(_t(cols, device, np.int64), _t(data, device), int(n), int(nshards),
                    int(halo), str(mode))
+
+
+def ell_from_arrays(cols, data, shape, device="cpu") -> ELL:
+    """An ELL on ``device`` from ``lssp_tpu.sparse.ELL`` fields."""
+    return ELL(_t(cols, device, np.int64), _t(data, device), (int(shape[0]), int(shape[1])))
+
+
+def matrix_from_jax(M, device="cpu"):
+    """A port DIA, HYB or ELL from the JAX container of the same name (None
+    stays None)."""
+    if M is None:
+        return None
+    kind = type(M).__name__
+    if kind == "DIA":
+        return dia_from_arrays(M.offsets, np.array(M.data), M.shape, device)
+    if kind == "ELL":
+        return ell_from_arrays(np.asarray(M.cols), np.asarray(M.data), M.shape, device)
+    if kind == "HYB":
+        return hyb_from_arrays(M.dia.offsets, np.array(M.dia.data), np.asarray(M.rem_rows),
+                               np.asarray(M.rem_cols), np.asarray(M.rem_vals), M.shape,
+                               device)
+    raise TypeError(f"no port counterpart for a JAX {kind}")
+
+
+def amg_from_jax(h, device="cpu"):
+    """The port's ``DeviceAMG`` from JAX's (``lssp_tpu.amg.cycle``)."""
+    from lssp_tpu_torch.amg.cycle import DeviceAMG, DeviceLevel
+    levels = tuple(DeviceLevel(A=matrix_from_jax(l.A, device), P=matrix_from_jax(l.P, device),
+                               R=matrix_from_jax(l.R, device), dinv=_t(l.dinv, device),
+                               lmax=float(l.lmax), smoother=l.smoother, degree=int(l.degree),
+                               omega=float(l.omega))
+                   for l in h.levels)
+    return DeviceAMG(levels=levels, coarse_inv=_t(h.coarse_inv, device), cycles=int(h.cycles),
+                     gamma=int(h.gamma))
+
+
+def sa_from_jax(h, device="cpu"):
+    """The port's ``SAHierarchy`` from JAX's (``lssp_tpu.amg.sa``)."""
+    from lssp_tpu_torch.amg.sa import SAHierarchy, SALevel
+    levels = tuple(SALevel(
+        A=matrix_from_jax(l.A, device), B=matrix_from_jax(l.B, device),
+        C=matrix_from_jax(l.C, device), dinv=_t(l.dinv, device), lmax=float(l.lmax),
+        g=int(l.g), smoother=l.smoother, degree=int(l.degree), n_next=int(l.n_next),
+        agg=l.agg, tri=None if l.tri is None else tuple(_t(a, device) for a in l.tri))
+        for l in h.levels)
+    return SAHierarchy(levels=levels, coarse_inv=_t(h.coarse_inv, device), n_top=int(h.n_top),
+                       gamma=int(h.gamma))
+
+
+def rs_from_jax(h, device="cpu"):
+    """The port's ``RSAMG`` from JAX's (``lssp_tpu.amg.rs``)."""
+    from lssp_tpu_torch.amg.rs import RSAMG, AggP, RSLevel
+    levels = tuple(RSLevel(
+        A=matrix_from_jax(l.A, device),
+        P=AggP(offsets=tuple(int(o) for o in l.P.offsets), data=_t(l.P.data, device),
+               g=int(l.P.g), agg=l.P.agg, shape=tuple(int(v) for v in l.P.shape)),
+        dinv=_t(l.dinv, device), lmax=float(l.lmax), smoother=l.smoother,
+        degree=int(l.degree), g=int(l.g))
+        for l in h.levels)
+    return RSAMG(levels=levels, coarse_inv=_t(h.coarse_inv, device), cycles=int(h.cycles),
+                 n_top=int(h.n_top), gamma=int(h.gamma))

@@ -1,11 +1,15 @@
-"""Native C++ host kernels for the ILU setup (level sets, ILU(0), the ILU(k)
-symbolic phase, ILUT), loaded with ctypes.
+"""Native C++ host kernels, loaded with ctypes: the ILU setup (level sets,
+ILU(0), the ILU(k) symbolic phase, ILUT; ``src/ilu.cpp``) and the AMG setup
+(the fused Galerkin product and Gershgorin bound, ``src/rap.cpp``; the
+lumping filters, ``src/amgfilter.cpp``; the greedy strength aggregation,
+``src/aggregate.cpp``).
 
-``src/ilu.cpp`` is the JAX package's source, built here the same way
-(``g++ -O3 -march=native -ffp-contract=off``) so the factors are
-bit-identical.  The library is built on first use into
-``lssp_tpu_torch/_build/``, and rebuilt when the source is newer.  There is
-no pure-Python fallback: a missing compiler raises.
+The sources are the JAX package's, built here the same way (``g++ -O3
+-march=native -ffp-contract=off``) so the outputs are bit-identical.  The
+library is built on first use into ``lssp_tpu_torch/_build/``, and rebuilt
+when a source is newer.  The ILU wrappers have no pure-Python fallback: a
+missing compiler raises.  The AMG setup asks ``available()`` first and
+otherwise takes its numpy oracles, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -17,7 +21,8 @@ import threading
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "src", "ilu.cpp")
+_SRCS = [os.path.join(_HERE, "src", f)
+         for f in ("ilu.cpp", "rap.cpp", "amgfilter.cpp", "aggregate.cpp")]
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "liblssp_torch_native.so")
 
@@ -32,12 +37,12 @@ def _build() -> None:
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-ffp-contract=off", "-std=c++17",
-           "-shared", "-fPIC", _SRC, "-o", tmp]
+           "-shared", "-fPIC", *_SRCS, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.SubprocessError) as e:
         detail = getattr(e, "stderr", "") or ""
-        raise RuntimeError(f"building the native ILU library failed: {e}\n{detail}") from e
+        raise RuntimeError(f"building the native host library failed: {e}\n{detail}") from e
     os.replace(tmp, _LIB_PATH)       # atomic: a concurrent loader never sees half a file
 
 
@@ -50,7 +55,7 @@ def load():
         if _lib is not None:
             return _lib
         if (not os.path.exists(_LIB_PATH)
-                or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC)):
+                or any(os.path.getmtime(_LIB_PATH) < os.path.getmtime(s) for s in _SRCS)):
             _build()
         lib = ctypes.CDLL(_LIB_PATH)
         lib.lssp_levels.argtypes = [_i64p, _i64p, ctypes.c_int64, ctypes.c_int, _i64p]
@@ -69,8 +74,49 @@ def load():
         lib.lssp_pattern_fetch.restype = None
         lib.lssp_pattern_free.argtypes = [ctypes.c_void_p]
         lib.lssp_pattern_free.restype = None
+        _declare_amg(lib)
         _lib = lib
         return _lib
+
+
+def _declare_amg(lib) -> None:
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    for suf, ptr in (("_i32", i32p), ("_i64", _i64p)):
+        fl = getattr(lib, "lssp_filter_lumped" + suf)
+        fl.argtypes = [ptr, ptr, _f64p, ctypes.c_int64, ctypes.c_double, ptr, ptr, _f64p]
+        fl.restype = ctypes.c_int64
+        lp = getattr(lib, "lssp_lump_pattern" + suf)
+        lp.argtypes = [ptr, ptr, _f64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int64, ptr, ptr, _f64p]
+        lp.restype = ctypes.c_int64
+        gs = getattr(lib, "lssp_gersh" + suf)
+        gs.argtypes = [ptr, _f64p, _f64p, ctypes.c_long]
+        gs.restype = ctypes.c_double
+        rp = getattr(lib, "lssp_rap" + suf)
+        rp.argtypes = [ptr, ptr, _f64p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ptr, ctypes.c_long, ptr, ptr, _f64p, ctypes.c_long]
+        rp.restype = ctypes.c_long
+    lib.lssp_greedy_aggregate.argtypes = [
+        _i64p, _i64p, _f64p, _i64p, _i64p, _f64p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_double, np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"), _i64p]
+    lib.lssp_greedy_aggregate.restype = None
+
+
+_available = None
+
+
+def available() -> bool:
+    """Whether the library builds and loads here.  The AMG setup takes its
+    native paths only then, and its numpy oracles otherwise (the JAX
+    package's rule)."""
+    global _available
+    if _available is None:
+        try:
+            load()
+            _available = True
+        except (RuntimeError, OSError):
+            _available = False
+    return _available
 
 
 def levels(indptr: np.ndarray, indices: np.ndarray, n: int, lower: bool) -> np.ndarray:
@@ -124,3 +170,101 @@ def ilut(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray, n: int,
                       np.ascontiguousarray(data, np.float64),
                       n, tol, p, ztol, zval, ctypes.byref(nnz))
     return _fetch(lib, h, n, nnz.value, with_data=True)
+
+
+def _isuf(indptr):
+    return "_i32" if indptr.dtype == np.int32 else "_i64"
+
+
+def _lumped_call(name, indptr, indices, data, n, *args):
+    """Shared shape of the two lumping filters: outputs of the input's
+    index type, ``None`` when some lumped row has no kept diagonal."""
+    if indptr.dtype != indices.dtype:
+        indices = indices.astype(indptr.dtype, copy=False)
+    nnz = len(indices)
+    oip = np.empty(n + 1, dtype=indptr.dtype)
+    oix = np.empty(nnz, dtype=indptr.dtype)
+    oax = np.empty(nnz, dtype=np.float64)
+    fn = getattr(load(), name + _isuf(indptr))
+    out = fn(indptr, indices, np.ascontiguousarray(data, np.float64), n, *args, oip, oix, oax)
+    if out < 0:
+        return None
+    return oip, oix[:out], oax[:out]
+
+
+def filter_lumped(indptr, indices, data, n: int, tol: float):
+    """Drop |a_ij| < tol·√(|a_ii|·|a_jj|) and lump the dropped mass onto the
+    diagonal (oracle: ``amg/sa.py: _filter_lumped``).  Returns (indptr,
+    indices, data) of the filtered CSR, or None when some lumped row has no
+    kept structural diagonal (the caller takes the oracle then)."""
+    return _lumped_call("lssp_filter_lumped", indptr, indices, data, n, tol)
+
+
+def lump_pattern(indptr, indices, data, n: int, gx: int, ry: int, rx: int):
+    """Lump everything outside the (2ry+1)×(2rx+1) grid stencil onto the
+    diagonal (oracle: ``amg/sa.py: _lump_to_pattern``); the return contract
+    of ``filter_lumped``."""
+    return _lumped_call("lssp_lump_pattern", indptr, indices, data, n, gx, ry, rx)
+
+
+def gersh(indptr, data, dinv, n: int):
+    """Gershgorin bound max_i |dinv_i|·Σ_j |a_ij| (oracle:
+    ``amg/setup.py: lambda_gershgorin``); None for non-float64 data."""
+    if data.dtype != np.float64:
+        return None
+    fn = getattr(load(), "lssp_gersh" + _isuf(indptr))
+    return float(fn(indptr, np.ascontiguousarray(data, np.float64),
+                    np.ascontiguousarray(dinv, np.float64), n))
+
+
+def rap(A, B, p0_cols, nc: int):
+    """Galerkin product Ac = (B·P0)ᵀ·A·(B·P0), P0 the aggregation map
+    ``p0_cols`` (the coarse column of each row), ``B`` a scipy CSR or None
+    (P = P0).  Oracle: the scipy triple product in ``amg/sa.py:
+    sa_host_levels``.  Returns a scipy CSR, or None for non-float64 A."""
+    import scipy.sparse as sp
+    A = A.tocsr()
+    if A.data.dtype != np.float64:
+        return None
+    n = A.shape[0]
+    ip = A.indptr
+    ix = A.indices.astype(ip.dtype, copy=False)
+    p0 = np.ascontiguousarray(p0_cols, dtype=ip.dtype)
+    fn = getattr(load(), "lssp_rap" + _isuf(ip))
+    if B is not None:
+        B = B.tocsr()
+        keep = (np.ascontiguousarray(B.indptr, dtype=ip.dtype),
+                np.ascontiguousarray(B.indices, dtype=ip.dtype),
+                np.ascontiguousarray(B.data, dtype=np.float64))
+        bargs = tuple(a.ctypes.data for a in keep)
+    else:
+        keep, bargs = (), (None, None, None)
+    # a modest first cap; the kernel reports a usable size on overflow.
+    # The used slices are copied out so the cap-sized buffers do not stay
+    # alive as bases of each level's arrays
+    cap = int(A.nnz * 0.6 + 16 * max(nc, 1))
+    for _ in range(4):
+        oip = np.empty(nc + 1, dtype=ip.dtype)
+        oix = np.empty(cap, dtype=ip.dtype)
+        oax = np.empty(cap, dtype=np.float64)
+        out = fn(ip, ix, np.ascontiguousarray(A.data, np.float64), n, *bargs, p0, nc,
+                 oip, oix, oax, cap)
+        if out >= 0:
+            del keep
+            return sp.csr_matrix((oax[:out].copy(), oix[:out].copy(), oip), shape=(nc, nc))
+        cap = int(-out)
+    return None
+
+
+def greedy_aggregate(A, T, g: int, theta: float, virt: np.ndarray) -> np.ndarray:
+    """Raw greedy strength-BFS aggregate ids over the symmetrised strength
+    graph of the scipy CSR ``A`` (``T`` its transpose, CSR); the oracle is
+    ``amg/aggregate.py: _bfs_ids`` (the exactness fix-up is shared)."""
+    n = A.shape[0]
+    ids = np.empty(n, dtype=np.int64)
+    load().lssp_greedy_aggregate(
+        np.ascontiguousarray(A.indptr, np.int64), np.ascontiguousarray(A.indices, np.int64),
+        np.ascontiguousarray(A.data, np.float64), np.ascontiguousarray(T.indptr, np.int64),
+        np.ascontiguousarray(T.indices, np.int64), np.ascontiguousarray(T.data, np.float64),
+        n, g, theta, np.ascontiguousarray(virt, np.uint8), ids)
+    return ids

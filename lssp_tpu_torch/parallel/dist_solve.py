@@ -86,14 +86,15 @@ def _as_device(d) -> torch.device:
 
 def make_mesh(ndevices: Optional[int] = None, devices=None) -> Mesh:
     """A 1-D shard mesh.  ``devices``: a sequence of devices, one per slot
-    (``[torch.device("cuda:0")] * 8`` is eight shards on one card).  The
-    default is one slot per visible GPU, else one CPU slot, cut to the
-    first ``ndevices``."""
+    (``[torch.device("cuda:0")] * 8`` is eight shards on one card,
+    ``["cpu"] * 8`` eight on the CPU).  The default is one slot per visible
+    GPU, cut to the first ``ndevices``; with no GPU it raises (name the CPU
+    slots explicitly)."""
     if devices is None:
-        if torch.cuda.is_available():
-            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-        else:
-            devices = [torch.device("cpu")]
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA device; pass devices=[\"cpu\"] * P "
+                               "for a mesh on the CPU")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         if ndevices is not None:
             devices = devices[:ndevices]
     return Mesh(tuple(_as_device(d) for d in devices))

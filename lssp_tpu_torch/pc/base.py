@@ -14,7 +14,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from lssp_tpu_torch.config import Defaults, PCOptions
+from lssp_tpu_torch.config import Defaults, PCOptions, resolve_device
 from lssp_tpu_torch.sparse.utils import diagonal
 
 
@@ -48,15 +48,16 @@ def register_pc(name):
     return deco
 
 
-def setup(A, pc_type: str = "none", opts: PCOptions = None, device="cpu") -> Preconditioner:
+def setup(A, pc_type: str = "none", opts: PCOptions = None, device=None) -> Preconditioner:
     """Assemble a preconditioner for the host CSR matrix ``A`` with its
-    state on ``device``."""
+    state on ``device`` (``config.resolve_device``: the current CUDA device
+    unless one is named)."""
     opts = (opts or PCOptions()).resolved()
     key = (pc_type or "none").lower()
     if key not in PC_REGISTRY:
         raise ValueError(f"unknown preconditioner {pc_type!r}; "
                          f"available: {sorted(PC_REGISTRY)}")
-    return PC_REGISTRY[key](A, opts, torch.device(device))
+    return PC_REGISTRY[key](A, opts, resolve_device(device))
 
 
 def _identity_apply(state, r):

@@ -12,6 +12,7 @@ per-column batched form, every column on its own single-rhs trajectory.
 from __future__ import annotations
 
 import dataclasses
+import re
 import zlib
 from typing import Optional
 
@@ -19,10 +20,10 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch import pc as pc_mod
-from lssp_tpu_torch.config import PCOptions, SolverOptions
+from lssp_tpu_torch.config import PCOptions, SolverOptions, resolve_device
 from lssp_tpu_torch.solvers.registry import get_batched_solver, get_block_solver, get_solver
 from lssp_tpu_torch.sparse.convert import coo_to_csr, to_device_format
-from lssp_tpu_torch.sparse.reorder import maybe_rcm
+from lssp_tpu_torch.sparse.reorder import maybe_rcm, permute_symmetric
 from lssp_tpu_torch.sparse.types import COO, CSR, DIA, ELL, HYB, numpy_dtype
 from lssp_tpu_torch.sparse.utils import sort_columns
 
@@ -105,13 +106,52 @@ def _memo(A):
     return cache
 
 
-def _resolve_device(device, b):
-    if device is not None:
-        return torch.device(device)
-    return b.device if isinstance(b, torch.Tensor) else torch.device("cpu")
+def saamg_keeps_ordering(pc, pc_options) -> bool:
+    """Whether explicit saamg grid dims (``saamg_grid`` = (gy, gx)) pin the
+    user's row ordering: reordering would scramble the boxes.
+    ``saamg_grid=None`` (detect) and ``False`` (flat) impose nothing."""
+    if pc != "saamg" or pc_options is None:
+        return False
+    g = pc_options.saamg_grid
+    # identity checks: grid dims may be a numpy array
+    return g is not None and g is not False
+
+
+def resolve_reorder(pc, pc_options, reorder):
+    """The reorder rule of every entry point.  Explicit saamg grid dims pin
+    the ordering; ``"auto"`` with ``saamg`` or ``rsamg`` becomes the
+    hierarchical-aggregation ordering ``hier:g:coarse:levels``
+    (``amg/aggregate.py``), so on a matrix with no detectable grid the flat
+    reshape aggregates are strength aggregates at every level.  ``amg``
+    keeps the ordering (the JAX package reorders it on the TPU only)."""
+    if reorder != "auto" or not isinstance(pc, str):
+        return reorder
+    if saamg_keeps_ordering(pc, pc_options):
+        return None
+    if pc in ("saamg", "rsamg"):
+        o = pc_options or PCOptions()
+        return f"hier:{o.saamg_aggregate}:{o.amg_coarse_size}:{o.amg_max_levels}"
+    return reorder
+
+
+def _maybe_hierarchy(A: CSR, mode: str):
+    """The hierarchical-aggregation ordering of a ``hier:g:coarse:levels``
+    mode: (the permuted CSR, perm), or (None, None) when A has a detectable
+    grid (direction-aware grid aggregation wins there) or the ordering is
+    the identity."""
+    from lssp_tpu_torch.amg.aggregate import hierarchy_perm
+    from lssp_tpu_torch.amg.sa import detect_grid
+    if detect_grid(A) is not None:
+        return None, None
+    g, coarse, levels = (int(v) for v in mode.split(":")[1:])
+    p = hierarchy_perm(A, g=g, coarse_size=coarse, max_levels=levels)
+    if np.array_equal(p, np.arange(A.shape[0])):
+        return None, None
+    return permute_symmetric(A, p), p
 
 
 _EXEC_FORMATS = (DIA, HYB, ELL)
+_HIER = re.compile(r"hier:\d+:\d+:\d+$")
 
 
 def _prepare_matrix(A, reorder="auto", device="cpu"):
@@ -123,12 +163,13 @@ def _prepare_matrix(A, reorder="auto", device="cpu"):
     permuted one.  Execution containers move to ``device``; callables pass
     through.
 
-    ``reorder``: "rcm" runs ``maybe_rcm``; "auto" and None keep the
-    ordering (the JAX package reorders under "auto" only on the TPU)."""
-    if isinstance(reorder, str) and reorder.startswith("hier:"):
-        raise NotImplementedError(f"reorder={reorder!r} is the AMG aggregation ordering, "
-                                  "not ported yet (ROADMAP A9)")
-    if reorder not in ("auto", "rcm", None):
+    ``reorder``: "rcm" runs ``maybe_rcm``; ``hier:g:coarse:levels`` the
+    hierarchical-aggregation ordering (``_maybe_hierarchy``); "auto" and
+    None keep the ordering (the JAX package reorders under "auto" only on
+    the TPU; ``resolve_reorder`` maps "auto" to ``hier:`` for saamg and
+    rsamg first)."""
+    hier = isinstance(reorder, str) and bool(_HIER.match(reorder))
+    if reorder not in ("auto", "rcm", None) and not hier:
         raise ValueError(f"unknown reorder {reorder!r}")
     reorder = reorder or "auto"         # one memo entry for the two spellings
     device = torch.device(device)
@@ -141,10 +182,13 @@ def _prepare_matrix(A, reorder="auto", device="cpu"):
     if key not in cache:
         host = sort_columns(coo_to_csr(A) if isinstance(A, COO) else A)
         perm = None
+        permuted, p = None, None
         if reorder == "rcm":
             permuted, p = maybe_rcm(host)
-            if p is not None:
-                host, perm = permuted, torch.from_numpy(p).to(device)
+        elif hier:
+            permuted, p = _maybe_hierarchy(host, reorder)
+        if p is not None:
+            host, perm = permuted, torch.from_numpy(p).to(device)
         cache[key] = (host, to_device_format(host, device=device), perm)
     return cache[key] + (cache,)
 
@@ -205,14 +249,18 @@ def solve(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
     execution container, or a callable ``x ↦ A@x``.  ``pc``: a registry
     name, or ``M`` a prebuilt Preconditioner or callable.  ``reorder``:
     "rcm" solves the RCM-permuted system when ``maybe_rcm`` takes a
-    permutation (x comes back in the original order); "auto" and None keep
-    the ordering.  ``device``: where the solve runs; None means b's device
-    (the CPU for a non-tensor b).  The solve runs in b's dtype promoted
-    with the matrix's."""
+    permutation (x comes back in the original order); "auto" keeps the
+    ordering, except that saamg and rsamg take the hierarchical-aggregation
+    ordering (``resolve_reorder``); None keeps it always.  ``device``:
+    where the solve runs; None means b's device for a tensor b and the
+    current CUDA device otherwise (no CUDA device raises: pass
+    ``device="cpu"``).  The solve runs in b's dtype promoted with the
+    matrix's."""
     opts = (options or SolverOptions()).resolved()
-    device = _resolve_device(device, b)
+    device = resolve_device(device, b)
     b = validate_system(A, b, method)
     reject_block_method(method, "solve_multi")
+    reorder = resolve_reorder(pc, pc_options, reorder)
     A_host, A_dev, perm, _ = _prepare_matrix(A, reorder=reorder, device=device)
     dtype = _system_dtype(A_dev, b)
     if M is None and pc not in (None, "none"):
@@ -237,8 +285,9 @@ def solve_multi(A, B, X0=None, method: str = "cg", pc: Optional[str] = "none",
     columns (kernels K1k-K3k on CUDA).  Other arguments as in ``solve``;
     ``reorder="rcm"`` permutes B's rows."""
     opts = (options or SolverOptions()).resolved()
-    device = _resolve_device(device, B)
+    device = resolve_device(device, B)
     B = validate_block(A, B, "solve_multi")
+    reorder = resolve_reorder(pc, pc_options, reorder)
     A_host, A_dev, perm, _ = _prepare_matrix(A, reorder=reorder, device=device)
     dtype = _system_dtype(A_dev, B)
     if M is None and pc not in (None, "none"):
@@ -260,16 +309,18 @@ class Solver:
     """Lifecycle API with the reference's setters (lssp.cxx:416-535).
     ``solve`` takes one rhs, ``solve_multi`` a block on the same assembled
     state; ``residual`` and ``nits`` are scalars after the one and (k,)
-    arrays after the other."""
+    arrays after the other.  ``device``: as in ``solve``, resolved at
+    ``assemble`` (a tensor b there gives its device)."""
 
     def __init__(self, method: str = "gmres", pc: Optional[str] = "none",
                  options: Optional[SolverOptions] = None,
-                 pc_options: Optional[PCOptions] = None, device="cpu"):
+                 pc_options: Optional[PCOptions] = None, device=None):
         self.method = method
         self.pc_type = pc
         self.options = options or SolverOptions()
         self.pc_options = pc_options or PCOptions()
-        self.device = torch.device(device)
+        self.device_request = device
+        self.device = None
         self.A_host = None
         self.A_dev = None
         self.perm = None
@@ -298,7 +349,9 @@ class Solver:
         """Reorder (``reorder="rcm"``) and convert the matrix and build the PC
         (reference lssp_solver_assemble → lssp_pc_assemble).  ``b`` and
         ``x0`` stay in the user's order; each solve permutes them in."""
+        self.device = resolve_device(self.device_request, b)
         b = validate_system(A, b, self.method)
+        reorder = resolve_reorder(self.pc_type, self.pc_options, reorder)
         self.A_host, self.A_dev, self.perm, _ = _prepare_matrix(A, reorder=reorder,
                                                                 device=self.device)
         # the system dtype is fixed here: the matrix's, promoted with b's

@@ -21,12 +21,12 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch import pc as pc_mod
-from lssp_tpu_torch.config import PCOptions, SolverOptions
+from lssp_tpu_torch.config import PCOptions, SolverOptions, resolve_device
 from lssp_tpu_torch.ops.spmv import spmv
 from lssp_tpu_torch.solvers.base import SolveInfo, col_norms, norm, to_host
 from lssp_tpu_torch.solvers.facade import (
-    _permute, _prepare_matrix, _resolve_device, _unpermute, reject_block_method,
-    validate_block, validate_system,
+    _permute, _prepare_matrix, _unpermute, reject_block_method,
+    resolve_reorder, validate_block, validate_system,
 )
 from lssp_tpu_torch.solvers.registry import get_batched_solver, get_block_solver, get_solver
 from lssp_tpu_torch.sparse.types import numpy_dtype
@@ -51,14 +51,16 @@ def _pc_options_key(pc_options):
 
 def prepare_ir(A, method: str = "gmres", pc: Optional[str] = "none",
                pc_options: Optional[PCOptions] = None, inner_dtype=torch.float32,
-               reorder: str = "auto", device="cpu"):
-    """Setup phase of ``solve_ir`` alone: reorder (``reorder="rcm"``),
+               reorder: str = "auto", device=None):
+    """Setup phase of ``solve_ir`` alone: reorder (``resolve_reorder``),
     convert and upload the matrix in both precisions and build the
     inner-precision preconditioner from the (reordered) host matrix,
     memoized on the container so a following ``solve_ir`` finds everything
     cached.  Returns (A_host, A64, A32, perm, M32); ``perm`` as in
-    ``facade._prepare_matrix``."""
-    device = torch.device(device)
+    ``facade._prepare_matrix``.  ``device``: None is the current CUDA
+    device (no CUDA device raises: pass ``device="cpu"``)."""
+    device = resolve_device(device)
+    reorder = resolve_reorder(pc, pc_options, reorder)
     A_host, A_dev, perm, cache = _prepare_matrix(A, reorder=reorder, device=device)
     if A_host is None:
         raise ValueError("solve_ir needs a host CSR or COO matrix")
@@ -141,13 +143,12 @@ def solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
              device=None):
     """Solve to fp64 accuracy with inner solves in ``inner_dtype``.
 
-    ``A``: host CSR/COO.  ``reorder``: as in ``solve``.  ``device``: where
-    the solve runs (None: b's device).  Returns (x fp64, SolveInfo) where
-    nits counts the total inner iterations and the residual is the true
-    fp64 residual."""
+    ``A``: host CSR/COO.  ``reorder`` and ``device``: as in ``solve``.
+    Returns (x fp64, SolveInfo) where nits counts the total inner
+    iterations and the residual is the true fp64 residual."""
     reject_block_method(method, "solve_ir_multi")
     opts = (options or SolverOptions()).resolved()
-    device = _resolve_device(device, b)
+    device = resolve_device(device, b)
     b = validate_system(A, b, method)
     _, A64, A32, perm, M32 = prepare_ir(A, method=method, pc=pc, pc_options=pc_options,
                                         inner_dtype=inner_dtype, reorder=reorder,
@@ -196,7 +197,7 @@ def solve_ir_multi(A, B, X0=None, method: str = "blockgmres", pc: Optional[str] 
     workloads: the matrix streams once per iteration for all k columns
     (kernels K1k-K3k on CUDA).  Other arguments as in ``solve_ir``."""
     opts = (options or SolverOptions()).resolved()
-    device = _resolve_device(device, B)
+    device = resolve_device(device, B)
     B = validate_block(A, B, "solve_ir_multi")
     fn, inner_opts = _inner_plan(method, opts, inner_rtol, multi=True)
     _, A64, A32, perm, M32 = prepare_ir(A, method=method, pc=pc, pc_options=pc_options,

@@ -1,6 +1,7 @@
 """The four CUDA kernels of lssp_tpu_torch and their k-rhs forms on the
 card, against their plain PyTorch versions (and each k-rhs form against k
-launches of its single-rhs kernel).  Every test skips without a CUDA device.  This file
+launches of its single-rhs kernel), the AMG applies on the card against the
+CPU's, and the entry points' default device.  Every test skips without a CUDA device.  This file
 imports no JAX, so on a machine without it run it as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -451,3 +452,35 @@ def test_dist_solve_ir_multi_on_cuda_launches_only_k4k(cuda):
     assert info.converged.all() and set(moved) == {"k4k"}, moved
     assert (np.abs(info.nits - ic.nits) <= 2).all()
     assert torch.linalg.vector_norm(X.cpu() - Xc) <= 1e-6 * torch.linalg.vector_norm(Xc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("pc,gen,N", [("saamg", "anisotropic_poisson_2d", 40),
+                                      ("rsamg", "laplacian_3d", 12),
+                                      ("amg", "anisotropic_poisson_2d", 40)])
+def test_amg_apply_on_the_card_matches_cpu(cuda, pc, gen, N, dtype):
+    """One AMG apply built from the same host matrix on the card (K1 on DIA
+    levels, K3 on HYB ones) and on the CPU (plain versions), on a vector and
+    an (n, 3) block."""
+    A = getattr(lt.sparse, gen)(N)
+    A = A.astype({torch.float32: np.float32, torch.float64: np.float64}[dtype])
+    Mc, Mg = lt.pc.setup(A, pc, device="cpu"), lt.pc.setup(A, pc, device=cuda)
+    rng = np.random.default_rng(N)
+    r = torch.from_numpy(rng.standard_normal(A.shape[0])).to(dtype)
+    R = torch.from_numpy(rng.standard_normal((A.shape[0], 3))).to(dtype)
+    before = dia_spmv.launches + dia_spmm.launches
+    z, Z = Mg(r.to(cuda)), Mg(R.to(cuda))
+    torch.cuda.synchronize()
+    assert dia_spmv.launches + dia_spmm.launches > before
+    assert _rel(z.cpu(), Mc(r)) <= 10 * TOL[dtype]
+    assert _rel(Z.cpu(), Mc(R)) <= 10 * TOL[dtype]
+
+
+def test_entry_points_default_to_the_card(cuda):
+    A = lt.sparse.anisotropic_poisson_2d(48, epsilon=0.01)
+    x, info = lt.solve_ir(A, np.ones(A.shape[0]), method="gmres", pc="saamg",
+                          options=lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, restart=30))
+    assert x.device.type == "cuda" and info.converged
+    assert lt.make_mesh().device.type == "cuda"
+    x, out = lt.amg_solve(A, np.ones(A.shape[0]), rtol=1e-8, atol=0.0)
+    assert x.device.type == "cuda" and out["residual"] <= 1e-8 * 48 * 10

@@ -366,12 +366,16 @@ def test_dist_solve_bad_input():
 def test_mesh():
     m = cpu_mesh(8)
     assert m.size == 8 and m.device == torch.device("cpu")
-    if not torch.cuda.is_available():                        # one CPU slot by default
-        assert T.make_mesh() == T.make_mesh(4) == T.make_mesh(devices=["cpu"])
+    assert T.make_mesh(devices=["cpu"]) == cpu_mesh(1)
     with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         T.make_mesh(devices=[torch.device("cpu"), torch.device("meta")])
     _, At = both("laplacian_2d_16")
-    x, info = T.dist_solve(At, np.ones(256), method="cg")       # default mesh: one slot
+    if not torch.cuda.is_available():              # no default mesh without a GPU
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            T.make_mesh()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            T.dist_solve(At, np.ones(256), method="cg")
+    x, info = T.dist_solve(At, np.ones(256), method="cg", mesh=cpu_mesh(1))
     assert info.converged and x.shape == (256,)
 
 

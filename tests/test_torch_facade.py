@@ -53,12 +53,15 @@ def test_validate_system_errors():
         T.solve(T.sparse.laplacian_2d(8), _ones(63), method="cg")
     with pytest.raises(ValueError, match="1-D"):
         T.solve(T.sparse.laplacian_2d(8), torch.tensor(1.0), method="cg")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.solve(T.sparse.laplacian_2d(8), _ones(64), method="cg", reorder="hier:4:64:12")
+    with pytest.raises(ValueError, match="unknown reorder"):
+        T.solve(T.sparse.laplacian_2d(8), _ones(64), method="cg", reorder="hier:4:64")
     with pytest.raises(ValueError, match="unknown reorder"):
         T.solve(T.sparse.laplacian_2d(8), _ones(64), method="cg", reorder="amd")
     b = T.solvers.validate_system(T.sparse.laplacian_2d(8), np.ones(64, np.int32), "cg")
     assert b.dtype == torch.float64
+    # the AMG ordering mode is accepted (the grid keeps the ordering here)
+    x, info = T.solve(T.sparse.laplacian_2d(8), _ones(64), method="cg", reorder="hier:4:64:12")
+    assert info.converged
     x, info = T.solve(T.sparse.laplacian_2d(8), torch.ones(64, dtype=torch.int32), method="cg")
     assert info.converged and x.dtype == torch.float64
 
@@ -73,8 +76,8 @@ def test_prepared_matrix_memo():
     T.solve(A, _ones(100), method="cg", reorder=None)         # None means "auto"
     assert A._prepared_cache[key][1] is D
     assert ("prepared", None, "cpu") not in A._prepared_cache
-    A64 = T.prepare_ir(A, pc="none")[1]
-    assert T.prepare_ir(A, pc="none", reorder=None)[1] is A64
+    A64 = T.prepare_ir(A, pc="none", device="cpu")[1]
+    assert T.prepare_ir(A, pc="none", reorder=None, device="cpu")[1] is A64
     T.solve(A, _ones(100), method="gmres", reorder="rcm")     # its own entry
     assert A._prepared_cache[key][1] is D
     assert ("prepared", "rcm", "cpu") in A._prepared_cache
@@ -108,7 +111,7 @@ def test_solve_ir_matches_jax(method):
     assert relres <= 1e-8
     # the inner preconditioner is the fp32 K2 plan, memoized on the container
     _, A64, A32, perm, M32 = T.prepare_ir(At, method=method, pc="ilu0",
-                                          pc_options=T.PCOptions(ilu_sweeps=6))
+                                          pc_options=T.PCOptions(ilu_sweeps=6), device="cpu")
     assert perm is None
     assert A64.dtype == torch.float64 and A32.dtype == torch.float32
     assert M32.name == "ilu0-fn6" and M32.state.dtype == torch.float32
@@ -123,3 +126,40 @@ def test_exam_reference_example():
     ver = np.linalg.norm(1 - A.to_scipy() @ x.numpy())
     assert s.nits == 49
     assert ver <= 2 * 8.18e-6 and abs(s.residual - 8.1805878e-06) <= 1e-11
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Host data without ``device`` targets CUDA; with no GPU that raises
+    (never a quiet CPU run) and ``device="cpu"`` solves."""
+    from lssp_tpu_torch.amg.rs import setup_rs_pc
+    from lssp_tpu_torch.amg.sa import setup_saamg_pc
+    from lssp_tpu_torch.config import resolve_device
+    A = T.sparse.laplacian_2d(8)
+    b = np.ones(64)
+    opts = T.PCOptions().resolved()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: T.solve(A, b, method="cg"),
+                 lambda: T.solve_ir(A, b, method="cg"),
+                 lambda: T.solve_multi(A, np.ones((64, 2)), method="cg"),
+                 lambda: T.solve_ir_multi(A, np.ones((64, 2)), method="blockcg"),
+                 lambda: T.prepare_ir(A, method="cg"),
+                 lambda: T.Solver("cg").assemble(A, b),
+                 lambda: T.amg_solve(A, b),
+                 lambda: T.make_mesh(),
+                 lambda: T.pc.setup(A, "jacobi"),
+                 lambda: T.amg.sa_setup(A),
+                 lambda: T.amg.build_device_amg(T.amg.amg_setup(A)),
+                 lambda: T.amg.build_device_rs(T.amg.rs_host_setup(A)),
+                 lambda: setup_saamg_pc(A, opts),
+                 lambda: setup_rs_pc(A, opts)):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            call()
+    x, info = T.solve(A, b, method="cg", device="cpu")
+    assert info.converged and x.device.type == "cpu"
+    x = T.Solver("cg", device="cpu").assemble(A, b).solve()
+    assert x.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device(None, b) == torch.device("cuda", 0)
+    assert resolve_device(None, torch.ones(3)) == torch.device("cpu")
+    assert resolve_device("cpu", b) == torch.device("cpu")

@@ -26,7 +26,7 @@ def test_subprocess_solve_without_jax():
         "import sys, torch, lssp_tpu_torch as lt\n"
         "A = lt.sparse.laplacian_2d(12)\n"
         "x, info = lt.solve_ir(A, torch.ones(144, dtype=torch.float64), method='cg',"
-        " pc='ilu0', options=lt.SolverOptions(rtol=1e-10, atol=0, rbtol=0))\n"
+        " pc='ilu0', options=lt.SolverOptions(rtol=1e-10, atol=0, rbtol=0), device='cpu')\n"
         "assert info.converged, info\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'lssp_tpu' or m.startswith('lssp_tpu.')]\n"
@@ -59,6 +59,13 @@ def test_kernels_target_sm_90a():
     assert _kernels.NVCC_FLAGS[:2] == ["-gencode", "arch=compute_90a,code=sm_90a"]
     names = sorted(os.path.basename(s) for s in _kernels._sources())
     assert names == ["dia_spmv.cu", "dia_spmv_ext.cu", "hyb_spmv.cu", "neumann.cu"]
+
+
+def test_annotation_check_covers_the_amg_slice():
+    amg = {"lssp_tpu_torch.amg", "lssp_tpu_torch.amg.setup", "lssp_tpu_torch.amg.cycle",
+           "lssp_tpu_torch.amg.sa", "lssp_tpu_torch.amg.rs", "lssp_tpu_torch.amg.aggregate",
+           "lssp_tpu_torch.pc.amg", "lssp_tpu_torch.ops.tridiag"}
+    assert amg <= set(MODULES)
 
 
 @pytest.mark.parametrize("modname", MODULES)

@@ -221,7 +221,7 @@ def test_every_pc_applies_to_a_block(pc, opts):
     """Column by column to 1e-13: the level schedule's row sums run over a
     non-innermost axis on a block, in another order."""
     A = T.sparse.CSR.from_scipy(nearly_banded(n_side=12, n_extra=20))
-    M = T.pc.setup(A, pc, opts)
+    M = T.pc.setup(A, pc, opts, device="cpu")
     X = torch.from_numpy(_block(A.shape[0], 3, 8))
     Z = M(X)
     for c in range(3):
@@ -307,7 +307,7 @@ def test_solve_multi_input_errors():
         T.solve_multi(A, torch.ones(63, 2))
     with pytest.raises(ValueError, match="unknown solver"):
         T.solve_multi(A, torch.ones(64, 2), method="nope")
-    X, info = T.solve_multi(A, np.ones((64, 2), dtype=np.int64), method="cg")
+    X, info = T.solve_multi(A, np.ones((64, 2), dtype=np.int64), method="cg", device="cpu")
     assert X.dtype == torch.float64 and info.converged.all()
 
 

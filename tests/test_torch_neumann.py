@@ -155,13 +155,15 @@ def test_ilu_pc_sweep_resolution():
     because the Neumann M⁻ᵀ apply is not ported; a setup without transpose
     raises on M.t instead of applying M⁻¹."""
     A = T.sparse.laplacian_2d(8)
-    assert T.pc.setup(A, "ilu0").name == "ilu0"
-    assert T.pc.setup(A, "ilu0", T.PCOptions(ilu_sweeps=3)).name == "ilu0-fn3"
+    assert T.pc.setup(A, "ilu0", device="cpu").name == "ilu0"
+    assert T.pc.setup(A, "ilu0", T.PCOptions(ilu_sweeps=3), device="cpu").name == "ilu0-fn3"
     with pytest.raises(NotImplementedError, match="transpose SpMV"):
-        T.pc.setup(A, "ilu0", T.PCOptions(ilu_sweeps=3, transpose=True))
+        T.pc.setup(A, "ilu0", T.PCOptions(ilu_sweeps=3, transpose=True), device="cpu")
     with pytest.raises(ValueError, match="transpose"):
-        T.pc.setup(A, "ilu0").t(torch.ones(64, dtype=torch.float64))
-    Mt = T.pc.setup(A, "ilu0", T.PCOptions(ilu_sweeps=0, transpose=True))
+        T.pc.setup(A, "ilu0", device="cpu").t(torch.ones(64, dtype=torch.float64))
+    Mt = T.pc.setup(A, "ilu0", T.PCOptions(ilu_sweeps=0, transpose=True),
+                    device="cpu")
     assert Mt.t(torch.ones(64, dtype=torch.float64)).shape == (64,)
     assert ttri.default_ilu_sweeps("cpu") == 0 and ttri.default_ilu_sweeps("cuda") == 6
-    assert dataclasses.is_dataclass(T.pc.setup(A, "iluk", T.PCOptions(ilu_sweeps=2)).state)
+    M = T.pc.setup(A, "iluk", T.PCOptions(ilu_sweeps=2), device="cpu")
+    assert dataclasses.is_dataclass(M.state)

@@ -120,7 +120,7 @@ def test_solver_lifecycle_and_solve_ir_rcm_match_jax():
     Aj, At = J.sparse.CSR.from_scipy(S), T.CSR.from_scipy(S)
     n = S.shape[0]
     rng = np.random.default_rng(2)
-    sj, st = J.Solver("bicgstab", "ilu0"), T.Solver("bicgstab", "ilu0")
+    sj, st = J.Solver("bicgstab", "ilu0"), T.Solver("bicgstab", "ilu0", device="cpu")
     sj.set_rtol(1e-10), st.set_rtol(1e-10)
     sj.assemble(Aj, reorder="rcm")
     st.assemble(At, reorder="rcm")
@@ -185,7 +185,8 @@ def test_solve_ir_coupled3d_matches_jax(sweeps):
     assert abs(it.nits - int(ij.nits)) <= 1 and it.converged
     assert _rel_diff(xt, xj) <= 1e-8
     assert np.linalg.norm(1 - At.to_scipy() @ xt.numpy()) <= 1e-8 * np.sqrt(n)
-    _, A64, A32, perm, M32 = T.prepare_ir(At, method="bicgstab", pc="iluk", pc_options=popts)
+    _, A64, A32, perm, M32 = T.prepare_ir(At, method="bicgstab", pc="iluk", pc_options=popts,
+                                          device="cpu")
     assert isinstance(A64, T.HYB) and isinstance(A32, T.HYB) and perm is None
     assert A32.dtype == torch.float32 and A32.rem_rows.dtype == torch.int32
     if sweeps:                 # the Neumann plan of the HYB matrix's factors has strays
