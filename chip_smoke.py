@@ -9,11 +9,15 @@ non-zero without the final result line):
 1. stack: the card's name and power limit, torch.version.cuda, nvcc, and
    the seconds it took to build the CUDA kernels from this checkout;
 2. K1 (DIA SpMV) against its plain PyTorch version on the card;
-3. K2 (Neumann ILU apply) against its plain PyTorch version (ILU(0) 64³
-   and 128³, ILU(1) with strays);
+3. K2 (the Neumann ILU apply, one wavefront launch an apply) against its
+   plain PyTorch version (ILU(0) 64³ and 128³, ILU(1) with strays, and an
+   adversarial plan: ILU(0)'s 128³ pattern with random values of order 1),
+   fp32 and fp64, repeated applies bitwise equal, with device µs, GB/s
+   and share of the bound;
 4. the main path at the acceptance size: solve_ir, CG + ILU(0), on the
    3-D Poisson 64³, with every kernel launch counter reset just before;
-5. the same solve on 128³;
+5. the same solve on 128³, and one more warm solve under torch.profiler:
+   launches per inner iteration, device busy, K2's share of device time;
 6. the reference example (GMRES(60) + ILU(1), 2-D Laplacian N=100) through
    the Solver lifecycle in fp64;
 7. K3 (HYB SpMV) against its plain PyTorch version: the HYB matrix of
@@ -45,13 +49,15 @@ non-zero without the final result line):
    launches of its single-rhs kernel on the same columns: K1k on 128³ at
    k = 1, 4, 8 in fp32 and fp64; K3k on phase 8's strayed 128³ HYB, K2k on
    the 128³ ILU(0) plan and K4k on phase 11's 128³ P = 8 partition, all at
-   k = 8 in fp32; device times of the form, its plain version and the k
-   single launches, with GB/s;
+   k = 8 in fp32 (K2k also in fp64, at k = 3 and on the adversarial plan,
+   repeats bitwise equal); device times of the form, its plain version and
+   the k single launches, with GB/s (K2k's share of its bound);
 15. serving, the multi-rhs main path: solve_ir_multi, block CG + ILU(0),
    on 128³ with B = 8 columns of default_rng(0).standard_normal, every
    kernel launch counter reset just before; only the k-rhs forms may
    launch; the first and warm walls against 8 sequential solve_ir (cg +
-   ILU(0)) on the same columns (bench.py's serving8 protocol);
+   ILU(0)) on the same columns (bench.py's serving8 protocol), and a
+   profiled warm solve (launches per inner iteration, busy, K2k's share);
 16. the per-column path: solve_multi, CG + ILU(0), fp64, 64³, k = 4, each
    column's count against its own single solve;
 17. HYB multi: solve_ir_multi, block GMRES + ILU(1), k = 4, on the vendored
@@ -255,23 +261,67 @@ def strayed_laplacian(lt, np, n1d, frac, seed=0):
     return lt.sparse.CSR.from_scipy(M)
 
 
+def adversarial_factors(lt, np, A, seed=0):
+    """ILU(0) factors of A's pattern with random values of order 1 (U's
+    diagonal of magnitude 1-2), so that the Neumann levels differ by O(1)
+    and a value read from the wrong level or ring slot shows."""
+    import dataclasses
+    from lssp_tpu_torch.pc.ilu_host import iluk_factor
+    L, U = iluk_factor(A, level=0)
+    rng = np.random.default_rng(seed)
+    ud = rng.uniform(-1, 1, U.data.shape)
+    diag = U.indices == np.repeat(np.arange(U.shape[0]), np.diff(U.indptr))
+    ud[diag] = np.sign(ud[diag]) + ud[diag]
+    return (dataclasses.replace(L, data=rng.uniform(-1, 1, L.data.shape)),
+            dataclasses.replace(U, data=ud))
+
+
+def neumann_bytes(plan, k, itemsize):
+    """The bound's bytes of one apply: both factors (band, strays and their
+    index) and 1/diag read once, r read once, the output written once."""
+    n, nbytes = plan.n, 0
+    for F in (plan.L, plan.U):
+        nbytes += len(F.offsets) * n * itemsize
+        if F.stray_ptr is not None:
+            nbytes += F.stray_cols.numel() * (itemsize + 4) + (n + 1) * 4
+    return nbytes + (n + 2 * k * n) * itemsize
+
+
+def neumann_flops(plan, k):
+    """2 flops a stored factor entry a sweep and column, and the scaling."""
+    nnz = sum(len(F.offsets) * plan.n + (0 if F.stray_cols is None else F.stray_cols.numel())
+              for F in (plan.L, plan.U))
+    return k * (2 * plan.sweeps * nnz + plan.n)
+
+
+def repeat_equal(torch, fn, first, times):
+    """``times`` more calls of ``fn``, each bitwise equal to ``first``."""
+    for _ in range(times):
+        if not torch.equal(fn(), first):
+            return False
+    return True
+
+
 def phase_k2(lt, np, torch, dev):
     from lssp_tpu_torch.ops.neumann import (fused_neumann_apply, neumann_apply_plain,
                                             plan_fused_neumann)
     from lssp_tpu_torch.pc.ilu_host import iluk_factor
     tol = {torch.float32: 1e-5, torch.float64: 1e-12}
     rng = np.random.default_rng(1)
-    cases = [("ilu0 laplacian_3d(64)", lt.sparse.laplacian_3d(64), 0),
-             ("ilu0 laplacian_3d(128)", lt.sparse.laplacian_3d(128), 0),
+    lap128 = lt.sparse.laplacian_3d(128)
+    cases = [("ilu0 laplacian_3d(64)", lambda: iluk_factor(lt.sparse.laplacian_3d(64), level=0)),
+             ("ilu0 laplacian_3d(128)", lambda: iluk_factor(lap128, level=0)),
              ("iluk(1) laplacian_2d(256)+0.5% strays",
-              strayed_laplacian(lt, np, 256, 0.005), 1)]
+              lambda: iluk_factor(strayed_laplacian(lt, np, 256, 0.005), level=1)),
+             ("adversarial ilu0-pattern laplacian_3d(128), random O(1) values",
+              lambda: adversarial_factors(lt, np, lap128))]
     main = None
-    for name, A, level in cases:
-        L, U = iluk_factor(A, level=level)
-        r64 = torch.from_numpy(rng.standard_normal(A.shape[0])).to(dev)
+    for name, factors in cases:
+        L, U = factors()
+        r64 = torch.from_numpy(rng.standard_normal(L.shape[0])).to(dev)
         for dtype in (torch.float32, torch.float64):
             plan = plan_fused_neumann(L, U, 6, dtype=dtype, device=dev)
-            if level:
+            if "strays" in name:
                 check(plan.L.stray_ptr is not None or plan.U.stray_ptr is not None,
                       f"K2 {name}: the plan has no strays")
             r = r64.to(dtype)
@@ -280,19 +330,26 @@ def phase_k2(lt, np, torch, dev):
             torch.cuda.synchronize()
             err = rel_err(z, ref)
             abs_err = (z - ref).abs().max().item()
+            same = repeat_equal(torch, lambda: fused_neumann_apply(plan, r), z,
+                                50 if "adversarial" in name else 5)
             check(bool(torch.isfinite(z).all()), f"K2 {name}: non-finite output")
             check(err <= tol[dtype], f"K2 {name} {dtype}: max rel err {err:.3e} > "
                   f"{tol[dtype]:.0e}")
+            check(same, f"K2 {name} {dtype}: repeated applies differ")
             t = timings(lambda: fused_neumann_apply(plan, r),
                         lambda: neumann_apply_plain(plan, r), inner=3, calls=10)
-            print(f"K2 {name} n={A.shape[0]} sweeps=6 {str(dtype)[6:]}: max_rel_err "
-                  f"{err:.3e} max_abs_err {abs_err:.3e}; device: K2 {t['ms'] * 1e3:.1f} "
-                  f"us/apply, plain {t['plain_ms'] * 1e3:.1f} us/apply; issued from "
-                  f"Python: K2 {t['host_ms'] * 1e3:.1f} us/apply, plain "
-                  f"{t['plain_host_ms'] * 1e3:.1f} us/apply")
+            nbytes = neumann_bytes(plan, 1, r.element_size())
+            bound_us = nbytes / HBM_BYTES_PER_S * 1e6
+            print(f"K2 {name} n={plan.n} sweeps=6 reach={plan.reach} {str(dtype)[6:]}: "
+                  f"max_rel_err {err:.3e} max_abs_err {abs_err:.3e}, repeats bitwise equal; "
+                  f"device: K2 {t['ms'] * 1e3:.1f} us/apply ({nbytes / (t['ms'] * 1e-3) / 1e9:.0f} "
+                  f"GB/s, {bound_us / (t['ms'] * 1e3):.1%} of the {bound_us:.1f} us bound), plain "
+                  f"{t['plain_ms'] * 1e3:.1f} us/apply; issued from Python: K2 "
+                  f"{t['host_ms'] * 1e3:.1f} us/apply, plain {t['plain_host_ms'] * 1e3:.1f} us/apply")
             # the JSON line's shape: 2.1M rows, 75 MB, out of the 50 MB L2
             if name == "ilu0 laplacian_3d(128)" and dtype == torch.float32:
                 main = dict(max_abs_err=abs_err, **t)
+            del plan
     return main
 
 
@@ -338,6 +395,14 @@ def phase_main(lt, np, torch, dev, counters):
     check(info.nits <= 114, f"64^3: {info.nits} inner iterations > 114")
     for name, count in launches.items():
         check(count > 0, f"64^3: kernel {name} was never launched on the main path")
+    # one K2 launch an apply, and CG applies the PC once an inner iteration:
+    # exactly one launch an inner iteration over the two solves (the 2k
+    # sweep launches gave 12)
+    per_it = launches["fused_neumann_apply"] / (2 * info.nits)
+    print(f"main 64^3: K2 {launches['fused_neumann_apply']} launches over 2 solves of "
+          f"{info.nits} inner its, {per_it:.2f} an inner iteration")
+    check(launches["fused_neumann_apply"] == 2 * info.nits,
+          f"64^3: {per_it:.2f} K2 launches an inner iteration, not one an apply")
     return launches
 
 
@@ -345,8 +410,12 @@ def phase_128(lt, np, torch, dev):
     A = lt.sparse.laplacian_3d(128)
     x, info, setup_s, runs = ir_cg_ilu0(lt, torch, dev, A)
     rr = true_relres(A, x, np)
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=2000)
+    prof = profiled(torch, lambda: lt.solve_ir(A, b, method="cg", pc="ilu0", options=opts),
+                    info.nits, kernel="neumann_wavefront_kernel")
     print(f"main 128^3 solve_ir cg+ilu0: inner its {info.nits}, true relres {rr:.3e}, "
-          f"setup {setup_s:.3f} s, solve cold {runs[0]:.3f} s, warm {runs[1]:.3f} s")
+          f"setup {setup_s:.3f} s, solve cold {runs[0]:.3f} s, warm {runs[1]:.3f} s; {prof}")
     check(rr <= 1e-8, f"128^3: true relres {rr:.3e} > 1e-8")
 
 
@@ -794,12 +863,39 @@ def phase_krhs(lt, np, torch, dev, card):
     form, plain = lambda: neumann_block_apply(plan, X), lambda: neumann_apply_plain(plan, X)
     singles = lambda: [fused_neumann_apply(plan, x) for x in cols]
     err, abs_err, err1 = check_krhs(torch, "K2k", form, plain, singles, 1e-5)
+    check(repeat_equal(torch, form, form(), 5), "K2k: repeated applies differ")
     t = time_krhs(form, plain, singles, calls=5)
-    ndl, ndu = len(plan.L.offsets), len(plan.U.offsets)
-    report_krhs(f"K2k ilu0 laplacian_3d(128) sweeps=6 k={k} float32 (per apply)", card, err,
-                abs_err, err1, t, 6 * ((ndl + ndu) * n + 2 * 3 * k * n) * 4)
+    nbytes = neumann_bytes(plan, k, 4)
+    report_krhs(f"K2k ilu0 laplacian_3d(128) sweeps=6 k={k} float32 (per apply, "
+                f"{nbytes / HBM_BYTES_PER_S * 1e6 / (t['ms'] * 1e3):.1%} of the "
+                f"{nbytes / HBM_BYTES_PER_S * 1e6:.1f} us bound; repeats bitwise equal)", card,
+                err, abs_err, err1, t, nbytes)
     out["neumann_sweep_block"] = dict(max_abs_err=abs_err, **t)
     del plan
+    # K2k's other cases: fp64, an odd k (tile width 1), the adversarial plan
+    for name, (Lc, Uc), dtype, kc in (
+            ("ilu0 laplacian_3d(128)", (L, U), torch.float64, 8),
+            ("ilu0 laplacian_3d(128)", (L, U), torch.float32, 3),
+            ("adversarial ilu0-pattern laplacian_3d(128)", adversarial_factors(lt, np, A),
+             torch.float32, 8)):
+        plan = plan_fused_neumann(Lc, Uc, 6, dtype=dtype, device=dev)
+        Xc = torch.from_numpy(rng.standard_normal((n, kc))).to(device=dev, dtype=dtype)
+        ccols = columns(Xc)
+        form = lambda: neumann_block_apply(plan, Xc)
+        err, abs_err, err1 = check_krhs(
+            torch, f"K2k {name} k={kc}", form, lambda: neumann_apply_plain(plan, Xc),
+            lambda: [fused_neumann_apply(plan, x) for x in ccols], tol[dtype])
+        check(repeat_equal(torch, form, form(), 50 if "adversarial" in name else 5),
+              f"K2k {name} k={kc}: repeated applies differ")
+        ms = graph_ms(form, calls=5)
+        nbytes = neumann_bytes(plan, kc, Xc.element_size())
+        print(f"K2k {name} sweeps=6 k={kc} {str(dtype)[6:]} [{card}]: max_rel_err {err:.3e} "
+              f"(vs plain) {err1:.3e} (vs k single launches) max_abs_err {abs_err:.3e}, repeats "
+              f"bitwise equal; device {ms * 1e3:.1f} us ({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s, "
+              f"{nbytes / HBM_BYTES_PER_S * 1e6 / (ms * 1e3):.1%} of the bound)")
+        out["neumann_sweep_block"]["max_abs_err"] = max(out["neumann_sweep_block"]["max_abs_err"],
+                                                        abs_err if dtype == torch.float32 else 0.0)
+        del plan, Xc, ccols
     M = partition_csr_dia(A, 8).to(device=dev, dtype=torch.float32)
     P, R = M.nshards, M.rows_per_shard
     x_ext = halo_exchange(X.view(P, R, k), M.lo, M.hi)
@@ -897,6 +993,10 @@ def phase_serving(lt, np, torch, dev, counters, card):
         torch.cuda.synchronize()
         seq.append(time.perf_counter() - t0)
     warm = min(walls[1:])
+    prof = profiled(torch, lambda: lt.solve_ir_multi(A, B, method="blockcg", pc="ilu0",
+                                                     options=opts), info.nits,
+                    kernel="neumann_wavefront_kernel")
+    print(f"serving 128^3 solve_ir_multi blockcg+ilu0 k=8 [{card}]: {prof}")
     print(f"serving 128^3 solve_ir_multi blockcg+ilu0 k=8 [{card}]: inner its {info.nits} "
           f"(max {info.nits.max()}), true relres max {rr.max():.3e}, first call (setup "
           f"included) {walls[0]:.3f} s, warm {', '.join(f'{w:.3f}' for w in walls[1:])} s; "
@@ -906,6 +1006,14 @@ def phase_serving(lt, np, torch, dev, counters, card):
     check((rr <= 1e-8).all(), f"serving: true relres {rr} > 1e-8")
     check(info.nits.max() <= 390, f"serving: {info.nits.max()} inner iterations > 390")
     check_only(launches, {"dia_spmm", "neumann_block_apply"}, "serving")
+    # block CG applies the PC once a step for all 8 columns: one K2k launch;
+    # a refinement round runs as many steps as its slowest column, so the
+    # rounds add a few launches past the slowest column's total
+    per_it = launches["neumann_block_apply"] / int(info.nits.max())
+    print(f"serving: K2k {launches['neumann_block_apply']} launches over "
+          f"{int(info.nits.max())} inner its, {per_it:.2f} an inner iteration")
+    check(per_it <= 1.05,
+          f"serving: {per_it:.2f} K2k launches an inner iteration, not one an apply")
     _, _, A32, _, M32 = lt.prepare_ir(A, method="blockcg", pc="ilu0", device=dev)
     errs = check_block_kernels(lt, torch, A32, M32, B.to(torch.float32), 1e-5, "serving")
     return launches, errs
@@ -1038,7 +1146,7 @@ def profile_solve(torch, fn):
     """One call of ``fn`` under torch.profiler: (profiled wall s, device-busy
     share of that wall (the union of the device's kernel and copy
     intervals), device launches, the six kernels with the most device time
-    as {name: ms})."""
+    as {name: ms}, every kernel's device ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1064,17 +1172,20 @@ def profile_solve(torch, fn):
         elif b > end:
             busy += b - end
             end = b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return wall, busy * 1e-6 / wall, len(spans), {k: round(v * 1e-3, 3) for k, v in top}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return (wall, busy * 1e-6 / wall, len(spans), {k: round(v * 1e-3, 3) for k, v in top[:6]},
+            {k: v * 1e-3 for k, v in top})
 
 
-def profiled(torch, fn, nits):
-    """``profile_solve`` of one more warm solve, as a line of text."""
-    wall, busy, launches, top = profile_solve(torch, fn)
+def profiled(torch, fn, nits, kernel=None):
+    """``profile_solve`` of one more warm solve, as a line of text; with
+    ``kernel`` (a kernel's short name) also its share of the device time."""
+    wall, busy, launches, top, every = profile_solve(torch, fn)
+    share = (f", {kernel} {every.get(kernel, 0.0) / max(sum(every.values()), 1e-12):.1%} of the "
+             "device time" if kernel else "")
     return (f"profiled warm solve {wall:.3f} s, device busy {busy:.1%}, {launches} device "
             f"launches ({launches / max(int(max(nits) if hasattr(nits, '__len__') else nits), 1):.1f} "
-            "per inner iteration), "
-            f"device ms by kernel {top}")
+            f"per inner iteration){share}, device ms by kernel {top}")
 
 
 def level_table(levels, names=("A", "B", "C")):
@@ -1377,9 +1488,6 @@ def phase_library(lt, np, torch, dev, card):
     n4 = A4.shape[0]
     Ls = csr_tensor(np, torch, factor_csr(np, plan.L, n4), dev, f32)
     Us = csr_tensor(np, torch, factor_csr(np, plan.U, n4), dev, f32)
-    ndl, ndu = len(plan.L.offsets), len(plan.U.offsets)
-    neumann_bytes = lambda k: ((ndl + ndu + 1) * n4 + 2 * k * n4) * 4
-    neumann_flops = 2 * 6 * (ndl + ndu) * n4 + n4
     r = vec(n4)
 
     def neumann_lib(R):
@@ -1393,7 +1501,7 @@ def phase_library(lt, np, torch, dev, card):
         return z
 
     record("neumann_sweep", fused_neumann_apply(plan, r), lambda: neumann_lib(r[:, None]),
-           neumann_bytes(1), neumann_flops)
+           neumann_bytes(plan, 1, 4), neumann_flops(plan, 1))
     # K3 at phase 8's shape: 128^3 + strays, fp32
     A3 = strayed_grid(lt, np, 128, "3d", np.float64)
     H = lt.sparse.csr_to_hyb(A3, device=dev).to(dtype=f32)
@@ -1424,7 +1532,7 @@ def phase_library(lt, np, torch, dev, card):
     record("dia_spmm", dia_spmm(D4, X4), lambda: C4 @ X4, (nd4 * P * R + 2 * 8 * P * R) * 4,
            2 * 8 * A4.nnz)
     record("neumann_sweep_block", fused_neumann_apply(plan, X4), lambda: neumann_lib(X4),
-           neumann_bytes(8), 8 * neumann_flops)
+           neumann_bytes(plan, 8, 4), neumann_flops(plan, 8))
     return out
 
 
@@ -1433,6 +1541,9 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     sys.path.insert(0, HERE)
+    if not os.path.isdir(os.path.join(HERE, "lssp_tpu_torch")):
+        raise SystemExit(f"chip_smoke: no lssp_tpu_torch package beside {HERE}; run the script "
+                         "from a checkout of the repo")
     import numpy as np
     import lssp_tpu_torch as lt
     from lssp_tpu_torch import _kernels

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 The sources are compiled on first use with ``nvcc -gencode
-arch=compute_90a,code=sm_90a`` into ``lssp_tpu_torch/_build/libkernels.so``
-(a plain C interface, loaded with ctypes), under a lock, and rebuilt when a
+arch=compute_90a,code=sm_90a``, one nvcc per source started together, and
+linked into ``lssp_tpu_torch/_build/libkernels.so`` (a plain C interface,
+loaded with ctypes), under a lock, and rebuilt when a
 source or header (``csrc/*.cuh``) is newer than the library.  Nothing here
 runs at import time: the CPU never needs the library, because CPU tensors
 take each kernel's plain PyTorch version.
@@ -52,16 +53,43 @@ def nvcc_path() -> str:
                        "cannot be built")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise if any fails or runs past 900 s,
+    after ending those still running."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    try:
+        for cmd, proc in procs:
+            out, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _build() -> None:
+    """One nvcc per source, all started together, then one link."""
     global build_seconds
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    tag = f"{os.getpid()}.tmp"
+    tmp = f"{_LIB_PATH}.{tag}"
+    objs = [os.path.join(_BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in _sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    try:
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        _run_all([[nvcc_path(), *compile_flags, "-c", "-o", o, s]
+                  for s, o in zip(_sources(), objs)])
+        _run_all([[nvcc_path(), *NVCC_FLAGS, "-o", tmp, *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, _LIB_PATH)       # atomic: a concurrent loader sees old or new
     build_seconds = time.perf_counter() - t0
 
@@ -90,8 +118,19 @@ def load():
             fn = getattr(lib, f"lssp_dia_spmv_{suf}")
             fn.argtypes = [p, p, i32, i64, i64, p, f64, f64, p, p, p]
             fn.restype = ctypes.c_int
-            fn = getattr(lib, f"lssp_neumann_sweep_{suf}")
-            fn.argtypes = [p, p, i32, i64, p, p, p, p, p, p, p, p]
+            # K2 / K2k: per factor (band, offsets, ndiag, strays ptr / cols /
+            # vals), invd, n, k, r, z0, out, levels, ring_rows, mask, flags,
+            # sweeps, rows, tiles, the wait sets (a host int array), the two
+            # halos, kt, grid, stream
+            fn = getattr(lib, f"lssp_neumann_apply_{suf}")
+            fn.argtypes = ([p, p, i32, p, p, p] * 2 + [p, i64, i64, p, p, p, p, i64, i64, p]
+                           + [i32] * 3 + [ctypes.POINTER(i32)] + [i32] * 4 + [p])
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"lssp_neumann_blocks_{suf}")     # kt, rows, hmax, ndmax
+            fn.argtypes = [i32] * 4
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"lssp_neumann_rows_per_thread_{suf}")     # kt
+            fn.argtypes = [i32]
             fn.restype = ctypes.c_int
             fn = getattr(lib, f"lssp_hyb_spmv_{suf}")
             fn.argtypes = [p, p, i32, i64, i64, p, p, p, p, p, f64, f64, p, p, p]
@@ -102,9 +141,6 @@ def load():
             # the k-rhs forms K1k-K4k: one more int64, k, after the sizes
             fn = getattr(lib, f"lssp_dia_spmm_{suf}")
             fn.argtypes = [p, p, i32, i64, i64, i64, p, f64, f64, p, p, p]
-            fn.restype = ctypes.c_int
-            fn = getattr(lib, f"lssp_neumann_sweep_block_{suf}")
-            fn.argtypes = [p, p, i32, i64, i64, p, p, p, p, p, p, p, p]
             fn.restype = ctypes.c_int
             fn = getattr(lib, f"lssp_hyb_spmm_{suf}")
             fn.argtypes = [p, p, i32, i64, i64, i64, p, p, p, p, p, f64, f64, p, p, p]

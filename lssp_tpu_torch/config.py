@@ -39,9 +39,14 @@ class Defaults:
 def resolve_device(device, b=None) -> torch.device:
     """The device rule of every entry point: an explicit ``device`` wins, a
     tensor ``b`` gives its own, otherwise the current CUDA device; without
-    a CUDA device that is an error, never a quiet CPU run."""
+    a CUDA device that is an error, never a quiet CPU run.  An index-less
+    ``"cuda"`` gets the current device's index, so that one card has one
+    name (``str()`` of it keys the memos)."""
     if device is not None:
-        return torch.device(device)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return device
     if isinstance(b, torch.Tensor):
         return b.device
     if not torch.cuda.is_available():

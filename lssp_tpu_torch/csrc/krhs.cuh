@@ -29,6 +29,16 @@ struct alignas(sizeof(T) * W) Pack {
   T v[W];
 };
 
+// The CUDA vector type of a Pack, for the __ldcg loads (cached in the L2
+// only, never in the SM's L1: the data a kernel writes itself and reads
+// back from other blocks, K2's wavefront).
+template <typename T, int W> struct VecOf;
+template <> struct VecOf<float, 1> { using type = float; };
+template <> struct VecOf<float, 2> { using type = float2; };
+template <> struct VecOf<float, 4> { using type = float4; };
+template <> struct VecOf<double, 1> { using type = double; };
+template <> struct VecOf<double, 2> { using type = double2; };
+
 template <typename T, int KT>
 struct Tile {
   // elements per vector load: 16 bytes, or the whole tile when smaller
@@ -47,10 +57,26 @@ struct Tile {
       for (int w = 0; w < W; ++w) v[q * W + w] = pk.v[w];
     }
   }
+  // load() through the L2 only (ld.global.cg)
+  __device__ __forceinline__ void load_cg(const T* p) {
+    using V = typename VecOf<T, W>::type;
+#pragma unroll
+    for (int q = 0; q < KT / W; ++q) {
+      Pack<T, W> pk;
+      *reinterpret_cast<V*>(&pk) = __ldcg(reinterpret_cast<const V*>(p) + q);
+#pragma unroll
+      for (int w = 0; w < W; ++w) v[q * W + w] = pk.v[w];
+    }
+  }
   // v += a * p[0:KT]
   __device__ __forceinline__ void axpy(T a, const T* p) {
     Tile t;
     t.load(p);
+#pragma unroll
+    for (int c = 0; c < KT; ++c) v[c] += a * t.v[c];
+  }
+  // v += a * t, a tile loaded earlier
+  __device__ __forceinline__ void axpy(T a, const Tile& t) {
 #pragma unroll
     for (int c = 0; c < KT; ++c) v[c] += a * t.v[c];
   }

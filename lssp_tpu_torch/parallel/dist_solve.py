@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lssp_tpu_torch.config import Defaults, PCOptions, SolverOptions
+from lssp_tpu_torch.config import Defaults, PCOptions, SolverOptions, resolve_device
 from lssp_tpu_torch.ops.trisolve import (
     default_ilu_sweeps, ilu_apply, level_schedule, neumann_exact_depth,
 )
@@ -62,6 +62,8 @@ class Mesh:
     def __post_init__(self):
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
+        # "cuda" and "cuda:0" name one card: compare (and hash) resolved names
+        object.__setattr__(self, "devices", tuple(resolve_device(d) for d in self.devices))
         if len(set(self.devices)) > 1:
             raise NotImplementedError(
                 f"a mesh over {len(set(self.devices))} distinct devices needs a "
@@ -77,13 +79,6 @@ class Mesh:
         return self.devices[0]
 
 
-def _as_device(d) -> torch.device:
-    d = torch.device(d)
-    if d.type == "cuda" and d.index is None:
-        d = torch.device("cuda", torch.cuda.current_device())
-    return d
-
-
 def make_mesh(ndevices: Optional[int] = None, devices=None) -> Mesh:
     """A 1-D shard mesh.  ``devices``: a sequence of devices, one per slot
     (``[torch.device("cuda:0")] * 8`` is eight shards on one card,
@@ -97,7 +92,7 @@ def make_mesh(ndevices: Optional[int] = None, devices=None) -> Mesh:
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         if ndevices is not None:
             devices = devices[:ndevices]
-    return Mesh(tuple(_as_device(d) for d in devices))
+    return Mesh(tuple(devices))
 
 
 def _extract_diag_block(A: CSR, lo: int, hi: int) -> CSR:

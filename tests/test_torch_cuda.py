@@ -104,7 +104,76 @@ def test_neumann_apply_matches_plain(cuda, kind, sweeps, dtype):
     ref = neumann_apply_plain(plan, r)
     torch.cuda.synchronize()
     assert _rel(z, ref) <= TOL[dtype]
-    assert fused_neumann_apply.launches == before + 2 * sweeps
+    assert fused_neumann_apply.launches == before + 1      # the whole apply, one launch
+
+
+def _adversarial(n1d, seed=0):
+    """ILU(0) factors of the 2-D Laplacian's pattern with random values of
+    order 1 (unit-order U diagonal), so that the Neumann levels differ by
+    O(1) and a value read from the wrong level shows."""
+    L, U = iluk_factor(lt.sparse.laplacian_2d(n1d), level=0)
+    rng = np.random.default_rng(seed)
+    L = dataclasses.replace(L, data=rng.uniform(-1, 1, L.data.shape))   # unit diagonal implied
+    ud = rng.uniform(-1, 1, U.data.shape)
+    diag = U.indices == np.repeat(np.arange(U.shape[0]), np.diff(U.indptr))
+    ud[diag] = np.sign(ud[diag]) + ud[diag]
+    return L, dataclasses.replace(U, data=ud)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["adversarial", "ragged", "sweeps_1", "exact_depth"])
+def test_neumann_apply_wavefront_cases(cuda, case, dtype):
+    """The wavefront's hard cases against the plain version: random O(1)
+    band values over 6 sweeps, a ragged n (37³ rows, not a tile multiple),
+    one sweep, and the exact depth of ilu_sweeps=-1 (hundreds of levels)."""
+    if case == "adversarial":
+        (L, U), sweeps = _adversarial(150), 6
+    elif case == "ragged":
+        (L, U), sweeps = iluk_factor(lt.sparse.laplacian_3d(37), level=0), 6
+    elif case == "sweeps_1":
+        (L, U), sweeps = iluk_factor(lt.sparse.laplacian_3d(37), level=0), 1
+    else:
+        M = lt.pc.setup(lt.sparse.laplacian_3d(24).astype(
+            np.float32 if dtype == torch.float32 else np.float64), "ilu0",
+            lt.PCOptions(ilu_sweeps=-1), device=cuda)
+        plan = M.state
+        assert plan.sweeps >= 60
+    if case != "exact_depth":
+        plan = plan_fused_neumann(L, U, sweeps, dtype=dtype, device=cuda)
+    r = torch.from_numpy(np.random.default_rng(3).standard_normal(plan.n)).to(cuda, dtype)
+    before = fused_neumann_apply.launches
+    z = fused_neumann_apply(plan, r)
+    ref = neumann_apply_plain(plan, r)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(z).all()) and _rel(z, ref) <= TOL[dtype]
+    assert fused_neumann_apply.launches == before + 1
+
+
+def test_neumann_apply_is_deterministic_and_graph_safe(cuda):
+    """50 applies of the adversarial plan are bitwise equal (a race would
+    differ between runs), and two replays of a CUDA graph that captured
+    the apply (memset and launch) give the eager result, for K2 and K2k."""
+    L, U = _adversarial(300, seed=1)
+    plan = plan_fused_neumann(L, U, 6, dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(4)
+    for r in (torch.from_numpy(rng.standard_normal(plan.n)).float().to(cuda),
+              torch.from_numpy(rng.standard_normal((plan.n, 8))).float().to(cuda)):
+        first = fused_neumann_apply(plan, r)
+        for _ in range(50):
+            assert torch.equal(fused_neumann_apply(plan, r), first)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fused_neumann_apply(plan, r)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fused_neumann_apply(plan, r)
+        for _ in range(2):
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, first)
 
 
 def test_neumann_apply_rejects_dtype_mismatch(cuda):
@@ -360,7 +429,7 @@ def test_hyb_spmm_matches_plain_and_k3(cuda, kind, k, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind,sweeps", [("banded", 1), ("banded", 6), ("strayed", 4)])
-@pytest.mark.parametrize("k", [3, 4, 8])
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
 def test_neumann_block_matches_plain_and_k2(cuda, kind, sweeps, k, dtype):
     A = lt.sparse.laplacian_3d(12) if kind == "banded" else _strayed(45, 300)
     L, U = iluk_factor(A, level=0 if kind == "banded" else 1)
@@ -370,7 +439,7 @@ def test_neumann_block_matches_plain_and_k2(cuda, kind, sweeps, k, dtype):
     before = (neumann_block_apply.launches, fused_neumann_apply.launches)
     Z = fused_neumann_apply(plan, R)                  # a block goes to K2k
     assert (neumann_block_apply.launches, fused_neumann_apply.launches) == \
-        (before[0] + 2 * sweeps, before[1])
+        (before[0] + 1, before[1])
     ref = neumann_apply_plain(plan, R)
     singles = torch.stack([fused_neumann_apply(plan, r) for r in _cols(R)], 1)
     torch.cuda.synchronize()
@@ -474,6 +543,24 @@ def test_amg_apply_on_the_card_matches_cpu(cuda, pc, gen, N, dtype):
     assert dia_spmv.launches + dia_spmm.launches > before
     assert _rel(z.cpu(), Mc(r)) <= 10 * TOL[dtype]
     assert _rel(Z.cpu(), Mc(R)) <= 10 * TOL[dtype]
+
+
+def test_one_card_one_memo_entry(cuda):
+    """device="cuda" and the default (host data) share one prepared
+    matrix; a mesh of "cuda" and "cuda:0" slots is one device."""
+    A = lt.sparse.laplacian_3d(8)
+    b = np.ones(A.shape[0])
+    lt.solve(A, b, method="cg", pc="ilu0", device="cuda")
+    lt.solve(A, b, method="cg", pc="ilu0")
+    keys = [k for k in A._prepared_cache if k[0] == "prepared"]
+    assert keys == [("prepared", "auto", f"cuda:{torch.cuda.current_device()}")], keys
+    lt.prepare_ir(A, method="cg", pc="ilu0", device="cuda")
+    lt.prepare_ir(A, method="cg", pc="ilu0")
+    assert len([k for k in A._prepared_cache if k[0] == "ir-mat"]) == 1
+    mesh = lt.make_mesh(devices=["cuda", "cuda:0"])
+    assert mesh.size == 2 and len(set(mesh.devices)) == 1
+    x, info = lt.dist_solve(A, b, method="cg", pc="jacobi", mesh=mesh)
+    assert info.converged and x.device == mesh.device
 
 
 def test_entry_points_default_to_the_card(cuda):

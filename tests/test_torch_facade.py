@@ -163,3 +163,22 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert resolve_device(None, b) == torch.device("cuda", 0)
     assert resolve_device(None, torch.ones(3)) == torch.device("cpu")
     assert resolve_device("cpu", b) == torch.device("cpu")
+
+
+def test_one_card_has_one_name(monkeypatch):
+    """An index-less "cuda" resolves to the current card's index, so
+    ``device="cuda"`` and host data (the default) key the prepared-matrix
+    memos alike, and a mesh of "cuda" and "cuda:0" slots is one device."""
+    from lssp_tpu_torch.config import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    explicit, default = resolve_device("cuda"), resolve_device(None, np.ones(4))
+    assert explicit == default == torch.device("cuda", 0)
+    assert str(explicit) == str(default) == "cuda:0"
+    assert resolve_device(torch.device("cuda")) == torch.device("cuda", 0)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    mesh = T.make_mesh(devices=["cuda", "cuda:0", torch.device("cuda")])
+    assert mesh.size == 3 and set(mesh.devices) == {torch.device("cuda", 0)}
+    assert T.parallel.Mesh((torch.device("cuda"),)) == T.parallel.Mesh((torch.device("cuda:0"),))
+    with pytest.raises(NotImplementedError, match="distinct devices"):
+        T.make_mesh(devices=["cuda", "cuda:1"])

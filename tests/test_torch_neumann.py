@@ -22,8 +22,10 @@ from lssp_tpu.ops import trisolve as jtri
 from lssp_tpu.pc.ilu_host import iluk_factor as j_iluk
 import lssp_tpu_torch as T
 from lssp_tpu_torch.ops import trisolve as ttri
-from lssp_tpu_torch.ops.neumann import (fused_neumann_apply, neumann_apply_plain,
-                                        plan_fused_neumann, split_band)
+from lssp_tpu_torch.ops.neumann import (MAX_RANGES, THREADS, _ranges, band_reads,
+                                        fused_neumann_apply, halo_rows, neumann_apply_plain,
+                                        plan_fused_neumann, split_band, tile_rows,
+                                        wavefront_schedule)
 from lssp_tpu_torch.pc.ilu_host import iluk_factor as t_iluk
 
 
@@ -147,6 +149,311 @@ def test_exact_level_apply_matches_jax(transpose):
     ref = np.linalg.solve(Md[1], np.linalg.solve(Md[0], r))
     np.testing.assert_allclose(z.numpy(), np.asarray(z_jax), rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(z.numpy(), ref, rtol=1e-10, atol=1e-10)
+
+
+# ---------------------------------------------------------------------------
+# the wavefront schedule of K2 / K2k (csrc/neumann.cu), run in numpy
+# ---------------------------------------------------------------------------
+
+def _host_factor(F):
+    """(band (nd, n), offsets, stray ptr, cols, vals) of a CPU plan factor."""
+    if F.stray_ptr is None:
+        return F.band.numpy(), F.offsets, None, None, None
+    return (F.band.numpy(), F.offsets, F.stray_ptr.numpy(), F.stray_cols.numpy(),
+            F.stray_vals.numpy())
+
+
+def _reads(fac, rows):
+    """The rows a sweep reads for each of ``rows`` (band, then strays)."""
+    band, offs, ptr, cols, _ = fac
+    n = band.shape[1]
+    out = {}
+    for i in rows:
+        js = [i + o for o in offs if 0 <= i + o < n]
+        if ptr is not None:
+            js += [int(j) for j in cols[ptr[i]:ptr[i + 1]]]
+        out[i] = js
+    return out
+
+
+def _tile_rows(w, t):
+    return range(t * w.rows, min((t + 1) * w.rows, w.n))
+
+
+def _covered(waits, ph, need, u):
+    """Does a wait entry make level ``need`` of item (ph, u) done first?"""
+    return any(p == ph and nd >= need and lo <= u <= hi for p, nd, lo, hi in waits)
+
+
+def _check_schedule(w, facs):
+    """Every wait is on a smaller ticket; every value a level reads from
+    another tile is awaited; every ring slot a level overwrites was read
+    by levels it awaited (the previous writer found by replaying the writes
+    in ticket order, the readers from the factors' pattern, not from
+    ``dep``; a tile reads its own rows from shared memory)."""
+    ticket = {w.item(x)[:2]: x for x in range(0, w.tickets, w.ncols)}
+    reads = [_reads(facs[ph], range(w.n)) for ph in (0, 1)]
+    readers = [{} for _ in (0, 1)]               # row -> other tiles u reading it
+    for ph in (0, 1):
+        for i, js in reads[ph].items():
+            u = w.tile(ph, i // w.rows)
+            for j in js:
+                if j // w.rows != i // w.rows:
+                    readers[ph].setdefault(j, set()).add(u)
+    slot_tag = {}                                # (ph, level, slot) -> row
+    for x in range(0, w.tickets, w.ncols):
+        ph, u, _ = w.item(x)
+        t = w.tile(ph, u)
+        for s in range(1, w.sweeps + 1):
+            waits = w.waits(ph, s, u)
+            for p, need, lo, hi in waits:
+                for v in range(lo, hi + 1):
+                    assert ticket[(p, v)] < x, ((ph, s, u), (p, need, v))
+            for i in _tile_rows(w, t):
+                for j in reads[ph][i]:
+                    if j // w.rows == t:
+                        continue                 # the tile's own: shared memory
+                    src_u = w.tile(ph, j // w.rows)
+                    if s > 1:
+                        assert _covered(waits, ph, s - 1, src_u)
+                        assert slot_tag[(ph, s - 1, j & w.mask)] == j
+                    elif ph == 1:
+                        assert _covered(waits, 0, w.sweeps, src_u)
+                if s < w.sweeps:
+                    key = (ph, s, i & w.mask)
+                    if key in slot_tag:
+                        for v in readers[ph].get(slot_tag[key], ()):
+                            assert _covered(waits, ph, s + 1, v), ((ph, s, u), slot_tag[key], v)
+                    slot_tag[key] = i
+            if ph == 1 and s == 1:
+                assert _covered(waits, 0, w.sweeps, u)   # its own z0 rows, the base
+
+
+def _emulate(w, plan, R, window, seed):
+    """The kernel's items run in numpy, level by level: tickets taken in
+    order, up to ``window`` items in flight, each step one level of a
+    random in-flight item whose waits are met (a deadlock fails); a tile's
+    own previous level from its "shared memory", the others' from the
+    NaN-filled rings (a read of a slot no one wrote shows)."""
+    facs = [_host_factor(plan.L), _host_factor(plan.U)]
+    invd = plan.invdiag.numpy()
+    n, k = R.shape
+    kt = k // w.ncols
+    z0, out = np.full_like(R, np.nan), np.full_like(R, np.nan)
+    ring = np.full((2, w.sweeps + 1, w.ring_rows, k), np.nan, dtype=R.dtype)
+    prog = np.zeros((2, w.ncols, w.tiles), dtype=np.int64)
+    rng = np.random.default_rng(seed)
+    nxt, flight = 0, []                          # [item, next level, shared tile]
+
+    def ready(ph, u, c, s):
+        return all((prog[p, c, [w.tile(ph, v) for v in range(lo, hi + 1)]] >= need).all()
+                   for p, need, lo, hi in w.waits(ph, s, u))
+
+    def run(entry):
+        (ph, u, c), s, tile = entry
+        band, offs, ptr, cols, vals = facs[ph]
+        cs = slice(c * kt, (c + 1) * kt)
+        rows = np.asarray(_tile_rows(w, w.tile(ph, u)))
+        base = (z0 if ph else R)[rows, cs]
+        if s == 1:
+            tile = base.copy()                   # level 0 into shared memory
+        last = s == w.sweeps
+        yg, ym = ((z0 if ph else R), -1) if s == 1 else (ring[ph, s - 1], w.mask)
+
+        def y(j):
+            own = (j >= rows[0]) & (j <= rows[-1])
+            v = yg[j & ym, cs]
+            v[own] = tile[j[own] - rows[0]]
+            return v
+        acc = np.zeros((len(rows), kt), dtype=R.dtype)
+        for d, o in enumerate(offs):             # band in d order, then the strays
+            j = rows + o
+            ok = (j >= 0) & (j < n)
+            acc[ok] += band[d, rows[ok]][:, None] * y(j[ok])
+        if ptr is not None:
+            for a, i in enumerate(rows):
+                for e in range(ptr[i], ptr[i + 1]):
+                    acc[a] += vals[e] * y(np.array([cols[e]]))[0]
+        v = base - acc
+        if ph == 0 and last:
+            v *= invd[rows][:, None]
+        if last:
+            (out if ph else z0)[rows, cs] = v
+        else:
+            ring[ph, s][rows & w.mask, cs] = v
+        prog[ph, c, w.tile(ph, u)] = s
+        entry[1], entry[2] = s + 1, v
+
+    while nxt < w.tickets or flight:
+        while nxt < w.tickets and len(flight) < window:
+            flight.append([w.item(nxt), 1, None])
+            nxt += 1
+        go = [a for a, (item, s, _) in enumerate(flight) if ready(*item, s)]
+        assert go, f"deadlock: {flight}"
+        entry = flight[go[rng.integers(len(go))]]
+        run(entry)
+        if entry[1] > w.sweeps:
+            flight.remove(entry)
+    return out
+
+
+def _wavefront_cases():
+    """(plan factors, sweeps, rows per tile, blocks, ring budget) for: ILU(0)
+    16³ in a ring that wraps; the strayed ILU(1), whose reach takes
+    full-length rings; a ragged n; one sweep; a deep sweep count in rings
+    cut by the budget."""
+    lap = T.sparse.laplacian_3d(16)
+    rag = T.sparse.laplacian_2d(37)                       # n = 1369
+    return {"ilu0_16^3_ring": (t_iluk(lap, level=0), 6, 32, 12, None),
+            "strayed_iluk1_full": (t_iluk(_strayed(T, 40, 200), level=1), 6, 64, 8, None),
+            "ragged_n": (t_iluk(rag, level=0), 4, 32, 5, None),
+            "sweeps_1": (t_iluk(rag, level=0), 1, 64, 4, None),
+            "deep_sweeps_budget": (t_iluk(T.sparse.laplacian_2d(24), level=1), 30, 16, 20,
+                                   16 * 8)}
+
+
+@pytest.mark.parametrize("case", list(_wavefront_cases()))
+def test_wavefront_schedule_fp64(case):
+    """The schedule's tickets, waits, ring indexing and deadlock freedom,
+    and the emulated apply (levels in random order within the in-flight
+    window, k = 3 as three column tiles and k = 1) equal to
+    neumann_apply_plain to 1e-12."""
+    (L, U), sweeps, rows, blocks, budget = _wavefront_cases()[case]
+    plan = plan_fused_neumann(L, U, sweeps)
+    n = plan.n
+    w = wavefront_schedule(n, plan.reach, sweeps, rows, blocks, ncols=3, ring_budget=budget,
+                           offsets=band_reads(plan))
+    for ph, F in enumerate((plan.L, plan.U)):     # strays: the whole reach
+        if F.stray_ptr is not None:
+            assert w.reads[ph] == ((1, w.dep),)
+    assert [w.item(x) for x in range(w.tickets)] == \
+        [(ph, u, c) for ph in (0, 1) for u in range(w.tiles) for c in range(3)]
+    assert w.dep * rows >= plan.reach and 1 <= w.grid <= blocks
+    if w.ring_tiles < w.tiles:
+        assert w.ring_tiles > w.dep and w.mask == w.ring_rows - 1
+        assert w.ring_tiles & (w.ring_tiles - 1) == 0
+    else:
+        assert w.mask == -1 and w.ring_rows >= n
+    assert (w.ring_tiles < w.tiles) == (case != "strayed_iluk1_full")
+    if case == "strayed_iluk1_full":
+        assert plan.L.stray_ptr is not None and plan.reach > n // 2
+    if case == "deep_sweeps_budget":
+        assert w.ring_rows <= budget and w.grid < blocks
+    _check_schedule(w, [_host_factor(plan.L), _host_factor(plan.U)])
+    R = np.random.default_rng(7).standard_normal((n, 3))
+    ref = neumann_apply_plain(plan, torch.from_numpy(R)).numpy()
+    got = _emulate(w, plan, R, window=w.grid, seed=1)
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
+    w1 = dataclasses.replace(w, ncols=1, grid=max(1, w.grid // 3))
+    got1 = _emulate(w1, plan, R[:, :1].copy(), window=w1.grid, seed=2)
+    np.testing.assert_array_equal(got1[:, 0], got[:, 0])     # each column alike
+
+
+def test_wavefront_waits_name_the_tiles_read():
+    """Without strays a level waits only for the tiles its diagonals read
+    (16³ ILU(0) in 32-row tiles: offsets −1, −16, −256 read tiles t − 1
+    and t − 8, mirrored for phase 1), a subset of the dep tiles before it;
+    with strays, for all of them."""
+    plan = plan_fused_neumann(*t_iluk(T.sparse.laplacian_3d(16), level=0), 6)
+    w = wavefront_schedule(plan.n, plan.reach, 6, 32, 12, offsets=band_reads(plan))
+    assert plan.L.offsets == (-256, -16, -1) and w.dep == 8
+    assert w.reads == (((1, 1), (8, 8)), ((1, 1), (8, 8)))
+    for ph in (0, 1):
+        for u in (0, 1, 9, 40, w.tiles - 1):
+            got = sorted({v for p, need, lo, hi in w.waits(ph, 3, u) if need == 2
+                          for v in range(lo, hi + 1)})
+            assert got == [v for v in (u - 8, u - 1) if v >= 0]
+    ranged = wavefront_schedule(plan.n, plan.reach, 6, 32, 12)
+    assert ranged.reads == (((1, 8),), ((1, 8),))
+    assert ranged.waits(0, 3, 40)[0] == (0, 2, 32, 39)
+
+
+def test_wavefront_wait_sets_are_the_kernel_arguments():
+    """The kernel's ``waits`` argument, for 16³ ILU(0) in 32-row tiles
+    and a 32-tile ring: per set its count of ranges, then the ranges, in
+    the order reads[0], reads[1], base, reuse[0], reuse[1]; ``waits``
+    walks the same sets."""
+    plan = plan_fused_neumann(*t_iluk(T.sparse.laplacian_3d(16), level=0), 6)
+    w = wavefront_schedule(plan.n, plan.reach, 6, 32, 12, offsets=band_reads(plan))
+    assert w.ring_tiles == 32 < w.tiles
+    assert w.base == ((0, 1), (8, 8))              # its own z0 and the tiles it reads
+    assert w.reuse == (((24, 24), (31, 32)),) * 2  # tile u − 32 and its readers
+    assert w.wait_sets() == [2, 1, 1, 8, 8] * 2 + [2, 0, 1, 8, 8] + [2, 24, 24, 31, 32] * 2
+    assert w.waits(1, 1, 40) == [(0, 6, 39, 40), (0, 6, 32, 32), (1, 2, 16, 16), (1, 2, 8, 9)]
+    assert w.waits(0, 6, 40) == [(0, 5, 39, 39), (0, 5, 32, 32)]   # the last level: no ring
+    one = wavefront_schedule(plan.n, plan.reach, 1, 32, 12, offsets=band_reads(plan))
+    assert one.reuse == ((), ()) and one.wait_sets()[-2:] == [0, 0]
+
+
+def test_wavefront_wait_sets_capped():
+    """More distances than the kernel's MAX_RANGES ranges: the nearest
+    ranges merge, so a level waits for more tiles, never fewer; the
+    schedule of a factor with 24 spread diagonals stays right in the
+    emulation."""
+    assert _ranges([1, 2, 3, 7, 9, 10]) == ((1, 3), (7, 7), (9, 10))
+    assert _ranges([1, 5, 6, 20], cap=2) == ((1, 6), (20, 20))
+    n = 1200
+    offs = [40 * i + i * i % 7 for i in range(1, 25)]
+    A = sp.diags([np.full(n, 60.0)] + [np.full(n - o, -1.0) for o in offs]
+                 + [np.full(n - o, -1.0) for o in offs], [0] + [-o for o in offs] + offs,
+                 format="csr")
+    A.sort_indices()
+    plan = plan_fused_neumann(*t_iluk(T.sparse.CSR(A.indptr, A.indices, A.data, A.shape),
+                                      level=0), 3)
+    assert len(plan.L.offsets) == 24 and plan.L.stray_ptr is None
+    w = wavefront_schedule(n, plan.reach, 3, 8, 16, offsets=band_reads(plan))
+    assert all(len(r) == MAX_RANGES for r in w.reads) and len(w.base) <= MAX_RANGES
+    _check_schedule(w, [_host_factor(plan.L), _host_factor(plan.U)])
+    R = np.random.default_rng(9).standard_normal((n, 1))
+    got = _emulate(w, plan, R, window=w.grid, seed=4)
+    ref = neumann_apply_plain(plan, torch.from_numpy(R)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["banded", "strayed"])
+def test_wavefront_matches_pallas_fp32(kind):
+    """The emulated wavefront apply in fp32 against the Pallas kernel run
+    with interpret=True (rtol 1e-5, as test_plain_matches_pallas_fp32)."""
+    (Lj, Uj), (Lt, Ut) = _factors(kind)
+    r = np.random.default_rng(3).standard_normal(Lt.shape[0])
+    z_pallas = np.asarray(jpn.fused_neumann_apply(jpn.plan_fused_neumann(Lj, Uj, 6),
+                                                  jnp.asarray(r, jnp.float32),
+                                                  interpret=True))
+    plan = plan_fused_neumann(Lt, Ut, 6, dtype=torch.float32)
+    w = wavefront_schedule(plan.n, plan.reach, 6, 32, 10, offsets=band_reads(plan))
+    got = _emulate(w, plan, r.astype(np.float32)[:, None], window=w.grid, seed=3)[:, 0]
+    np.testing.assert_allclose(got, z_pallas, rtol=1e-5, atol=1e-6)
+
+
+def test_wavefront_schedule_at_the_kernels_shapes():
+    """The planner at 128³ ILU(0) with the kernel's tiles (K2 in fp32:
+    2,048 rows; K2k at k = 8: 1,024) and a card's worth of blocks: tiles
+    halved only while a phase's items still fit one wave, rings past the
+    reach and the tiles in flight; the ring budget of a deep sweep count
+    shrinks the ring and the grid.  Tiles are halved while their band rows
+    pass BAND_SMEM (48 diagonals: 256 rows); the window's halo is the
+    reach of the diagonals within a tile."""
+    # the kernel's rows a thread owns: fp32 8 at k = 1 and 4 at k = 8, fp64 4 and 2
+    assert (tile_rows(8, 4, 3), tile_rows(4, 4, 3), tile_rows(4, 8, 3)) == (2048, 1024, 1024)
+    assert tile_rows(8, 4, 48) == 256 and tile_rows(2, 8, 64) == THREADS
+    assert halo_rows((-16384, -128, -1), 2048) == 128 and halo_rows((-4096,), 2048) == 0
+    reach, n = 128 * 128, 128 ** 3
+    for rpt, blocks in ((8, 132 * 4), (4, 132 * 2)):    # the blocks an H100 fits
+        rows = THREADS * rpt
+        w = wavefront_schedule(n, reach, 6, rows, blocks, ncols=1, min_rows=THREADS)
+        assert w.rows == rows and w.tiles >= blocks    # enough tiles: no halving
+        assert w.dep == -(-reach // w.rows) and w.grid == blocks
+        assert w.ring_tiles == w.tiles or w.ring_tiles > w.dep + blocks
+        assert w.ring_rows <= w.tiles * w.rows         # never more than full length
+    blocks = 132 * 2
+    w = wavefront_schedule(64 ** 3, 64 * 64, 6, THREADS * 8, blocks, min_rows=THREADS)
+    assert w.rows == 1024 and w.tiles == 256           # 64³: halved while one wave holds it
+    w = wavefront_schedule(n, reach, 381, THREADS * 8, blocks, ring_budget=1 << 18)
+    assert w.ring_rows <= 1 << 18 and w.ring_tiles > w.dep and w.grid <= w.ring_tiles - w.dep - 1
+    with pytest.raises(ValueError, match="sweeps"):
+        wavefront_schedule(n, reach, 0, 256, 8)
+    with pytest.raises(ValueError, match="power of two"):
+        wavefront_schedule(n, reach, 6, 48, 8)
 
 
 def test_ilu_pc_sweep_resolution():
