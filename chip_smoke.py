@@ -86,7 +86,27 @@ The AMG phases (every kernel launch counter reset just before each solve):
    K1) may launch; K1k checked on the levels against its plain version and
    8 single launches.
 The JAX CPU counts of phases 20-22 come from
-``scripts/jax_amg_reference.py``.  Then one step that no solve path uses
+``scripts/jax_amg_reference.py``.
+The general Krylov methods (every kernel launch counter reset just
+before each solve, each phase's time printed):
+23. solve_ir + ILU(0) (K2, 6 sweeps), rtol 1e-8, on the 3-D Laplacian 128³
+   for each of cgs, cr, crs, bicrstab, bicgsafe, bicrsafe, gpbicg, gpbicr,
+   qmrcgstab, tfqmr, orthomin, bicgstabl, idrs, lgmres, rlgmres, minres
+   and fgmres: inner its (≤ the JAX CPU count + 15 %; 1.5 times for the
+   cells whose count moves with rounding alone, ``ROUNDING_SENSITIVE``),
+   outer rounds, the warm wall, K1 and K2 launches an inner iteration, the
+   true relres (≤ 1e-8); only K1 and K2 may launch; then K1 and K2 against
+   their plain versions on the phase's own fp32 matrix and plan, and a
+   profiled first refinement round of the three slowest methods;
+24. the same on the convection-diffusion 1024² (beta 20, unsymmetric,
+   1,048,576 rows), minres left out (it needs a symmetric A); a method
+   whose JAX run stalls is held to the same stall, bicrstab excepted;
+25. solve_multi + ILU(0), fp64, 48³ (64³ took phases 23-25 past 90 s),
+   k = 4, for each method: every column's count its own single solve's
+   ±1, only K1k and K2k launch for the block; then K1k and K2k on the
+   solve's own fp64 matrix and plan.
+The JAX CPU counts of phases 23-24 come from
+``scripts/jax_krylov_reference.py``.  Then one step that no solve path uses
 times, for each kernel of the JSON line at its shape there, the one
 PyTorch call that computes the same function (a ``torch.sparse_csr_tensor``
 product through cuSPARSE; 12 ``torch.addmm`` for a Neumann apply) as
@@ -1384,6 +1404,175 @@ def phase_saamg_block(lt, np, torch, dev, counters, card):
 
 
 # ---------------------------------------------------------------------------
+# The general Krylov methods (phases 23-25)
+# ---------------------------------------------------------------------------
+
+KRYLOV = ["cgs", "cr", "crs", "bicrstab", "bicgsafe", "bicrsafe", "gpbicg", "gpbicr",
+          "qmrcgstab", "tfqmr", "orthomin", "bicgstabl", "idrs", "lgmres", "rlgmres", "minres",
+          "fgmres"]
+# JAX's total inner iteration counts on the CPU for phases 23 and 24, solve_ir with
+# ILU(0) by 6 Neumann sweeps, and whether it converged
+# (scripts/jax_krylov_reference.py; a run that stalls ends at max_outer rounds)
+JAX_CPU_KRYLOV = {
+    23: {
+        "cgs": (159, True), "cr": (182, True), "crs": (125, True), "bicrstab": (129, True),
+        "bicgsafe": (109, True), "bicrsafe": (130, True), "gpbicg": (103, True),
+        "gpbicr": (122, True), "qmrcgstab": (118, True), "tfqmr": (183, True),
+        "orthomin": (181, True), "bicgstabl": (126, True), "idrs": (277, True),
+        "lgmres": (202, True), "rlgmres": (202, True), "minres": (249, True),
+        "fgmres": (199, True),
+    },
+    24: {
+        "cgs": (1704, True), "cr": (1400, True), "crs": (2430, False),
+        "bicrstab": (3911, False), "bicgsafe": (1065, True), "bicrsafe": (1727, False),
+        "gpbicg": (1224, True), "gpbicr": (929, True), "qmrcgstab": (2000, True),
+        "tfqmr": (4020, False), "orthomin": (1200, True), "bicgstabl": (1167, True),
+        "idrs": (4020, False), "lgmres": (1500, True), "rlgmres": (1500, True),
+        "fgmres": (1500, True),
+    },
+}
+
+
+# The cells whose count on the card moves with rounding alone: under three
+# 1-ulp changes of b (scripts/jax_krylov_reference.py --ulp) the card's
+# counts spread or leave JAX's + 15 % where JAX's stay put (PERF.md §6,
+# ROADMAP C).  Each is held to converge where JAX's run converges, within
+# 1.5 times JAX's count, and is not held to JAX's stall.
+ROUNDING_SENSITIVE = {(23, "idrs"), (24, "cgs"), (24, "bicrstab"), (24, "gpbicr"),
+                      (24, "qmrcgstab")}
+
+
+class InnerRounds:
+    """Counts the inner solves (the refinement rounds) of the solve_ir calls
+    made inside it, by wrapping the solver that ``_inner_plan`` hands out."""
+
+    def __enter__(self):
+        from lssp_tpu_torch.solvers import refine
+        self.refine, self.get, self.count = refine, refine.get_solver, 0
+
+        def get(name):
+            fn = self.get(name)
+
+            def counted(*args, **kwargs):
+                self.count += 1
+                return fn(*args, **kwargs)
+            return counted
+        refine.get_solver = get
+        return self
+
+    def __exit__(self, *exc):
+        self.refine.get_solver = self.get
+
+
+def phase_krylov(lt, np, torch, dev, counters, card, phase, A, name, methods):
+    """Phases 23 and 24: solve_ir + ILU(0) (K2, 6 sweeps), rtol 1e-8, for
+    each method, every kernel launch counter reset just before each solve:
+    only K1 and K2 may launch; a solve that reports convergence has a true
+    relres ≤ 1e-8; where JAX's run converges the card's does too, within
+    JAX's CPU count + 15 % (``ROUNDING_SENSITIVE``: 1.5 times), and where
+    JAX's run stalls the card's stalls too.  Then K1 and K2 against their
+    plain versions on the phase's own fp32 matrix and plan, and a profiled
+    refinement round of the three slowest methods (distinct inner solvers)."""
+    t_phase = time.perf_counter()
+    opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=2000)
+    t0 = time.perf_counter()
+    _, _, A32, _, M32 = lt.prepare_ir(A, method=methods[0], pc="ilu0", device=dev)
+    setup_s = time.perf_counter() - t0
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    print(f"{name}: n={A.shape[0]} nnz={A.nnz}, setup (prepare_ir) {setup_s:.3f} s")
+    walls = {}
+    for method in methods:
+        ref, ref_conv = JAX_CPU_KRYLOV[phase][method]
+        for fn in counters:
+            fn.launches = 0
+        with InnerRounds() as rounds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, info = lt.solve_ir(A, b, method=method, pc="ilu0", options=opts)
+            torch.cuda.synchronize()
+            walls[method] = (time.perf_counter() - t0, info.nits)
+        launches = {fn.__name__: fn.launches for fn in counters}
+        rr = true_relres(A, x, np)
+        its = max(info.nits, 1)
+        sensitive = (phase, method) in ROUNDING_SENSITIVE
+        limit = int(1.5 * ref) if sensitive else count_limit(ref)
+        print(f"{name} solve_ir {method}+ilu0 [{card}]: inner its {info.nits} (JAX CPU {ref}"
+              f"{'' if ref_conv else ', not converged'}, limit {limit}"
+              f"{', rounding-sensitive' if sensitive else ''}), outer rounds {rounds.count}, "
+              f"warm {walls[method][0]:.3f} s, K1 {launches['dia_spmv'] / its:.2f} and K2 "
+              f"{launches['fused_neumann_apply'] / its:.2f} launches an inner iteration, true "
+              f"relres {rr:.3e}, converged {info.converged}")
+        if info.converged:
+            check(rr <= 1e-8 and bool(torch.isfinite(x).all()),
+                  f"{name} {method}: reports convergence at a true relres of {rr:.3e}")
+        if ref_conv:
+            check(info.converged, f"{name} {method}: stalls where JAX's run converges")
+            check(info.nits <= limit, f"{name} {method}: {info.nits} inner its > {limit}")
+        elif not sensitive:
+            check(not info.converged, f"{name} {method}: converged where JAX's run stalls")
+        check_only(launches, {"dia_spmv", "fused_neumann_apply"}, f"{name} {method}")
+    errs, _ = check_path_kernels(lt, np, torch, dev, A32, M32, name)
+    # the three slowest methods with distinct inner solvers (lgmres runs as
+    # rlgmres inside solve_ir, fgmres as rgmres)
+    inner = {m: lt.solvers.refine._inner_plan(m, opts.resolved(), 1e-3)[0].__name__
+             for m in walls}
+    slowest = []
+    for method in sorted(walls, key=lambda m: -walls[m][0]):
+        if len(slowest) < 3 and inner[method] not in {inner[m] for m in slowest}:
+            slowest.append(method)
+    for method in slowest:
+        # one refinement round, a window of the solve's steady state (a whole
+        # solve of thousands of iterations is too many events to trace)
+        out = {}
+
+        def one_round():
+            out["info"] = lt.solve_ir(A, b, method=method, pc="ilu0", options=opts,
+                                      max_outer=1)[1]
+        wall, busy, launches, top, every = profile_solve(torch, one_round)
+        its = max(out["info"].nits, 1)
+        k2 = every.get("neumann_wavefront_kernel", 0.0) / max(sum(every.values()), 1e-12)
+        print(f"{name} solve_ir {method}+ilu0 [{card}]: profiled first refinement round: "
+              f"{out['info'].nits} inner its in {wall:.3f} s ({wall / its * 1e3:.3f} ms an inner "
+              f"iteration), device busy {busy:.1%}, {launches / its:.1f} device launches an "
+              f"inner iteration, K2 {k2:.1%} of the device time, device ms by kernel {top}")
+    print(f"{name}: phase time {time.perf_counter() - t_phase:.1f} s")
+    return errs
+
+
+def phase_krylov_per_column(lt, np, torch, dev, counters, N=48):
+    """Phase 25: solve_multi + ILU(0), fp64, N³, k = 4, for each method:
+    every column's count its own single solve's ±1, and only K1k and K2k
+    launch for the block; then K1k and K2k on the solve's own fp64 matrix
+    and plan."""
+    t_phase = time.perf_counter()
+    A = lt.sparse.laplacian_3d(N)
+    B = serving_block(np, torch, dev, A.shape[0], k=4)
+    opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=2000)
+    for method in KRYLOV:
+        for fn in counters:
+            fn.launches = 0
+        X, info = lt.solve_multi(A, B, method=method, pc="ilu0", options=opts)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        singles = [lt.solve(A, B[:, c], method=method, pc="ilu0", options=opts)
+                   for c in range(4)]
+        its = [i.nits for _, i in singles]
+        dx = max((torch.linalg.vector_norm(X[:, c] - x) / torch.linalg.vector_norm(x)).item()
+                 for c, (x, _) in enumerate(singles))
+        rr = block_relres(A, X, B, np)
+        print(f"per-column {N}^3 solve_multi {method}+ilu0 fp64 k=4: nits {info.nits}, single "
+              f"solves {its}, x rel diff {dx:.3e}, true relres max {rr.max():.3e}")
+        check(bool(np.all(info.converged)), f"per-column {method}: not every column converged")
+        check((np.abs(info.nits - np.array(its)) <= 1).all(),
+              f"per-column {method}: counts {info.nits} against single solves {its}")
+        check_only(launches, {"dia_spmm", "neumann_block_apply"}, f"per-column {method}")
+    S = lt.Solver(method="cg", pc="ilu0", device=dev).assemble(A)
+    errs = check_block_kernels(lt, torch, S.A_dev, S.M, B, 1e-12, "per-column krylov")
+    print(f"per-column krylov {N}^3: phase time {time.perf_counter() - t_phase:.1f} s")
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # the library yardstick and the bound of every kernel in the JSON line
 # ---------------------------------------------------------------------------
 
@@ -1585,15 +1774,23 @@ def main():
     _, classical_errs = phase_amg_classical(lt, np, torch, dev, counters, card)
     rsamg_errs = phase_rsamg(lt, np, torch, dev, counters, card)
     _, block_err = phase_saamg_block(lt, np, torch, dev, counters, card)
+    krylov_errs = [
+        phase_krylov(lt, np, torch, dev, counters, card, 23, lt.sparse.laplacian_3d(128),
+                     "krylov 128^3", KRYLOV),
+        phase_krylov(lt, np, torch, dev, counters, card, 24,
+                     lt.sparse.convection_diffusion_2d(1024), "krylov convdiff 1024^2",
+                     [m for m in KRYLOV if m != "minres"])]
+    krylov_block_errs = phase_krylov_per_column(lt, np, torch, dev, counters)
     library = phase_library(lt, np, torch, dev, card)
     # each kernel's error is the worst over its own phase and the later
     # phases' checks on their own data
     for errs in (serving_errs, per_column_errs, hyb_multi_errs, {"dist_spmm_ext": k4k_err},
-                 {"dia_spmm": block_err}):
+                 {"dia_spmm": block_err}, krylov_block_errs):
         for kname, err in errs.items():
             krhs[kname]["max_abs_err"] = max(krhs[kname]["max_abs_err"], err)
-    for errs in (saamg_errs, classical_errs, rsamg_errs):
+    for errs in (saamg_errs, classical_errs, rsamg_errs, *krylov_errs):
         k1["max_abs_err"] = max(k1["max_abs_err"], errs.get("dia_spmv", 0.0))
+        k2["max_abs_err"] = max(k2["max_abs_err"], errs.get("neumann_sweep", 0.0))
         k3["max_abs_err"] = max(k3["max_abs_err"], errs.get("hyb_spmv", 0.0))
     kernels = [
         dict(name="dia_spmv", route="cuda", source="lssp_tpu_torch/csrc/dia_spmv.cu",

@@ -104,14 +104,19 @@ def _make_ell_spmv(M: DistELL):
 
 def make_dist_spmv(M):
     """``op(x) -> A@x`` on the flat vector for a DistDIA, DistHYB or
-    DistELL (halo or all-gather mode)."""
+    DistELL (halo or all-gather mode).  ``op.shards`` is the shard count:
+    a solver whose JAX form draws state per shard inside ``shard_map``
+    (IDR(s)'s shadow space) reads it."""
     if isinstance(M, DistHYB):
-        return _make_hyb_spmv(M)
-    if isinstance(M, DistDIA):
-        return _make_dia_spmv(M)
-    if isinstance(M, DistELL):
-        return _make_ell_spmv(M)
-    raise TypeError(f"unsupported distributed matrix {type(M)}")
+        op = _make_hyb_spmv(M)
+    elif isinstance(M, DistDIA):
+        op = _make_dia_spmv(M)
+    elif isinstance(M, DistELL):
+        op = _make_ell_spmv(M)
+    else:
+        raise TypeError(f"unsupported distributed matrix {type(M)}")
+    op.shards = M.nshards
+    return op
 
 
 def apply_dist_spmv(M, x: torch.Tensor) -> torch.Tensor:

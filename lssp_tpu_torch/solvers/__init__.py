@@ -1,6 +1,8 @@
-"""Krylov solvers (cg, gmres, rgmres, bicgstab, with their per-column
-batched forms, and the block methods blockcg and blockgmres), the solve
-facade and mixed-precision iterative refinement, single- and multi-rhs."""
+"""Krylov solvers (cg, gmres, rgmres, bicgstab, cgs, cr, crs, bicrstab,
+bicgsafe, bicrsafe, gpbicg, gpbicr, qmrcgstab, tfqmr, orthomin, bicgstabl,
+idrs, lgmres, rlgmres, minres and fgmres, each with its per-column batched
+form, and the block methods blockcg and blockgmres), the solve facade and
+mixed-precision iterative refinement, single- and multi-rhs."""
 
 from lssp_tpu_torch.solvers.base import SolveInfo
 from lssp_tpu_torch.solvers.registry import (

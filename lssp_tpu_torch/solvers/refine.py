@@ -86,18 +86,22 @@ def _inner_plan(method, opts, inner_rtol, multi=False):
     cycles for GMRES and block GMRES, 200 iterations otherwise.  Inner
     GMRES is the right-preconditioned variant, whose Givens estimate does
     not stall on the fp32 floor the left variant hits with strong
-    preconditioners.  Block GMRES runs inner cycles of min(restart, 16)
+    preconditioners; lgmres runs as rlgmres for the same reason, and
+    fgmres as rgmres (the same method for solve_ir's fixed
+    preconditioner).  Block GMRES runs inner cycles of min(restart, 16)
     steps: the ~1e-3 inner target needs far fewer steps than an outer
     restart.  ``multi``: a block method gives its block solver, any other
     method its per-column batched form."""
     key = method.lower()
-    gmres_like = key in ("gmres", "rgmres", "blockgmres", "block_gmres")
+    gmres_like = key in ("gmres", "rgmres", "lgmres", "rlgmres", "fgmres", "cagmres",
+                         "cargmres", "blockgmres", "block_gmres")
     inner_cap = max(2 * opts.restart, 64) if gmres_like else 200
     inner_opts = dataclasses.replace(opts, rtol=inner_rtol, atol=0.0, rbtol=0.0,
                                      maxit=min(opts.maxit, inner_cap))
     if key in ("blockgmres", "block_gmres"):
         inner_opts = dataclasses.replace(inner_opts, restart=min(opts.restart, 16))
-    inner = {"gmres": "rgmres"}.get(key, key)
+    inner = {"gmres": "rgmres", "lgmres": "rlgmres", "fgmres": "rgmres",
+             "cagmres": "cargmres"}.get(key, key)
     if multi:
         return get_block_solver(inner) or get_batched_solver(inner), inner_opts
     return get_solver(inner), inner_opts

@@ -62,8 +62,13 @@ def get_block_solver(name: str):
 
 
 def _populate():
-    """Import the solver modules so their @register_solver decorators run."""
-    from lssp_tpu_torch.solvers import bicgstab, cg, gmres  # noqa: F401
+    """Import the solver modules so their @register_solver decorators run
+    (JAX's ``registry._populate``, less the methods not ported yet)."""
+    import importlib
+    for mod in ("cg", "gmres", "bicgstab", "bicgstabl", "bicgsafe", "cgs", "gpbicg",
+                "cr", "crs", "bicrstab", "bicrsafe", "gpbicr", "qmrcgstab", "tfqmr",
+                "orthomin", "idrs", "lgmres", "minres", "fgmres"):
+        importlib.import_module(f"lssp_tpu_torch.solvers.{mod}")
 
 
 _populate()

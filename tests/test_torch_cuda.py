@@ -571,3 +571,42 @@ def test_entry_points_default_to_the_card(cuda):
     assert lt.make_mesh().device.type == "cuda"
     x, out = lt.amg_solve(A, np.ones(A.shape[0]), rtol=1e-8, atol=0.0)
     assert x.device.type == "cuda" and out["residual"] <= 1e-8 * 48 * 10
+
+
+KRYLOV = ["cgs", "cr", "crs", "bicrstab", "bicgsafe", "bicrsafe", "gpbicg", "gpbicr",
+          "qmrcgstab", "tfqmr", "orthomin", "bicgstabl", "idrs", "lgmres", "rlgmres", "minres",
+          "fgmres"]
+
+
+@pytest.mark.parametrize("method", KRYLOV)
+def test_krylov_method_on_cuda_runs_k1_and_k2_only(cuda, method):
+    """A 32³ solve + ILU(0) on the card launches K1 and K2 and no other
+    kernel, converges, and takes the CPU's count (6 sweeps there too) ±2."""
+    A = lt.sparse.laplacian_3d(32)
+    b = torch.ones(A.shape[0], dtype=torch.float64)
+    counters = (dia_spmv, fused_neumann_apply, hyb_spmv, dia_spmv_ext, dia_spmm,
+                neumann_block_apply, hyb_spmm, dia_spmm_ext)
+    before = [fn.launches for fn in counters]
+    x, info = lt.solve(A, b.to(cuda), method=method, pc="ilu0")
+    torch.cuda.synchronize()
+    moved = {fn.__name__ for fn, c in zip(counters, before) if fn.launches != c}
+    assert moved == {"dia_spmv", "fused_neumann_apply"}, moved
+    assert info.converged and x.device.type == "cuda"
+    xc, ic = lt.solve(A, b, method=method, pc="ilu0", pc_options=lt.PCOptions(ilu_sweeps=6))
+    assert abs(info.nits - ic.nits) <= 2, (info.nits, ic.nits)
+    res = np.linalg.norm(b.numpy() - A.to_scipy() @ x.cpu().numpy())
+    assert res <= 1e-6 * np.linalg.norm(b.numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_idrs_shadow_space_on_cuda_is_the_cpu_draw(cuda, dtype):
+    """IDR(s)'s P drawn on the card equals the CPU draw (which equals JAX's,
+    ``tests/test_torch_krylov_common.py``) bitwise, and after MGS to
+    rounding."""
+    from lssp_tpu_torch.solvers import _threefry
+    from lssp_tpu_torch.solvers.idrs import shadow_space
+    for s, n in ((4, 4097), (8, 262144)):
+        assert torch.equal(_threefry.uniform((s, n), dtype, cuda).cpu(),
+                           _threefry.uniform((s, n), dtype))
+        P = shadow_space(s, n, dtype, cuda).cpu()
+        assert _rel(P, shadow_space(s, n, dtype, "cpu")) <= 100 * TOL[dtype]

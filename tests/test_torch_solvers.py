@@ -85,4 +85,7 @@ def test_unknown_names_list_the_registry():
         T.solve(A_T, torch.ones(N * N, dtype=torch.float64), method="nosuch")
     with pytest.raises(ValueError, match="available"):
         T.solve(A_T, torch.ones(N * N, dtype=torch.float64), pc="nosuch")
-    assert sorted(T.solvers.SOLVERS) == ["bicgstab", "cg", "gmres", "rgmres"]
+    assert sorted(T.solvers.SOLVERS) == [
+        "bicgsafe", "bicgstab", "bicgstabl", "bicrsafe", "bicrstab", "cg", "cgs", "cr", "crs",
+        "fgmres", "gmres", "gpbicg", "gpbicr", "idrs", "lgmres", "minres", "orthomin",
+        "qmrcgstab", "rgmres", "rlgmres", "tfqmr"]
