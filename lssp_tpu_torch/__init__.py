@@ -11,7 +11,11 @@ solve (``ops/dia_spmv_ext.py``, K4; ``parallel/``), each with a k-rhs form
 (K1k-K4k) for the multi-rhs path (``solve_multi``, ``solve_ir_multi``,
 ``dist_solve_multi``, ``dist_solve_ir_multi``; B is (n, k)).  The AMG
 preconditioners ``amg``, ``saamg`` and ``rsamg`` (``amg/``) run their
-cycles on the same kernels, and ``amg_solve`` is the standalone AMG solver.
+cycles on the same kernels, and ``amg_solve`` is the standalone AMG solver;
+over a shard mesh they run as distributed hierarchies (``parallel/``,
+every banded level product on K4).  Block matrices (``BSR``) run as
+scalar DIA on K1 where their diagonals allow, with the block-ILU family
+``biluk``, ``bilut``, ``vbiluk`` and ``vbilut`` (``pc/biluk.py``).
 
 Entry points run on the current CUDA device unless given a CPU tensor or
 ``device="cpu"``; without a CUDA device they raise rather than fall back.
@@ -33,7 +37,7 @@ from lssp_tpu_torch.parallel import (
 from lssp_tpu_torch.solvers import (
     SolveInfo, Solver, prepare_ir, solve, solve_ir, solve_ir_multi, solve_multi,
 )
-from lssp_tpu_torch.sparse import COO, CSR, DIA, ELL, HYB
+from lssp_tpu_torch.sparse import BDIA, BSR, COO, CSR, DIA, ELL, HYB
 
 __version__ = "0.1.0"
 
@@ -43,5 +47,5 @@ __all__ = [
     "solve", "solve_ir", "prepare_ir", "Solver", "SolveInfo",
     "solve_multi", "solve_ir_multi",
     "dist_solve", "dist_solve_ir", "dist_solve_multi", "dist_solve_ir_multi", "make_mesh",
-    "COO", "CSR", "DIA", "ELL", "HYB",
+    "BDIA", "BSR", "COO", "CSR", "DIA", "ELL", "HYB",
 ]

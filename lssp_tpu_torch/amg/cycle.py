@@ -159,6 +159,7 @@ def amg_solve(A: CSR, b, x0=None, rtol: float = 1e-7, atol: float = 1e-7,
     package's route off the TPU).  ``fmg=True`` starts from the
     full-multigrid guess.  ``device``: as in ``solve``.  Returns (x, {"nits",
     "residual", "complexity"})."""
+    from lssp_tpu_torch.solvers.base import norm      # solvers imports amg
     device = resolve_device(device, b)
     hier = amg_setup(A, theta=theta)
     h = build_device_amg(hier, dtype=dtype, smoother=smoother, degree=degree,
@@ -171,12 +172,12 @@ def amg_solve(A: CSR, b, x0=None, rtol: float = 1e-7, atol: float = 1e-7,
         x = fmg_initial(h, b)
     A0 = h.levels[0].A
     r = residual(A0, x, b)
-    res = torch.linalg.vector_norm(r).item()
+    res = norm(r).item()
     tol = max(rtol * res, atol)
     it = 0
     while it < maxit and res > tol:
         x = x + vcycle(h, r)
         r = residual(A0, x, b)
-        res = torch.linalg.vector_norm(r).item()
+        res = norm(r).item()
         it += 1
     return x, {"nits": it, "residual": res, "complexity": hier.complexity()}

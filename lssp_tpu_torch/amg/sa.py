@@ -19,8 +19,8 @@ Aggregates are reshape groups, so neither transfer needs a gather:
 A cycle is therefore a handful of DIA products per level (kernel K1 on
 CUDA: the smoother's residuals and products, B and C) plus reshapes, and
 a dense coarse solve.  The host setup is a copy of the JAX package's, so
-the hierarchy is identical to it; ``agg_localize`` (the distributed
-setup's) waits for the distributed AMG.
+the hierarchy is identical to it; ``agg_localize`` gives the
+distributed setup (``parallel/dist_sa.py``) its shard-local descriptors.
 
 Every device function takes a vector (n,) or an (n, k) block, each column
 as its own vector (JAX's ``vmap``); a block is padded by rows.
@@ -590,6 +590,22 @@ def agg_prolong(agg, g, n_next, ec):
     _, gy, gx, gyc, gxc = agg
     t = ec.reshape((gyc, 1, gxc, 1) + tail).expand((gyc, 2, gxc, 2) + tail)
     return t.reshape((gyc * 2, gxc * 2) + tail)[:gy, :gx].reshape((-1,) + tail)
+
+
+def agg_localize(agg, shards: int):
+    """Global → shard-local aggregation descriptor: the y dimension divided
+    by the shard count (``sa_host_levels``' ``shards`` rule makes it
+    divide exactly); None (flat ranges) stays None."""
+    if agg is None:
+        return None
+    if agg[0] == "x":
+        _, g, gy, gx, gxc = agg
+        return ("x", g, gy // shards, gx, gxc)
+    if agg[0] == "y":
+        _, g, gy, gx, gyc = agg
+        return ("y", g, gy // shards, gx, gyc // shards)
+    _, gy, gx, gyc, gxc = agg
+    return ("box", gy // shards, gx, gyc // shards, gxc)
 
 
 def _restrict(lev: SALevel, r):

@@ -7,16 +7,26 @@ sequential recurrence.  Zero off-diagonals decouple the system into
 independent lines, so one (n,) tridiagonal whose couplings vanish at
 grid-row boundaries is the batched per-line solve.
 
-The coefficients are (n,) vectors; the right-hand side is (n,) or an
-(n, k) block (``ops/spmv.py``'s layout), every column a system with the
-same coefficients, as JAX's solve runs under ``vmap``.  The distributed
-Spike solve (``dist_pcr_solve``) waits for the distributed AMG.
+The coefficients are (n,) vectors, or (n, P) for P independent systems
+(the shards of the distributed solve, side by side); the right-hand side
+has the coefficients' shape, or one more trailing axis of k columns
+(``ops/spmv.py``'s block layout), every column a system with the same
+coefficients, as JAX's solve runs under ``vmap``.
+
+The distributed line smoother's cross-shard solve is the Spike algorithm
+(``dist_pcr_solve``, and ``dist_spike_solve`` with the b-independent part
+from ``spike_interface_host``): every shard solves its own tridiagonal
+with PCR, and a (2P, 2P) interface system couples the first and last
+unknowns of the shards, so a line may cross shard boundaries.  On the
+port's one-device mesh the shards are the leading axis of (P, R) tensors
+and the all-gather of the interface values is a slice.
 """
 from __future__ import annotations
 
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 
@@ -35,15 +45,16 @@ def _shift(a: torch.Tensor, s: int) -> torch.Tensor:
 
 
 def _cols(v: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """A coefficient vector broadcast over b's columns."""
-    return v[:, None] if b.ndim == 2 else v
+    """A coefficient array broadcast over b's trailing column axis."""
+    return v.reshape(v.shape + (1,) * (b.ndim - v.ndim))
 
 
 def pcr_solve(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, b: torch.Tensor,
               steps: Optional[int] = None) -> torch.Tensor:
     """Solve T x = b for the tridiagonal T with sub-, main- and
     super-diagonal ``dl``, ``d``, ``du`` (dl[0] = du[n-1] = 0, the banded
-    layout); ``b`` (n,) or (n, k).  At step k (stride s = 2^k) every
+    layout), each (n,) or (n, P); ``b`` their shape or with a trailing
+    column axis.  At step k (stride s = 2^k) every
     equation eliminates its couplings to i±s with rows i±s; after
     ceil(log2 n) steps the system is diagonal.  Stable for diagonally
     dominant systems (the line-smoother case)."""
@@ -90,3 +101,98 @@ def line_jacobi_sweeps(tri, Aop: Callable, x: torch.Tensor, b: torch.Tensor, deg
     for _ in range(degree):
         x = x + damping * tri_solve(dl, d0, du, b - Aop(x))
     return x
+
+
+def _shard_pcr(dl, d, du, b):
+    """PCR on every shard at once: coefficients (P, R), b (P, R) or
+    (P, R, k); the cross-shard couplings dl[:, 0] and du[:, -1] are cut."""
+    dl = dl.clone()
+    du = du.clone()
+    dl[:, 0] = 0.0
+    du[:, -1] = 0.0
+    return pcr_solve(dl.T, d.T, du.T, b.transpose(0, 1)).transpose(0, 1)
+
+
+def _interface_correct(y, vspike, wspike, u):
+    """x = y − v·u_prev − w·u_next: shard p's correction from the interface
+    unknowns u (2P, ...) = [x_p[0], x_p[-1]] of every shard."""
+    P = y.shape[0]
+    zero = u.new_zeros((1,) + tuple(u.shape[1:]))
+    u_prev = torch.cat([zero, u[1:2 * P - 2:2]])        # u[2p-1], 0 on shard 0
+    u_next = torch.cat([u[2:2 * P:2], zero])            # u[2p+2], 0 on shard P-1
+    return (y - _cols(vspike, y) * u_prev[:, None]
+            - _cols(wspike, y) * u_next[:, None])
+
+
+def _interface_matrix(v0, vR, w0, wR, dtype, device):
+    """The (2P, 2P) interface matrix of the Spike solve."""
+    P = v0.shape[0]
+    p2 = 2 * torch.arange(P, device=device)
+    M = torch.eye(2 * P, dtype=dtype, device=device)
+    M[p2, (p2 - 1) % (2 * P)] += v0
+    M[p2 + 1, (p2 - 1) % (2 * P)] += vR
+    M[p2, (p2 + 2) % (2 * P)] += w0
+    M[p2 + 1, (p2 + 2) % (2 * P)] += wR
+    return M
+
+
+def dist_pcr_solve(dl, d, du, b):
+    """The distributed tridiagonal solve by Spike substructuring, exact when
+    lines cross shard boundaries (``lssp_tpu/ops/tridiag.py:113``): every
+    shard's PCR with three right-hand sides (b and the boundary spikes
+    v = T_loc⁻¹(a_lo·e₁), w = T_loc⁻¹(a_hi·e_R), a_lo = dl[p, 0] and a_hi =
+    du[p, -1] the cross-shard couplings), the (2P, 2P) interface system
+    of the shards' first and last unknowns, and the rank-2 correction.
+    Coefficients (P, R), b (P, R); the global edges have dl[0, 0] =
+    du[P-1, -1] = 0, so the wrapped interface entries only add zeros."""
+    e1 = torch.zeros_like(b)
+    eR = torch.zeros_like(b)
+    e1[:, 0] = dl[:, 0]
+    eR[:, -1] = du[:, -1]
+    y, v, w = _shard_pcr(dl, d, du, torch.stack([b, e1, eR], dim=-1)).unbind(-1)
+    M = _interface_matrix(v[:, 0], v[:, -1], w[:, 0], w[:, -1], d.dtype, d.device)
+    u = torch.linalg.solve(M, torch.stack([y[:, 0], y[:, -1]], dim=1).reshape(-1))
+    return _interface_correct(y, v, w, u)
+
+
+def spike_interface_host(dl, d, du):
+    """The b-independent part of the Spike solve, on the host at setup
+    (``lssp_tpu/ops/tridiag.py:160``): every shard's boundary spikes v, w
+    (P, R) and the inverse of the (2P, 2P) interface matrix.  ``dl``,
+    ``d``, ``du`` are the stacked (P, R) shard slices (numpy)."""
+    import scipy.linalg as sla
+    dl, d, du = np.asarray(dl), np.asarray(d), np.asarray(du)
+    P, R = d.shape
+    v = np.zeros((P, R), d.dtype)
+    w = np.zeros((P, R), d.dtype)
+    for p in range(P):
+        ab = np.zeros((3, R), np.float64)
+        ab[0, 1:] = du[p, :-1]          # superdiagonal (du[i] = A[i, i+1])
+        ab[1] = d[p]
+        ab[2, :-1] = dl[p, 1:]          # subdiagonal (dl[i] = A[i, i-1])
+        ab[1, ab[1] == 0.0] = 1.0       # decoupled slots stay solvable
+        rhs = np.zeros((R, 2), np.float64)
+        rhs[0, 0] = dl[p, 0]            # a_lo · e1
+        rhs[-1, 1] = du[p, -1]          # a_hi · eR
+        sol = sla.solve_banded((1, 1), ab, rhs)
+        v[p] = sol[:, 0]
+        w[p] = sol[:, 1]
+    p2 = 2 * np.arange(P)
+    M = np.eye(2 * P)
+    M[p2, (p2 - 1) % (2 * P)] += v[:, 0]
+    M[p2 + 1, (p2 - 1) % (2 * P)] += v[:, -1]
+    M[p2, (p2 + 2) % (2 * P)] += w[:, 0]
+    M[p2 + 1, (p2 + 2) % (2 * P)] += w[:, -1]
+    return v, w, np.linalg.inv(M).astype(d.dtype)
+
+
+def dist_spike_solve(dl, d, du, vspike, wspike, Minv, b):
+    """The Spike solve with the spikes and interface inverse of
+    ``spike_interface_host`` (``lssp_tpu/ops/tridiag.py:198``): one PCR
+    right-hand side a shard, the interface values, a small matrix-vector
+    product (multiply and sum, as JAX's) and the correction.  Coefficients
+    and spikes (P, R), Minv (2P, 2P), b (P, R) or (P, R, k)."""
+    y = _shard_pcr(dl, d, du, b)
+    rhs = torch.stack([y[:, 0], y[:, -1]], dim=1).reshape((-1,) + tuple(b.shape[2:]))
+    u = (_cols(Minv, rhs[None]) * rhs[None]).sum(dim=1)
+    return _interface_correct(y, vspike, wspike, u)

@@ -18,6 +18,7 @@ import torch
 
 from lssp_tpu_torch.ops.dia_spmv_ext import dia_spmm_ext, dia_spmv_ext
 from lssp_tpu_torch.parallel.partition import DistDIA, DistELL, DistHYB
+from lssp_tpu_torch.solvers.base import dot
 
 
 def halo_exchange(x2: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
@@ -127,8 +128,8 @@ def apply_dist_spmv(M, x: torch.Tensor) -> torch.Tensor:
 def make_psum_dot(nshards: int):
     """Distributed ⟨x, y⟩: per-shard partial sums, then a sum over the
     shard axis (the ``psum``); a 0-d tensor."""
-    def dot(x, y):
-        return (x.view(nshards, -1) * y.view(nshards, -1)).sum(dim=1).sum()
+    def pdot(x, y):
+        return dot(x.view(nshards, -1).T, y.view(nshards, -1).T).sum()
 
-    return dot
+    return pdot
 

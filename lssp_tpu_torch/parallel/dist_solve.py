@@ -10,9 +10,13 @@ the distributed operator (``dist_ops.make_dist_spmv``) and preconditioner
 one H100 or one CPU.  A mesh over several devices needs a communicator
 behind ``halo_exchange`` and is not ported yet (ROADMAP A13).
 
-Preconditioning is block-Jacobi: each shard factors its diagonal block and
-applies it with no exchange, by Neumann sweeps through kernel K4 or by
-exact level schedules.
+Preconditioning is block-Jacobi ILU (each shard factors its diagonal block
+and applies it with no exchange, by Neumann sweeps through kernel K4 or
+by exact level schedules) or a distributed AMG hierarchy: ``saamg``
+(``dist_sa``: shard-local reshape transfers, every banded level product
+through K4), ``rsamg`` (``dist_rs``: the classical hierarchy through the
+same cycle, or the flat saamg plan when the matrix is no shard-alignable
+lattice) and ``amg`` (``dist_amg``: padded-ELL gathers).
 
 ``dist_solve_multi`` / ``dist_solve_ir_multi`` take B (n, k): blocks are
 the (P, R, k) view of the (n, k) layout of ``ops/spmv.py``, so every DIA
@@ -31,7 +35,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lssp_tpu_torch.config import Defaults, PCOptions, SolverOptions, resolve_device
+from lssp_tpu_torch.config import (
+    Defaults, PCOptions, SolverOptions, resolve_device, smoother_degree,
+)
 from lssp_tpu_torch.ops.trisolve import (
     default_ilu_sweeps, ilu_apply, level_schedule, neumann_exact_depth,
 )
@@ -40,7 +46,7 @@ from lssp_tpu_torch.parallel.dist_ops import (
 )
 from lssp_tpu_torch.parallel.partition import DistDIA, partition_matrix
 from lssp_tpu_torch.pc.ilu_host import iluk_factor, ilut_factor
-from lssp_tpu_torch.solvers.base import SolveInfo, col_norms
+from lssp_tpu_torch.solvers.base import SolveInfo, norm
 from lssp_tpu_torch.solvers.facade import (
     _memo, reject_block_method, validate_block, validate_system,
 )
@@ -218,7 +224,45 @@ def _build_dist_ilu_neumann(factors, Pn: int, R: int, sweeps: int, max_union: in
     return _DistNeumannILU(L, U, invdiag, int(sweeps))
 
 
-def _build_dist_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, R: int, device):
+def _build_dist_amg_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, device, sa_grid):
+    """The distributed AMG preconditioners (``lssp_tpu/parallel/dist_solve.py:
+    239-293``): ``(kind, hierarchy)`` with kind "amg" (``dist_amg``) or
+    "saamg" (a ``DistSA``, also for rsamg).  ``sa_grid``: the launcher's
+    saamg grid dims (False: flat), which its padding plan followed."""
+    from lssp_tpu_torch.parallel.dist_sa import build_dist_sa
+    dtype = np.asarray(A.data).dtype
+    degree = smoother_degree(pc_opts.amg_presmooth, pc_opts.amg_postsmooth)
+    if pc_type == "amg":
+        from lssp_tpu_torch.amg.setup import amg_setup
+        from lssp_tpu_torch.parallel.dist_amg import build_dist_amg
+        hier = amg_setup(A, theta=pc_opts.amg_theta, max_levels=pc_opts.amg_max_levels,
+                         coarse_size=pc_opts.amg_coarse_size,
+                         smooth_interp=pc_opts.amg_smooth_interp, trunc=pc_opts.amg_trunc)
+        return "amg", build_dist_amg(hier, Pn, dtype=dtype, degree=degree, device=device)
+    if pc_type == "rsamg":
+        from lssp_tpu_torch.parallel.dist_rs import build_dist_rs
+        sm = pc_opts.amg_smoother
+        h = build_dist_rs(A, Pn, theta=pc_opts.amg_theta, max_levels=pc_opts.amg_max_levels,
+                          coarse_size=max(pc_opts.amg_coarse_size, 4 * Pn),
+                          smoother="chebyshev" if sm in ("l1jacobi", "line") else sm,
+                          degree=degree, dtype=dtype, max_pdiags=pc_opts.amg_max_pdiags,
+                          device=device)
+        if h is not None:
+            return "saamg", h
+        warnings.warn("dist pc='rsamg': matrix is not a shard-alignable lattice; using "
+                      "the distributed structured-SA hierarchy instead", RuntimeWarning,
+                      stacklevel=4)
+        sa_grid = False
+    # "line" passes through: the Spike solve is exact across shard boundaries
+    sm = "jacobi" if pc_opts.amg_smoother == "l1jacobi" else pc_opts.amg_smoother
+    return "saamg", build_dist_sa(A, Pn, g=pc_opts.saamg_aggregate,
+                                  max_levels=pc_opts.amg_max_levels,
+                                  coarse_size=pc_opts.amg_coarse_size, smoother=sm,
+                                  grid=sa_grid, degree=degree, dtype=dtype, device=device)
+
+
+def _build_dist_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, R: int, device,
+                   sa_grid=False):
     """``(kind, state)`` with the state's tensors on ``device``; ``kind``
     selects the apply in ``_shard_pc_apply``."""
     if pc_type in (None, "none"):
@@ -229,8 +273,7 @@ def _build_dist_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, R: int, device)
         d[small] = np.where(d[small] > 0, Defaults.ZERO_DIAG_VALUE, -Defaults.ZERO_DIAG_VALUE)
         return "jacobi", torch.from_numpy((pc_opts.omega / d).reshape(Pn, R)).to(device)
     if pc_type in ("amg", "rsamg", "saamg"):
-        raise NotImplementedError(f"distributed pc={pc_type!r} needs the AMG hierarchies, "
-                                  "not ported yet (ROADMAP A9, A13)")
+        return _build_dist_amg_pc(A, pc_type, pc_opts, Pn, device, sa_grid)
     if pc_type not in ("bjilu", "iluk", "ilu0", "ilut"):
         raise ValueError(f"unsupported distributed pc {pc_type!r}")
     factors = []
@@ -270,11 +313,25 @@ def _dyn_index(offs: torch.Tensor, R: int):
     return src.clamp(0, R - 1).view(offs.shape[0], -1), valid
 
 
-def _shard_pc_apply(kind, state, Pn: int, R: int):
+def _shard_pc_apply(kind, state, Pn: int, R: int, op=None, cycles: int = 1):
     """The preconditioner apply ``r ↦ M⁻¹r`` on the flat vector or on an
-    (n, k) block (seen per shard as (P, R) or (P, R, k))."""
+    (n, k) block (seen per shard as (P, R) or (P, R, k)).  An AMG apply
+    runs ``cycles`` V-cycles, each after the first on the residual through
+    the distributed operator ``op``."""
     if kind == "none":
         return lambda r: r
+    if kind in ("amg", "saamg"):
+        if kind == "amg":
+            from lssp_tpu_torch.parallel.dist_amg import dist_vcycle as vcycle
+        else:
+            from lssp_tpu_torch.parallel.dist_sa import dist_sa_vcycle as vcycle
+
+        def apply_mg(r):
+            z = vcycle(state, r)
+            for _ in range(cycles - 1):
+                z = z + vcycle(state, r - op(z))
+            return z
+        return apply_mg
 
     def shards(r):
         return r.view(Pn, R, *r.shape[1:])
@@ -369,36 +426,67 @@ def _grow_identity(A: CSR, extra: int) -> CSR:
                                   format="csr"))
 
 
-def _dist_sizing(n_orig: int, Pn: int) -> int:
-    """Identity rows to pad to a multiple of the shard count."""
-    return (-n_orig) % Pn
+def _dist_sizing(A: CSR, Pn: int, pc, pc_opts: PCOptions):
+    """(sa_grid, npad): the saamg grid dims and the identity rows to pad
+    (``lssp_tpu/parallel/dist_solve.py: _dist_sizing``).  saamg on a grid
+    whose gy divides by the shard count needs no padding, a flat plan pads
+    to its P·gᴸ multiple (``planned_padded_size``); other PCs pad to a
+    multiple of the shard count.  Memoized on the container (the grid
+    detection is an O(nnz) host scan)."""
+    n = A.shape[0]
+    if pc != "saamg":
+        return False, (-n) % Pn
+    cache = _memo(A)
+    key = ("dist-sizing", Pn, _pc_options_key(pc_opts))
+    if key not in cache:
+        from lssp_tpu_torch.amg.aggregate import planned_padded_size
+        from lssp_tpu_torch.amg.sa import detect_grid
+        g0 = pc_opts.saamg_grid
+        if g0 is None:
+            g0 = detect_grid(A)
+        elif g0 is False or g0[0] * g0[1] != n:
+            g0 = None
+        if g0 is not None and n % Pn == 0 and g0[0] % Pn == 0:
+            cache[key] = (tuple(int(v) for v in g0), 0)
+        else:
+            cache[key] = (False, planned_padded_size(
+                n, Pn, g=pc_opts.saamg_aggregate, coarse_size=pc_opts.amg_coarse_size,
+                max_levels=pc_opts.amg_max_levels) - n)
+    return cache[key]
 
 
-def _prepare_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, npad):
+def _prepare_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, sizing):
     """The rhs-independent half of a distributed solve (identity padding,
     per-shard preconditioner, partition in one or, for ``ir``, two
     precisions, upload), memoized on the container against its content
     fingerprint, LRU-bounded to 8 entries: each pins device copies of the
     partitioned matrix and the preconditioner state."""
     entries = _memo(A).setdefault("dist", {})
-    key = (mesh, fmt, pc, _pc_options_key(pc_opts), ir, str(dtype), str(inner_dtype), npad)
+    key = (mesh, fmt, pc, _pc_options_key(pc_opts), ir, str(dtype), str(inner_dtype), sizing)
     if key in entries:
         entries[key] = entries.pop(key)         # LRU touch
         return entries[key]
     while len(entries) >= 8:
         entries.pop(next(iter(entries)))
-    entries[key] = out = _build_dist(A, mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, npad)
+    entries[key] = out = _build_dist(A, mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, *sizing)
     return out
 
 
-def _build_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, npad):
+def _build_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, sa_grid, npad):
     A = _grow_identity(A, npad)
     Pn, device = mesh.size, mesh.device
     n = A.shape[0]
     R = n // Pn
     # ir: the preconditioner and the inner operator live in the inner dtype
     work = A.astype(numpy_dtype(inner_dtype if ir else dtype))
-    kind, pc_state = _build_dist_pc(work, pc, pc_opts, Pn, R, device)
+    kind, pc_state = _build_dist_pc(work, pc, pc_opts, Pn, R, device, sa_grid)
+    if kind == "saamg" and pc_state.n_top != n:
+        # grid coarsening stalled and the hierarchy took the flat plan, which
+        # pads itself: grow the system to the hierarchy's size
+        A = _grow_identity(A, pc_state.n_top - n)
+        n = A.shape[0]
+        R = n // Pn
+        work = A.astype(numpy_dtype(inner_dtype if ir else dtype))
     M = partition_matrix(work, Pn, fmt=fmt).to(device)
     M64 = partition_matrix(A.astype(np.float64), Pn, fmt=fmt).to(device) if ir else None
     return dict(n=n, R=R, M=M, M64=M64, kind=kind, pc_state=pc_state)
@@ -439,7 +527,7 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
             raise ValueError(f"x0 must match the rhs shape {tuple(b.shape)}, "
                              f"got {tuple(x0.shape)}")
     prep = _prepare_dist(A, mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype,
-                         _dist_sizing(n_orig, Pn))
+                         _dist_sizing(A, Pn, pc, pc_opts))
     n, R = prep["n"], prep["R"]
     if n > n_orig:
         pad = (n - n_orig,) + tuple(b.shape[1:])
@@ -449,14 +537,15 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
     if x0 is None:
         x0 = torch.zeros_like(b)
     op = make_dist_spmv(prep["M"])
-    pc_apply = _shard_pc_apply(prep["kind"], prep["pc_state"], Pn, R)
+    pc_apply = _shard_pc_apply(prep["kind"], prep["pc_state"], Pn, R, op=op,
+                               cycles=max(1, int(pc_opts.amg_cycles)))
     if ir and multi:
         op64 = make_dist_spmv(prep["M64"])
 
         def inner(R32):
             return fn(op, R32, torch.zeros_like(R32), pc_apply, opts=solver_opts)
 
-        x, info = refine_multi(op64, inner, b, x0, opts, max_outer, inner_dtype, col_norms)
+        x, info = refine_multi(op64, inner, b, x0, opts, max_outer, inner_dtype, norm)
     elif ir:
         x, info = _shard_ir(op, make_dist_spmv(prep["M64"]), pc_apply, fn, b, x0, opts,
                             solver_opts, max_outer, inner_dtype, make_psum_dot(Pn))
@@ -475,8 +564,9 @@ def dist_solve(A, b, x0=None, method: str = "cg", pc: Optional[str] = "none",
     padded ELL (halo, else all-gather); "dia", "hyb", "ell", "halo" and
     "allgather" force one.  ``n`` need not divide the shard count: rows
     are padded with identity equations (zero rhs).  ``pc``: "none",
-    "jacobi", or block-Jacobi "bjilu" (ILU(k) at ``iluk_level``), "iluk",
-    "ilu0", "ilut"."""
+    "jacobi", block-Jacobi "bjilu" (ILU(k) at ``iluk_level``), "iluk",
+    "ilu0", "ilut", or the distributed AMG hierarchies "saamg", "rsamg"
+    and "amg" (a saamg plan may pad the system further)."""
     return _dist_launch(A, b, x0, method, pc, mesh, options, pc_options, fmt)
 
 

@@ -33,8 +33,30 @@ class SolveInfo:
     history: Any = None     # optional (maxit+1,) residual trace, NaN-padded
 
 
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The port's one inner product: Σ_i a[i]·b[i] over dim 0, a 0-d tensor
+    for (n,) vectors and a (k,) one for (n, k) blocks, one sum per column
+    (broadcast trailing dims give one sum each).  Every dot and norm of the
+    solvers, the AMG solve and the distributed reduction comes here.
+
+    On CUDA each column is ``torch.dot`` of the (strided) column: cuBLAS
+    sums a strided fp64 column as the contiguous vector, so a batched lane
+    sums in its single-rhs order.  On the CPU the products are summed in
+    numpy's pairwise order, one contiguous row per column, so the result
+    is bitwise the same for any ``torch.get_num_threads()``: the CPU BLAS
+    behind ``torch.dot`` splits the sum by thread count, and counts of
+    the product-type methods move with that order."""
+    if a.device.type != "cpu":
+        if a.dim() == 1:
+            return torch.dot(a, b)
+        return torch.stack([torch.dot(a[:, c], b[:, c]) for c in range(a.shape[1])])
+    rows = np.ascontiguousarray(np.moveaxis((a * b).numpy(), 0, -1))
+    return torch.from_numpy(np.asarray(np.add.reduce(rows, axis=-1)))
+
+
 def norm(v: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.vector_norm(v)
+    """‖v‖ as √⟨v, v⟩ (``dot``); (k,) column norms for an (n, k) block."""
+    return torch.sqrt(dot(v, v))
 
 
 def operator(A) -> Callable:
@@ -65,16 +87,6 @@ def init_state(A, b, x0, M):
 def nonzero(t: torch.Tensor) -> torch.Tensor:
     """t where t ≠ 0, else 1 (the reference's guarded divisions)."""
     return torch.where(t == 0.0, torch.ones_like(t), t)
-
-
-def col_dots(U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
-    """The k column dot products ⟨U[:, c], V[:, c]⟩ of two (n, k) blocks."""
-    return (U * V).sum(dim=0)
-
-
-def col_norms(V: torch.Tensor) -> torch.Tensor:
-    """The k column 2-norms of an (n, k) block."""
-    return torch.sqrt(col_dots(V, V))
 
 
 # rows per chunk of a Gram's batched product; for (2,097,152, 8) blocks on

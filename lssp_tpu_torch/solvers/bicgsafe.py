@@ -6,18 +6,18 @@ from __future__ import annotations
 
 import torch
 
-from lssp_tpu_torch.solvers.base import init_state, nonzero
-from lssp_tpu_torch.solvers.lanes import Lanes, ldot, lnorm
+from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
 def qsi_eta(first, y, ay, r):
     """The reference's (ζ, η) from the five dots of y, ay = A·M⁻¹(r or t)
     and r: on the first iteration ζ = ⟨ay, r⟩/⟨ay, ay⟩ and η = 0."""
-    t1, t4 = ldot(ay, r), ldot(ay, ay)
+    t1, t4 = dot(ay, r), dot(ay, ay)
     if first:                               # y = 0: the other three dots vanish
         return t1 / nonzero(t4), torch.zeros_like(t1)
-    t0, t2, t3 = ldot(y, y), ldot(y, r), ldot(ay, y)
+    t0, t2, t3 = dot(y, y), dot(y, r), dot(ay, y)
     tmp = nonzero(t4 * t0 - t3 * t3)
     return (t0 * t1 - t2 * t3) / tmp, (t4 * t2 - t3 * t1) / tmp
 
@@ -30,12 +30,12 @@ def bicgsafe(A, b, x0=None, M=None, opts=None):
     rtld = r
     p = mr = pc(r)
     ap = amr = op(mr)
-    rho_old = ldot(rtld, r)
+    rho_old = dot(rtld, r)
     y = u = z = torch.zeros_like(r)
     beta = L.scalar(0.0, b)
     first = True
     while L.active.any():
-        alpha = rho_old / nonzero(ldot(rtld, ap))
+        alpha = rho_old / nonzero(dot(rtld, ap))
         qsi, eta = qsi_eta(first, y, amr, r)
         mt = pc(eta * y + qsi * ap)
         u = mt + (eta * beta) * u
@@ -44,8 +44,8 @@ def bicgsafe(A, b, x0=None, M=None, opts=None):
         y = qsi * amr + eta * y - alpha * au
         x_new = x + alpha * p + z
         r = r - alpha * ap - y
-        rho = ldot(rtld, r)
-        res, rho_h = L.read(lnorm(r), rho)
+        rho = dot(rtld, r)
+        res, rho_h = L.read(norm(r), rho)
         x = L.pick(L.active, x_new, x)
         L.advance(res, done=rho_h == 0.0)
         if L.active.any():

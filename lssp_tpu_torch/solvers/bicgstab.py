@@ -9,10 +9,10 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch.solvers.base import (
-    SolveInfo, col_dots, col_norms, history_init, history_init_block, history_update,
+    SolveInfo, dot, history_init, history_init_block, history_update,
     history_update_block, init_state, norm, stopping_tol, to_host,
 )
-from lssp_tpu_torch.solvers.base import nonzero as _nonzero
+from lssp_tpu_torch.solvers.base import dot, nonzero as _nonzero, norm
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
@@ -27,7 +27,7 @@ def bicgstab(A, b, x0=None, M=None, opts=None):
     it, res, done = 0, r0norm, False
     p = v = rho0 = alpha = omega = None
     while it < opts.maxit and res > tol and not done:
-        rho1 = torch.dot(r, rh)
+        rho1 = dot(r, rh)
         if it == 0:
             p = r
         else:
@@ -35,7 +35,7 @@ def bicgstab(A, b, x0=None, M=None, opts=None):
             p = r + beta * (p - omega * v)
         ph = pc(p)
         v = op(ph)
-        alpha = rho1 / _nonzero(torch.dot(rh, v))
+        alpha = rho1 / _nonzero(dot(rh, v))
         s = r - alpha * v
         fail, s_small = torch.stack([rho1 == 0.0, norm(s) <= opts.breakdown]).tolist()
         if fail:                             # ρ = 0: stop, x and r unchanged
@@ -47,7 +47,7 @@ def bicgstab(A, b, x0=None, M=None, opts=None):
         else:
             sh = pc(s)
             t = op(sh)
-            omega = torch.dot(t, s) / _nonzero(torch.dot(t, t))
+            omega = dot(t, s) / _nonzero(dot(t, t))
             x = x + alpha * ph + omega * sh
             r = s - omega * t
         rho0 = rho1
@@ -67,8 +67,8 @@ def bicgstab_batched(A, B, X0=None, M=None, opts=None):
     together (a second sync, as in ``bicgstab``) to pick each column's
     branch."""
     op, pc, X, R = init_state(A, B, X0, M)
-    r0_t = col_norms(R)
-    bnorm, r0norm = to_host(col_norms(B), r0_t)
+    r0_t = norm(R)
+    bnorm, r0norm = to_host(norm(B), r0_t)
     tol = np.maximum(np.maximum(opts.rtol * r0norm, opts.atol), opts.rbtol * bnorm)
     tol_t = torch.from_numpy(tol).to(B.device)
     hist = history_init_block(opts, B.shape[1], r0norm)
@@ -81,7 +81,7 @@ def bicgstab_batched(A, B, X0=None, M=None, opts=None):
     P = V = rho0 = alpha = omega = None
     first = True
     while active.any():
-        rho1 = col_dots(R, Rh)
+        rho1 = dot(R, Rh)
         if first:
             P = R
         else:
@@ -89,16 +89,16 @@ def bicgstab_batched(A, B, X0=None, M=None, opts=None):
             P = R + beta * (P - omega * V)
         Ph = pc(P)
         V = op(Ph)
-        alpha = rho1 / _nonzero(col_dots(Rh, V))
+        alpha = rho1 / _nonzero(dot(Rh, V))
         S = R - alpha * V
         fail_t = act_t & (rho1 == 0.0)
-        small_t = act_t & ~fail_t & (col_norms(S) <= opts.breakdown)
+        small_t = act_t & ~fail_t & (norm(S) <= opts.breakdown)
         full_t = act_t & ~fail_t & ~small_t
         fail, small = (f.astype(bool) for f in to_host(fail_t, small_t))
         if (active & ~fail & ~small).any():
             Sh = pc(S)
             T = op(Sh)
-            omega = col_dots(T, S) / _nonzero(col_dots(T, T))
+            omega = dot(T, S) / _nonzero(dot(T, T))
             X = torch.where(full_t, X + alpha * Ph + omega * Sh, X)
             R = torch.where(full_t, S - omega * T, R)
         if small.any():                      # ‖s‖-breakdown: half-update, exit
@@ -106,7 +106,7 @@ def bicgstab_batched(A, B, X0=None, M=None, opts=None):
             R = torch.where(small_t, B - op(Xh), R)
             X = Xh
         rho0, first = rho1, False
-        res_t = col_norms(R)
+        res_t = norm(R)
         it_t = it_t + act_t
         act_t = full_t & (res_t.double() > tol_t) & (it_t < opts.maxit)
         res_h, act_h = to_host(res_t, act_t)

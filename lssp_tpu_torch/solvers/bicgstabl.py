@@ -15,8 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import init_state, nonzero
-from lssp_tpu_torch.solvers.lanes import Lanes, ldot, lnorm
+from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
@@ -30,11 +30,11 @@ def _mr(R, U, xh, l):
     gamma1 = [None] * (l + 1)
     for j in range(1, l + 1):
         for i in range(1, j):
-            nu = ldot(R[j], R[i]) / sigma[i]
+            nu = dot(R[j], R[i]) / sigma[i]
             tau[i][j] = nu
             R[j] = R[j] - nu * R[i]
-        sigma[j] = ldot(R[j], R[j])
-        gamma1[j] = ldot(R[0], R[j]) / nonzero(sigma[j])
+        sigma[j] = dot(R[j], R[j])
+        gamma1[j] = dot(R[0], R[j]) / nonzero(sigma[j])
     gamma = [None] * (l + 1)
     gamma[l] = gamma1[l]
     for j in range(l - 1, 0, -1):
@@ -74,15 +74,15 @@ def bicgstabl(A, b, x0=None, M=None, opts=None):
         rho0 = -omega * rho0
         stop = ~L.active
         for j in range(l):                  # the BiCG part
-            rho1 = ldot(rtld, R[j])
+            rho1 = dot(rtld, R[j])
             beta = alpha * (rho1 / nonzero(rho0))
             U = [R[i] - beta * U[i] for i in range(j + 1)] + U[j + 1:]
             U[j + 1] = op(pc(U[j]))
-            nu = ldot(rtld, U[j + 1])
+            nu = dot(rtld, U[j + 1])
             alpha = rho1 / nonzero(nu)
             xh_n = xh + alpha * U[0]
             R = [R[i] - alpha * U[i + 1] for i in range(j + 1)] + R[j + 1:]
-            rho1_h, nu_h, nrm = L.read(rho1, nu, lnorm(R[0]))
+            rho1_h, nu_h, nrm = L.read(rho1, nu, norm(R[0]))
             fail = (rho1_h == 0.0) | (nu_h == 0.0)
             go = ~stop & ~fail
             xh = L.pick(go, xh_n, xh)
@@ -96,7 +96,7 @@ def bicgstabl(A, b, x0=None, M=None, opts=None):
         if go.any():                        # the MR part
             xh_n, R, U, omega = _mr(R, U, xh, l)
             xh = L.pick(go, xh_n, xh)
-            (res,) = L.read(lnorm(R[0]))
+            (res,) = L.read(norm(R[0]))
             L.res = np.where(go, res, L.res)
             L.record(go)
         L.settle(stop)

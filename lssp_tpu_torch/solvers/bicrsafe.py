@@ -6,9 +6,9 @@ from __future__ import annotations
 
 import torch
 
-from lssp_tpu_torch.solvers.base import init_state, nonzero
+from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
 from lssp_tpu_torch.solvers.bicgsafe import qsi_eta
-from lssp_tpu_torch.solvers.lanes import Lanes, ldot, lnorm
+from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
@@ -21,13 +21,13 @@ def bicrsafe(A, b, x0=None, M=None, opts=None):
     artld = op(rtld)
     p = mr = pc(r)
     ap = amr = op(mr)
-    rho_old = ldot(rtld, amr)
+    rho_old = dot(rtld, amr)
     y = my = u = z = torch.zeros_like(r)
     beta = L.scalar(0.0, b)
     first = True
     while L.active.any():
         map_ = pc(ap)
-        alpha = rho_old / nonzero(ldot(artld, map_))
+        alpha = rho_old / nonzero(dot(artld, map_))
         qsi, eta = qsi_eta(first, y, amr, r)
         u = (eta * beta) * u + qsi * map_ + eta * my      # (:82-85)
         au = op(u)
@@ -38,8 +38,8 @@ def bicrsafe(A, b, x0=None, M=None, opts=None):
         r = r - alpha * ap - y
         mr_new = mr - alpha * map_ - my
         amr_new = op(mr_new)
-        rho = ldot(rtld, amr_new)
-        res, rho_h = L.read(lnorm(r), rho)
+        rho = dot(rtld, amr_new)
+        res, rho_h = L.read(norm(r), rho)
         x = L.pick(L.active, x_new, x)
         L.advance(res, done=rho_h == 0.0)
         if L.active.any():

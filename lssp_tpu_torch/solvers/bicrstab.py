@@ -7,8 +7,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from lssp_tpu_torch.solvers.base import init_state, nonzero
-from lssp_tpu_torch.solvers.lanes import Lanes, ldot, lnorm
+from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
@@ -19,21 +19,21 @@ def bicrstab(A, b, x0=None, M=None, opts=None):
     L = Lanes(b, r, opts)
     rtld = op(r)
     p = z = pc(r)
-    rho_old = ldot(rtld, z)
+    rho_old = dot(rtld, z)
     while L.active.any():
         ap = op(p)
         map_ = pc(ap)
-        alpha = rho_old / nonzero(ldot(rtld, map_))
+        alpha = rho_old / nonzero(dot(rtld, map_))
         s = r - alpha * ap
         ms = z - alpha * map_
         ams = op(ms)
-        omega = ldot(ams, s) / nonzero(ldot(ams, ams))
+        omega = dot(ams, s) / nonzero(dot(ams, ams))
         x_half = x + alpha * p
         x_full = x_half + omega * ms
         r = s - omega * ams
         z = pc(r)
-        rho = ldot(rtld, z)
-        snorm, rnorm, rho_h = L.read(lnorm(s), lnorm(r), rho)
+        rho = dot(rtld, z)
+        snorm, rnorm, rho_h = L.read(norm(s), norm(r), rho)
         early = snorm <= L.tol              # ‖s‖ converged: x += αp only, and stop
         x = L.pick(L.active & early, x_half, L.pick(L.active, x_full, x))
         res = np.where(early, snorm, rnorm)

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch.solvers.base import (
-    SolveInfo, col_dots, col_norms, history_init, history_init_block, history_update,
+    SolveInfo, dot, history_init, history_init_block, history_update,
     history_update_block, init_state, norm, stopping_tol, to_host,
 )
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
@@ -27,10 +27,10 @@ def cg(A, b, x0=None, M=None, opts=None):
     p = rho_old = None
     while it < opts.maxit and res > tol:
         z = pc(r)
-        rho = torch.dot(z, r)
+        rho = dot(z, r)
         p = z if it == 0 else z + (rho / rho_old) * p
         q = op(p)
-        alpha = rho / torch.dot(q, p)
+        alpha = rho / dot(q, p)
         x = x + alpha * p
         r = r - alpha * q
         res = norm(r).item()
@@ -52,8 +52,8 @@ def cg_batched(A, B, X0=None, M=None, opts=None):
     all k columns; one host sync per iteration brings the k residuals and
     the active mask over together."""
     op, pc, X, R = init_state(A, B, X0, M)
-    r0_t = col_norms(R)
-    bnorm, r0norm = to_host(col_norms(B), r0_t)
+    r0_t = norm(R)
+    bnorm, r0norm = to_host(norm(B), r0_t)
     tol = np.maximum(np.maximum(opts.rtol * r0norm, opts.atol), opts.rbtol * bnorm)
     tol_t = torch.from_numpy(tol).to(B.device)
     hist = history_init_block(opts, B.shape[1], r0norm)
@@ -66,14 +66,14 @@ def cg_batched(A, B, X0=None, M=None, opts=None):
     first = True
     while active.any():
         Z = pc(R)
-        rho = col_dots(Z, R)
+        rho = dot(Z, R)
         P = Z if first else Z + (rho / rho_old) * P
         Q = op(P)
-        alpha = rho / col_dots(Q, P)
+        alpha = rho / dot(Q, P)
         X = torch.where(act_t, X + alpha * P, X)
         R = torch.where(act_t, R - alpha * Q, R)
         rho_old, first = rho, False
-        res_t = col_norms(R)
+        res_t = norm(R)
         it_t = it_t + act_t
         act_t = act_t & (res_t.double() > tol_t) & (it_t < opts.maxit)
         res_h, act_h = to_host(res_t, act_t)

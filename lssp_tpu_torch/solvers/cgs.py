@@ -8,8 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import init_state, nonzero
-from lssp_tpu_torch.solvers.lanes import Lanes, ldot, lnorm
+from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
@@ -22,18 +22,18 @@ def cgs(A, b, x0=None, M=None, opts=None):
     p = q = torch.zeros_like(r)
     rho_old = L.scalar(1.0, b)
     while L.active.any():
-        rho = ldot(rtld, r)
+        rho = dot(rtld, r)
         beta = rho / nonzero(rho_old)
         u = r + beta * q
         p = u + beta * (q + beta * p)
         vhat = op(pc(p))
-        tdot = ldot(rtld, vhat)
+        tdot = dot(rtld, vhat)
         alpha = rho / nonzero(tdot)
         q = u - alpha * vhat
         uhat = pc(u + q)
         x_new = x + alpha * uhat
         r_new = r - alpha * op(uhat)
-        res, rho_h, tdot_h = L.read(lnorm(r_new), rho, tdot)
+        res, rho_h, tdot_h = L.read(norm(r_new), rho, tdot)
         fail = (rho_h == 0.0) | (tdot_h == 0.0)
         x = L.pick(L.active & ~fail, x_new, x)
         r = r_new

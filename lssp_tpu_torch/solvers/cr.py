@@ -5,8 +5,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from lssp_tpu_torch.solvers.base import init_state, nonzero
-from lssp_tpu_torch.solvers.lanes import Lanes, ldot, lnorm
+from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
@@ -19,18 +19,18 @@ def cr(A, b, x0=None, M=None, opts=None):
     q = op(p)
     while L.active.any():
         qtld = pc(q)
-        rho = ldot(qtld, q)
-        alpha = ldot(r, qtld) / nonzero(rho)
+        rho = dot(qtld, q)
+        alpha = dot(r, qtld) / nonzero(rho)
         x_new = x + alpha * p
         r = r - alpha * q
-        res, rho_h = L.read(lnorm(r), rho)
+        res, rho_h = L.read(norm(r), rho)
         fail = rho_h == 0.0
         x = L.pick(L.active & ~fail, x_new, x)
         L.advance(np.where(fail, L.res, res), done=fail)
         if L.active.any():
             z = z - alpha * qtld
             az = op(z)
-            beta = -ldot(az, qtld) / nonzero(rho)
+            beta = -dot(az, qtld) / nonzero(rho)
             p = z + beta * p
             q = az + beta * q
     return L.result(x)

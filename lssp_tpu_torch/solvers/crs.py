@@ -7,8 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import init_state, nonzero
-from lssp_tpu_torch.solvers.lanes import Lanes, ldot, lnorm
+from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
@@ -22,18 +22,18 @@ def crs(A, b, x0=None, M=None, opts=None):
     rho_old = L.scalar(1.0, b)
     while L.active.any():
         z = pc(r)
-        rho = ldot(rtld, z)
+        rho = dot(rtld, z)
         beta = rho / nonzero(rho_old)
         u = z + beta * q
         p = u + beta * (q + beta * p)
         map_ = pc(op(p))
-        tdot = ldot(rtld, map_)
+        tdot = dot(rtld, map_)
         alpha = rho / nonzero(tdot)
         q = u - alpha * map_
         uq = u + q
         x_new = x + alpha * uq
         r = r - alpha * op(uq)
-        res, rho_h, tdot_h = L.read(lnorm(r), rho, tdot)
+        res, rho_h, tdot_h = L.read(norm(r), rho, tdot)
         fail = (rho_h == 0.0) | (tdot_h == 0.0)
         x = L.pick(L.active & ~fail, x_new, x)
         L.advance(np.where(fail, L.res, res), done=fail)

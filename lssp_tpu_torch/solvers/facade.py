@@ -22,9 +22,12 @@ import torch
 from lssp_tpu_torch import pc as pc_mod
 from lssp_tpu_torch.config import PCOptions, SolverOptions, resolve_device
 from lssp_tpu_torch.solvers.registry import get_batched_solver, get_block_solver, get_solver
-from lssp_tpu_torch.sparse.convert import coo_to_csr, to_device_format
+from lssp_tpu_torch.sparse.convert import (
+    bsr_to_bdia, bsr_to_csr, coo_to_csr, csr_entry_offsets, csr_to_dia, csr_to_ell,
+    to_device_format,
+)
 from lssp_tpu_torch.sparse.reorder import maybe_rcm, permute_symmetric
-from lssp_tpu_torch.sparse.types import COO, CSR, DIA, ELL, HYB, numpy_dtype
+from lssp_tpu_torch.sparse.types import BDIA, BSR, COO, CSR, DIA, ELL, HYB, numpy_dtype
 from lssp_tpu_torch.sparse.utils import sort_columns
 
 
@@ -78,7 +81,7 @@ def _fingerprint(A):
     containers without host buffers (never matches)."""
     try:
         parts = []
-        for name in ("data", "indices", "indptr", "row", "col"):
+        for name in ("data", "blocks", "indices", "indptr", "row", "col"):
             buf = getattr(A, name, None)
             if buf is not None:
                 a = np.ascontiguousarray(np.asarray(buf))
@@ -150,8 +153,25 @@ def _maybe_hierarchy(A: CSR, mode: str):
     return permute_symmetric(A, p), p
 
 
-_EXEC_FORMATS = (DIA, HYB, ELL)
+_EXEC_FORMATS = (DIA, HYB, ELL, BDIA)
 _HIER = re.compile(r"hier:\d+:\d+:\d+$")
+
+
+def _bsr_device_format(A: BSR, csr: CSR, device):
+    """The execution format of a block matrix (``lssp_tpu/solvers/facade.py:
+    220-248``): scalar DIA when it has at most 64 diagonals and
+    len(offsets)·n ≤ 3·nnz (kernel K1), else BDIA (32 block diagonals,
+    fill 2), else padded ELL of the scalar CSR."""
+    try:
+        _, _, offs = csr_entry_offsets(csr.indptr, csr.indices, csr.shape[0])
+        if len(offs) <= 64 and len(offs) * csr.shape[0] <= 3.0 * max(csr.nnz, 1):
+            return csr_to_dia(csr, max_diags=64, device=device)
+    except ValueError:
+        pass
+    try:
+        return bsr_to_bdia(A, max_diags=32, fill=2.0, device=device)
+    except ValueError:
+        return csr_to_ell(csr, device=device)
 
 
 def _prepare_matrix(A, reorder="auto", device="cpu"):
@@ -167,7 +187,9 @@ def _prepare_matrix(A, reorder="auto", device="cpu"):
     hierarchical-aggregation ordering (``_maybe_hierarchy``); "auto" and
     None keep the ordering (the JAX package reorders under "auto" only on
     the TPU; ``resolve_reorder`` maps "auto" to ``hier:`` for saamg and
-    rsamg first)."""
+    rsamg first).  A host ``BSR`` is never reordered (as in the JAX
+    package): its host CSR is the scalar view (explicit zeros dropped) and
+    its format ``_bsr_device_format``'s, one memo entry per device."""
     hier = isinstance(reorder, str) and bool(_HIER.match(reorder))
     if reorder not in ("auto", "rcm", None) and not hier:
         raise ValueError(f"unknown reorder {reorder!r}")
@@ -175,6 +197,13 @@ def _prepare_matrix(A, reorder="auto", device="cpu"):
     device = torch.device(device)
     if isinstance(A, _EXEC_FORMATS):
         return None, A.to(device), None, {}
+    if isinstance(A, BSR):
+        cache = _memo(A)
+        key = ("prepared", "bsr", str(device))
+        if key not in cache:
+            csr = bsr_to_csr(A)
+            cache[key] = (csr, _bsr_device_format(A, csr, device), None)
+        return cache[key] + (cache,)
     if not isinstance(A, (CSR, COO)):
         return None, A, None, {}
     cache = _memo(A)
@@ -245,8 +274,9 @@ def solve(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
           device=None):
     """Solve A x = b.  Returns ``(x, SolveInfo)``.
 
-    ``A``: host CSR/COO (converted to DIA/HYB/ELL on ``device``), an
-    execution container, or a callable ``x ↦ A@x``.  ``pc``: a registry
+    ``A``: host CSR/COO (converted to DIA/HYB/ELL on ``device``), a host
+    BSR (scalar DIA, BDIA or ELL: ``_bsr_device_format``), an execution
+    container, or a callable ``x ↦ A@x``.  ``pc``: a registry
     name, or ``M`` a prebuilt Preconditioner or callable.  ``reorder``:
     "rcm" solves the RCM-permuted system when ``maybe_rcm`` takes a
     permutation (x comes back in the original order); "auto" keeps the

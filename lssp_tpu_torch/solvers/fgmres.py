@@ -11,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import init_state
-from lssp_tpu_torch.solvers.lanes import Lanes, combine, lnorm
+from lssp_tpu_torch.solvers.base import init_state, norm
+from lssp_tpu_torch.solvers.lanes import Lanes, combine
 from lssp_tpu_torch.solvers.lgmres import arnoldi, solve_ym
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 from lssp_tpu_torch.sparse.types import numpy_dtype
@@ -29,7 +29,7 @@ def fgmres(A, b, x0=None, M=None, opts=None):
     tiny = torch.finfo(b.dtype).tiny
     while L.active.any():
         live = L.active
-        bp_t = lnorm(rg)
+        bp_t = norm(rg)
         v0 = rg / torch.clamp(bp_t, min=tiny)
         (bp,) = L.read(bp_t)
         Z = b.new_zeros((m,) + tuple(b.shape))
@@ -43,7 +43,7 @@ def fgmres(A, b, x0=None, M=None, opts=None):
         nv = int(kk.max())
         x = L.pick(live, x + combine(solve_ym(H, gg, kk, m, L.shape, b)[:nv], Z[:nv]), x)
         rg = b - op(x)
-        (res,) = L.read(lnorm(rg))          # the true residual each restart
+        (res,) = L.read(norm(rg))          # the true residual each restart
         L.it = np.where(live, itr, L.it)
         L.res = np.where(live, res, L.res)
         L.record(live)

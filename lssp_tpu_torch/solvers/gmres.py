@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch.solvers.base import (
-    SolveInfo, col_dots, col_norms, history_init, history_init_block, history_update,
+    SolveInfo, dot, history_init, history_init_block, history_update,
     history_update_block, init_state, nonzero, norm, stopping_tol, to_host,
 )
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
@@ -44,7 +44,7 @@ def _arnoldi_cycle(op, pc, v0, beta_p, m, maxit, itr, gstol, right, breakdown):
         w = op(pc(V[i])) if right else pc(op(V[i]))
         hs = []
         for j in range(i + 1):              # modified Gram–Schmidt
-            hij = torch.dot(w, V[j])
+            hij = dot(w, V[j])
             w = w - hij * V[j]
             hs.append(hij)
         hnorm = norm(w)
@@ -186,10 +186,10 @@ def _arnoldi_cycle_batched(op, pc, V0, beta_p, m, maxit, itr, gstol, right, brea
         w = op(pc(V[i])) if right else pc(op(V[i]))
         hs = []
         for j in range(i + 1):              # modified Gram–Schmidt, per column
-            hij = col_dots(w, V[j])
+            hij = dot(w, V[j])
             w = w - hij * V[j]
             hs.append(hij)
-        hnorm = col_norms(w)
+        hnorm = norm(w)
         hcols = torch.stack(hs + [hnorm]).cpu().numpy()       # (i+2, k)
         if i + 1 < m:                       # a column that broke down never reads it
             V[i + 1] = w / nonzero(hnorm)
@@ -218,7 +218,7 @@ def _gmres_batched(A, B, X0, M, opts, right):
     dt = numpy_dtype(B.dtype).type
     tiny = np.finfo(dt).tiny
     k = B.shape[1]
-    bnorm, beta0 = to_host(col_norms(B), col_norms(RG))
+    bnorm, beta0 = to_host(norm(B), norm(RG))
     tol = np.array([stopping_tol(b0, bn, opts) for b0, bn in zip(beta0, bnorm)], dt)
     rtol = tol / np.maximum(beta0.astype(dt), tiny)
     hist = history_init_block(opts, k, beta0)
@@ -230,11 +230,11 @@ def _gmres_batched(A, B, X0, M, opts, right):
         if not live.any():
             break
         if right:
-            bp_t = col_norms(RG)
+            bp_t = norm(RG)
             V0 = RG / nonzero(bp_t)
         else:
             Z0 = pc(RG)
-            bp_t = col_norms(Z0)
+            bp_t = norm(Z0)
             V0 = Z0 / nonzero(bp_t)
         bp = bp_t.cpu().numpy().astype(dt)
         if not right:                       # a column's first cycle seeds its gstol
@@ -257,7 +257,7 @@ def _gmres_batched(A, B, X0, M, opts, right):
         else:
             X = torch.where(live_t, X + vy, X)
             RG = B - op(X)
-            res = col_norms(RG).cpu().numpy().astype(dt)     # true residual each restart
+            res = norm(RG).cpu().numpy().astype(dt)     # true residual each restart
             beta = np.where(live, res, beta)
             safe = np.maximum(beta / np.maximum(beta0.astype(dt), tiny), tiny)
             gstol = np.where(live, rtol * gs_norm / safe * dt(0.5), gstol)

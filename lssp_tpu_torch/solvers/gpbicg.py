@@ -10,9 +10,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import init_state, nonzero
+from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
 from lssp_tpu_torch.solvers.bicgsafe import qsi_eta
-from lssp_tpu_torch.solvers.lanes import Lanes, ldot, lnorm
+from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
@@ -23,14 +23,14 @@ def gpbi(A, b, x0, M, opts, cr: bool):
     L = Lanes(b, r, opts)
     p = mr = pc(r)
     rtld = op(r) if cr else r
-    rho_old = ldot(rtld, p if cr else r)
+    rho_old = dot(rtld, p if cr else r)
     t = w = z = u = mt_old = torch.zeros_like(r)
     beta = L.scalar(0.0, b)
     first = True
     while L.active.any():
         ap = op(p)
         map_ = pc(ap)
-        d0 = ldot(rtld, map_ if cr else ap)
+        d0 = dot(rtld, map_ if cr else ap)
         alpha = rho_old / nonzero(d0)
         y = t - r + alpha * (ap - w)
         t = r - alpha * ap
@@ -43,8 +43,8 @@ def gpbi(A, b, x0, M, opts, cr: bool):
         x_full = x_half + z
         r_full = t - qsi * amt - eta * y
         mr_full = pc(r_full) if cr else None
-        rho = ldot(rtld, mr_full if cr else r_full)
-        d0_h, tnorm, rnorm, rho_h = L.read(d0, lnorm(t), lnorm(r_full), rho)
+        rho = dot(rtld, mr_full if cr else r_full)
+        d0_h, tnorm, rnorm, rho_h = L.read(d0, norm(t), norm(r_full), rho)
         fail = d0_h == 0.0
         early = tnorm <= L.tol              # ‖t‖ converged: x += αp, and stop
         go = L.active & ~fail

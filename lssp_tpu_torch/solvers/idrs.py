@@ -23,8 +23,8 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch.solvers import _threefry
-from lssp_tpu_torch.solvers.base import init_state, nonzero
-from lssp_tpu_torch.solvers.lanes import Lanes, combine, ldot, lnorm
+from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.lanes import Lanes, combine
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 _SHADOW: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
@@ -41,16 +41,25 @@ def shadow_space(s: int, n: int, dtype: torch.dtype, device, shards: int = 1) ->
         return _SHADOW[key]
     P = _threefry.uniform((s, n // shards), dtype, device)
     for j in range(s):
-        pj = P[j] / torch.sqrt(torch.dot(P[j], P[j]))
+        pj = P[j] / torch.sqrt(dot(P[j], P[j]))
         P[j] = pj
         for i in range(j + 1, s):
-            P[i] = P[i] - torch.dot(pj, P[i]) * pj
+            P[i] = P[i] - dot(pj, P[i]) * pj
     if shards > 1:
         P = P.repeat(1, shards)
     _SHADOW[key] = P
     if len(_SHADOW) > _SHADOW_SLOTS:
         _SHADOW.popitem(last=False)
     return P
+
+
+def _project(P: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """P·v, (s,) + lane: one GEMV on CUDA, the s dots of ``base.dot``
+    (an order no thread count changes) on the CPU."""
+    if v.device.type != "cpu":
+        return P @ v
+    s, n = P.shape
+    return dot(P.T.reshape((n, s) + (1,) * (v.dim() - 1)), v.unsqueeze(1))
 
 
 def _small_solve(G: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -76,23 +85,23 @@ def idrs(A, b, x0=None, M=None, opts=None):
     for k in range(s):                      # warm-up (:148-171)
         dx = pc(r)
         dr = op(dx)
-        om = ldot(dr, r) / nonzero(ldot(dr, dr))
+        om = dot(dr, r) / nonzero(dot(dr, dr))
         dx = om * dx
         dr = -om * dr
         go = ~stopped
         x = L.pick(go, x + dx, x)
         r = r + dr
         dX[k], dR[k] = dx, dr
-        (res,) = L.read(lnorm(r))
+        (res,) = L.read(norm(r))
         L.it = np.where(go, k + 1, L.it)
         L.res = np.where(go, res, L.res)
         L.record(go)
-        G[:, k] = P @ dr
+        G[:, k] = _project(P, dr)
         stopped = stopped | (L.res <= L.tol)
         if stopped.all():
             break
     L.active = (L.it < L.limit) & (L.res > L.tol)
-    m = P @ r
+    m = _project(P, r)
     oldest = 0
     while L.active.any():
         c = _small_solve(G, m)
@@ -100,7 +109,7 @@ def idrs(A, b, x0=None, M=None, opts=None):
         av = pc(v)
         if int(L.it[L.active][0]) % (s + 1) == s:     # every active lane has one count
             t = op(av)
-            om = ldot(t, v) / nonzero(ldot(t, t))
+            om = dot(t, v) / nonzero(dot(t, t))
             dx = om * av - combine(c, dX)
             dr = -om * t - combine(c, dR)
         else:
@@ -109,9 +118,9 @@ def idrs(A, b, x0=None, M=None, opts=None):
         r = r + dr
         x = L.pick(L.active, x + dx, x)
         dX[oldest], dR[oldest] = dx, dr
-        (res,) = L.read(lnorm(r))
+        (res,) = L.read(norm(r))
         L.advance(res)
-        h = P @ dr
+        h = _project(P, dr)
         m = m + h
         G[:, oldest] = h
         oldest = (oldest + 1) % s

@@ -3,10 +3,12 @@
 A *lane* is one right-hand side.  The single-rhs form runs one lane on an
 (n,) vector with 0-d tensor scalars; the batched form (``solve_multi``'s
 per-column path, JAX's ``jax.vmap``) runs k lanes on an (n, k) block with
-(k,) scalars.  The same tensor code serves both: ``ldot`` / ``lnorm``
-reduce over the rows only, and a (k,) scalar broadcasts over the block's
-columns.  ``Lanes`` keeps each lane's count, residual, tolerance and
-trace on the host.
+(k,) scalars.  The same tensor code serves both: ``base.dot`` and
+``base.norm`` reduce over the rows only (a block's column in its
+single-rhs order, since BiCRSTAB and QMRCGSTAB amplify a change of
+rounding into a change of count), and a (k,) scalar broadcasts over the
+block's columns.  ``Lanes`` keeps each lane's count, residual, tolerance
+and trace on the host.
 
 Each iteration brings what its stopping test needs to the host in one
 read (``Lanes.read``: one stacked transfer, one device sync), breakdown
@@ -22,29 +24,22 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch.solvers.base import (
-    SolveInfo, history_init, history_init_block, history_update, history_update_block,
+    SolveInfo, history_init, history_init_block, history_update, history_update_block, norm,
 )
 
 
-def ldot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """⟨a, b⟩ per lane: 0-d for (n,) vectors, (k,) for (n, k) blocks.  A
-    block's column goes through the same ``torch.dot`` as a vector, so that
-    a lane sums in its single-rhs order where the BLAS reads a strided
-    column as a contiguous one (cuBLAS in fp64): BiCRSTAB and QMRCGSTAB
-    amplify a change of rounding into a change of count."""
-    if a.dim() == 1:
-        return torch.dot(a, b)
-    return torch.stack([torch.dot(a[:, c], b[:, c]) for c in range(a.shape[1])])
-
-
-def lnorm(a: torch.Tensor) -> torch.Tensor:
-    """‖a‖ per lane, as √⟨a, a⟩."""
-    return torch.sqrt(ldot(a, a))
-
-
 def combine(c: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
-    """Σ_i c[i]·V[i] for coefficients c (m,) + lane and a basis V (m, n) + lane."""
-    return c @ V if V.dim() == 2 else (c.unsqueeze(1) * V).sum(dim=0)
+    """Σ_i c[i]·V[i] for coefficients c (m,) + lane and a basis V (m, n) + lane,
+    summed in order of i, one multiply and one add a term: a block's column
+    then takes its single-rhs rounding (a GEMV for one lane and a reduction
+    for k would not)."""
+    if V.shape[0] == 0:
+        return V.new_zeros(V.shape[1:])
+    c = c.unsqueeze(1)
+    out = c[0] * V[0]
+    for i in range(1, V.shape[0]):
+        out = out + c[i] * V[i]
+    return out
 
 
 class Lanes:
@@ -62,7 +57,7 @@ class Lanes:
         self.shape = tuple(b.shape[1:])
         self.device = b.device
         self.limit = opts.maxit if limit is None else limit
-        self.bnorm, self.r0norm = self.read(lnorm(b), lnorm(r))
+        self.bnorm, self.r0norm = self.read(norm(b), norm(r))
         self.tol = np.maximum(np.maximum(opts.rtol * self.r0norm, opts.atol),
                               opts.rbtol * self.bnorm)
         self.it = np.full(self.shape, it0, np.int64)

@@ -20,9 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import init_state, nonzero
+from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
 from lssp_tpu_torch.solvers.gmres import _givens_step, _solve_ym
-from lssp_tpu_torch.solvers.lanes import Lanes, combine, ldot, lnorm
+from lssp_tpu_torch.solvers.lanes import Lanes, combine
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 from lssp_tpu_torch.sparse.types import numpy_dtype
 
@@ -63,10 +63,10 @@ def arnoldi(column, v0, beta_p, m, itr, maxit, tol, breakdown, live, check_maxit
         w = column(i, V)
         hs = []
         for j in range(i + 1):              # modified Gram–Schmidt
-            hij = ldot(w, V[j])
+            hij = dot(w, V[j])
             w = w - hij * V[j]
             hs.append(hij)
-        hnorm = lnorm(w)
+        hnorm = norm(w)
         hcols = torch.stack(hs + [hnorm]).cpu().numpy().reshape(i + 2, K)
         for lane in np.flatnonzero(inner):
             hcol = np.zeros(m + 1, dt)
@@ -111,7 +111,7 @@ def _lgmres(A, b, x0, M, opts, right):
         live = L.active
         m_dyn = mk + min(outer, auk)
         v = rg if right else pc(rg)
-        bp_t = lnorm(v)
+        bp_t = norm(v)
         v0 = v / nonzero(bp_t)
         (bp,) = L.read(bp_t)
         bp = bp.astype(dt)
@@ -137,7 +137,7 @@ def _lgmres(A, b, x0, M, opts, right):
         else:
             x = L.pick(live, x + corr, x)
             rg = b - op(x)
-            (beta,) = L.read(lnorm(rg))
+            (beta,) = L.read(norm(rg))
             beta = beta.astype(dt)
             safe = np.maximum(beta / np.maximum(L.r0norm.astype(dt), tiny), tiny)
             gstol = np.where(live, rtol * gs / safe * dt(0.5), gstol)

@@ -19,8 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import init_state
-from lssp_tpu_torch.solvers.lanes import Lanes, ldot, lnorm
+from lssp_tpu_torch.solvers.base import dot, init_state, norm
+from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
@@ -38,7 +38,7 @@ def minres(A, b, x0=None, M=None, opts=None):
         it0 = L.it
         r1 = b - op(x)
         y = pc(r1)
-        beta = torch.sqrt(torch.clamp(ldot(r1, y), min=0.0))
+        beta = torch.sqrt(torch.clamp(dot(r1, y), min=0.0))
         (beta1,) = L.read(beta)
         r2 = r1
         w = w2 = torch.zeros_like(b)
@@ -53,11 +53,11 @@ def minres(A, b, x0=None, M=None, opts=None):
             yn = op(v)
             if not first:                   # the previous Lanczos direction
                 yn = yn - (beta / torch.clamp(oldb, min=tiny)) * r1
-            alfa = ldot(v, yn)
+            alfa = dot(v, yn)
             yn = yn - (alfa / torch.clamp(beta, min=tiny)) * r2
             r1, r2 = r2, yn
             y = pc(yn)
-            oldb, beta = beta, torch.sqrt(torch.clamp(ldot(r2, y), min=0.0))
+            oldb, beta = beta, torch.sqrt(torch.clamp(dot(r2, y), min=0.0))
             oldeps = epsln
             delta = cs * dbar + sn * alfa   # plane rotation of the tridiagonal column
             gbar = sn * dbar - cs * alfa
@@ -75,7 +75,7 @@ def minres(A, b, x0=None, M=None, opts=None):
             first = False
             inner = inner & (L.it < opts.maxit) & (np.abs(phibar_h) > inner_tol) \
                 & (beta_h > opts.breakdown)
-        (res,) = L.read(lnorm(b - op(x)))
+        (res,) = L.read(norm(b - op(x)))
         L.res = np.where(outer, res, L.res)
         stalled = np.where(outer, (L.it == it0) & (beta1 <= opts.breakdown), stalled)
         inner_tol = np.where(outer, inner_tol * 0.1, inner_tol)

@@ -7,8 +7,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from lssp_tpu_torch.solvers.base import init_state
-from lssp_tpu_torch.solvers.lanes import Lanes, ldot, lnorm
+from lssp_tpu_torch.solvers.base import dot, init_state, norm
+from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
@@ -24,11 +24,11 @@ def orthomin(A, b, x0=None, M=None, opts=None):
     while L.active.any():
         j = it % k
         qj = pc(op(sd))
-        cj = ldot(qj, qj)
-        a = ldot(r, qj) / cj
+        cj = dot(qj, qj)
+        a = dot(r, qj) / cj
         C[j], Q[j] = cj, qj
         x_new = x + a * P[j]
-        res, cj_h = L.read(lnorm(b - op(x_new)), cj)
+        res, cj_h = L.read(norm(b - op(x_new)), cj)
         brk = np.abs(cj_h) <= opts.breakdown
         x = L.pick(L.active & ~brk, x_new, x)
         L.advance(np.where(brk, L.res, res), done=brk)
@@ -37,7 +37,7 @@ def orthomin(A, b, x0=None, M=None, opts=None):
             z = pc(op(r))
             sd = r
             for i in range(min(it + 1, k)):  # project against the live directions
-                sd = sd - (ldot(z, Q[i]) / C[i]) * P[i]
+                sd = sd - (dot(z, Q[i]) / C[i]) * P[i]
             P[(it + 1) % k] = sd
         it += 1
     return L.result(x)

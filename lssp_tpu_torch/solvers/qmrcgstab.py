@@ -9,8 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import init_state, nonzero
-from lssp_tpu_torch.solvers.lanes import Lanes, ldot, lnorm
+from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
@@ -23,7 +23,7 @@ def qmrcgstab(A, b, x0=None, M=None, opts=None):
     # relative threshold on the preconditioned residual (:80 tol /= residual)
     L.tol = L.tol / np.maximum(L.r0norm, tiny)
     rk = br0 = pc(t0)
-    tau = lnorm(rk)
+    tau = norm(rk)
     (ires,) = L.read(tau)
     L.res = np.full(L.shape, np.inf)           # the loop runs while rerror > rtol alone
     L.active = L.it < L.limit
@@ -31,24 +31,24 @@ def qmrcgstab(A, b, x0=None, M=None, opts=None):
     rho_old = alpha = omega = L.scalar(1.0, b)
     theta = eta = L.scalar(0.0, b)
     while L.active.any():
-        rho = ldot(br0, rk)
+        rho = dot(br0, rk)
         beta = rho * alpha / nonzero(rho_old * omega)
         pk = rk + beta * (pk - omega * vk)
         vk = pc(op(pk))
-        alpha = rho / nonzero(ldot(br0, vk))
+        alpha = rho / nonzero(dot(br0, vk))
         sk = rk - alpha * vk
         # first quasi-minimization
-        btheta = lnorm(sk) / nonzero(tau)
+        btheta = norm(sk) / nonzero(tau)
         c = 1.0 / torch.sqrt(1.0 + btheta * btheta)
         btau = tau * btheta * c
         b_eta = c * c * alpha
         bdk = pk + (theta * theta * eta / nonzero(alpha)) * dk
         bxk = x + b_eta * bdk
         tk = pc(op(sk))
-        omega = ldot(sk, tk) / nonzero(ldot(tk, tk))
+        omega = dot(sk, tk) / nonzero(dot(tk, tk))
         rk = sk - omega * tk
         # second quasi-minimization
-        rkn = lnorm(rk)
+        rkn = norm(rk)
         theta = rkn / nonzero(btau)
         c = 1.0 / torch.sqrt(1.0 + theta * theta)
         tau = btau * theta * c
@@ -59,5 +59,5 @@ def qmrcgstab(A, b, x0=None, M=None, opts=None):
         rerror = rkn_h / np.maximum(ires, tiny)
         L.advance(rerror, trace=rerror * ires)
         rho_old = rho
-    (res,) = L.read(lnorm(b - op(x)))      # the true residual at exit (:153-157)
+    (res,) = L.read(norm(b - op(x)))      # the true residual at exit (:153-157)
     return L.result(x, residual=res, converged=L.res <= L.tol)

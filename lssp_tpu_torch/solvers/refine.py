@@ -23,7 +23,7 @@ import torch
 from lssp_tpu_torch import pc as pc_mod
 from lssp_tpu_torch.config import PCOptions, SolverOptions, resolve_device
 from lssp_tpu_torch.ops.spmv import spmv
-from lssp_tpu_torch.solvers.base import SolveInfo, col_norms, norm, to_host
+from lssp_tpu_torch.solvers.base import norm, SolveInfo, to_host
 from lssp_tpu_torch.solvers.facade import (
     _permute, _prepare_matrix, _unpermute, reject_block_method,
     resolve_reorder, validate_block, validate_system,
@@ -218,5 +218,5 @@ def solve_ir_multi(A, B, X0=None, method: str = "blockgmres", pc: Optional[str] 
         return fn(A32, R32, torch.zeros_like(R32), M32, opts=inner_opts)
 
     X, info = refine_multi(lambda V: spmv(A64, V), inner, B, X, opts, max_outer,
-                           inner_dtype, col_norms)
+                           inner_dtype, norm)
     return _unpermute(X, perm), info

@@ -15,8 +15,8 @@ import math
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import init_state, nonzero
-from lssp_tpu_torch.solvers.lanes import Lanes, ldot, lnorm
+from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
@@ -35,21 +35,21 @@ def tfqmr(A, b, x0=None, M=None, opts=None):
     L = Lanes(b, r, opts, limit=opts.maxit + 1, it0=1)
     rtld = u = p = r
     v = op(pc(p))
-    rho_old = ldot(r, rtld)
-    tau = w_old = lnorm(r)
+    rho_old = dot(r, rtld)
+    tau = w_old = norm(r)
     theta = eta = L.scalar(0.0, b)
     d = torch.zeros_like(r)
     while L.active.any():
-        s = ldot(v, rtld)
+        s = dot(v, rtld)
         alpha = rho_old / nonzero(s)
         q = u - alpha * v
         r = r - alpha * op(pc(u + q))
-        w = lnorm(r)
+        w = norm(r)
         d0, tau0, theta0, eta0 = _half(u, d, tau, theta, eta, alpha, torch.sqrt(w * w_old))
         x0_ = x + eta0 * pc(d0)
         d, tau, theta, eta = _half(q, d0, tau0, theta0, eta0, alpha, w)
         x1_ = x0_ + eta * pc(d)
-        rho = ldot(r, rtld)
+        rho = dot(r, rtld)
         s_h, res0, res1, rho_h = L.read(s, tau0, tau * math.sqrt(2.0), rho)
         stop1 = res0 <= L.tol               # converged after the first half
         x = L.pick(L.active & stop1, x0_, L.pick(L.active, x1_, x))

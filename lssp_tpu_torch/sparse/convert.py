@@ -1,9 +1,9 @@
 """Host-side format conversions (numpy), run once at assembly time.
 
 Same rules as ``lssp_tpu/sparse/convert.py``: COO→CSR is a counting sort
-that sums duplicates (reference matrix-utils.cxx:324-380); DIA and ELL are
-the execution formats, built on the host and handed out as tensors on the
-requested device.  ``to_device_format`` tries DIA, then HYB (band plus
+that sums duplicates (reference matrix-utils.cxx:324-380), CSR↔BSR moves
+whole bs×bs blocks; DIA, BDIA and ELL are the execution formats, built on
+the host and handed out as tensors on the requested device.  ``to_device_format`` tries DIA, then HYB (band plus
 remainder), then ELL, as the JAX package does off the TPU.
 """
 from __future__ import annotations
@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch import _kernels
-from lssp_tpu_torch.sparse.types import COO, CSR, DIA, ELL, HYB
+from lssp_tpu_torch.sparse.types import BDIA, BSR, COO, CSR, DIA, ELL, HYB
 
 
 def _round_up(x: int, m: int) -> int:
@@ -58,6 +58,75 @@ def coo_to_csr(A: COO, sum_duplicates: bool = True) -> CSR:
     np.add.at(indptr, row + 1, 1)
     indptr = np.cumsum(indptr)
     return CSR(indptr.astype(np.int32), col.astype(np.int32), dat, (n, m))
+
+
+def csr_to_bsr(A: CSR, blocksize: int) -> BSR:
+    """CSR→uniform-block BSR (reference csr→bcsr, matrix-utils.cxx:62-162):
+    every entry lands in its bs×bs block, blocks stored dense (explicit
+    zeros), row-major.  Raises ``ValueError`` when a dimension is not a
+    multiple of ``blocksize``."""
+    n, m = A.shape
+    bs = int(blocksize)
+    if n % bs or m % bs:
+        raise ValueError(f"matrix shape {A.shape} not divisible by blocksize {bs}")
+    ip = np.asarray(A.indptr).astype(np.int64)
+    rows = np.repeat(np.arange(n, dtype=np.int64), ip[1:] - ip[:-1])
+    cols = np.asarray(A.indices).astype(np.int64)
+    dat = np.asarray(A.data)
+    keys = (rows // bs) * (m // bs) + cols // bs
+    order = np.argsort(keys, kind="stable")
+    keys_s = keys[order]
+    uniq = np.empty(len(keys_s), dtype=bool)
+    if len(keys_s):
+        uniq[0] = True
+        np.not_equal(keys_s[1:], keys_s[:-1], out=uniq[1:])
+    blk_ids = np.cumsum(uniq) - 1 if len(keys_s) else np.array([], np.int64)
+    nnzb = int(blk_ids[-1] + 1) if len(keys_s) else 0
+    blocks = np.zeros((nnzb, bs, bs), dtype=dat.dtype)
+    blocks[blk_ids, rows[order] % bs, cols[order] % bs] = dat[order]
+    ukeys = keys_s[uniq]
+    indptr = np.zeros(n // bs + 1, dtype=np.int64)
+    np.add.at(indptr, ukeys // (m // bs) + 1, 1)
+    return BSR(np.cumsum(indptr).astype(np.int32), (ukeys % (m // bs)).astype(np.int32),
+               blocks, (n, m), bs)
+
+
+def bsr_to_csr(A: BSR, prune: bool = True) -> CSR:
+    """BSR→CSR; explicit zeros inside blocks are dropped when ``prune``."""
+    bs, nrowb = A.blocksize, A.nrowb
+    ip = np.asarray(A.indptr).astype(np.int64)
+    bcols = np.asarray(A.indices).astype(np.int64)
+    blocks = np.asarray(A.blocks)
+    brows = np.repeat(np.arange(nrowb, dtype=np.int64), ip[1:] - ip[:-1])
+    nnzb = blocks.shape[0]
+    r = np.broadcast_to(brows[:, None, None] * bs + np.arange(bs)[None, :, None],
+                        (nnzb, bs, bs)).ravel()
+    c = np.broadcast_to(bcols[:, None, None] * bs + np.arange(bs)[None, None, :],
+                        (nnzb, bs, bs)).ravel()
+    v = blocks.ravel()
+    if prune:
+        keep = v != 0
+        r, c, v = r[keep], c[keep], v[keep]
+    return coo_to_csr(COO(r.astype(np.int32), c.astype(np.int32), v, A.shape),
+                      sum_duplicates=False)
+
+
+def bsr_to_bdia(A: BSR, max_diags: int = 32, fill: float = 2.0, device="cpu") -> BDIA:
+    """BSR→block-diagonal storage on ``device``.  Raises ``ValueError`` when
+    the block-diagonal count passes ``max_diags`` or the padding passes
+    ``fill`` times the stored blocks (callers keep a gather format then)."""
+    nb, bs = A.nrowb, A.blocksize
+    ip = np.asarray(A.indptr).astype(np.int64)
+    rows = np.repeat(np.arange(nb, dtype=np.int64), ip[1:] - ip[:-1])
+    cols = np.asarray(A.indices).astype(np.int64)
+    offs = np.unique(cols - rows)
+    if len(offs) > max_diags:
+        raise ValueError(f"{len(offs)} block diagonals > {max_diags}")
+    if len(offs) * nb > fill * max(A.nnzb, 1):
+        raise ValueError("block-diagonal padding waste too large")
+    blocks = np.zeros((len(offs), nb, bs, bs), dtype=np.asarray(A.blocks).dtype)
+    blocks[np.searchsorted(offs, cols - rows), rows] = np.asarray(A.blocks)
+    return BDIA(tuple(int(o) for o in offs), torch.from_numpy(blocks).to(device), A.shape, bs)
 
 
 def csr_to_ell(A: CSR, pad_to: int = 4, device="cpu") -> ELL:

@@ -1,8 +1,9 @@
 """Sparse-matrix containers: frozen dataclasses, no pytree registration.
 
-Host containers (``COO``, ``CSR``) hold numpy arrays and serve assembly,
-conversion and factorization.  Execution containers (``DIA``, ``HYB``,
-``ELL``) hold torch tensors and move with ``.to(device)``; ``CSR.to(device)`` gives a CSR
+Host containers (``COO``, ``CSR``, ``BSR``) hold numpy arrays and serve
+assembly, conversion and factorization.  Execution containers (``DIA``,
+``HYB``, ``ELL``, ``BDIA``) hold torch tensors and move with
+``.to(device)``; ``CSR.to(device)`` and ``BSR.to(device)`` give containers
 of tensors for the gather SpMV.  Layouts match ``lssp_tpu/sparse/types.py``
 so that state carries across as numpy arrays (see ``interop.py``).
 """
@@ -180,4 +181,118 @@ class HYB:
         out = self.dia.todense()
         np.add.at(out, (self.rem_rows.cpu().numpy(), self.rem_cols.cpu().numpy()),
                   self.rem_vals.cpu().numpy())
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class BSR:
+    """Uniform block CSR (reference lssp_mat_bcsr; ``lssp_tpu/sparse/types.py:
+    BSR``): ``blocks`` (nnzb, bs, bs) row-major dense blocks, ``indices``
+    their block columns, ``shape`` the scalar shape (nrowb·bs, ncolb·bs).
+    numpy on the host; ``.to(device)`` gives a BSR of tensors (int64
+    indices) for the block-gather product."""
+
+    indptr: Any         # (nrowb+1,)
+    indices: Any        # (nnzb,) block-column indices
+    blocks: Any         # (nnzb, bs, bs)
+    shape: Tuple[int, int]
+    blocksize: int
+
+    @property
+    def nnzb(self) -> int:
+        return int(self.blocks.shape[0])
+
+    @property
+    def nnz(self) -> int:
+        return self.nnzb * self.blocksize * self.blocksize
+
+    @property
+    def dtype(self):
+        return self.blocks.dtype
+
+    @property
+    def nrowb(self) -> int:
+        return self.shape[0] // self.blocksize
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+        return sp.bsr_matrix((np.asarray(self.blocks), np.asarray(self.indices),
+                              np.asarray(self.indptr)), shape=self.shape)
+
+    @staticmethod
+    def from_scipy(m) -> "BSR":
+        bs = m.blocksize
+        if bs[0] != bs[1]:
+            raise ValueError("only square blocks supported")
+        return BSR(indptr=m.indptr.astype(np.int32), indices=m.indices.astype(np.int32),
+                   blocks=np.asarray(m.data), shape=tuple(m.shape), blocksize=int(bs[0]))
+
+    def todense(self) -> np.ndarray:
+        if isinstance(self.blocks, torch.Tensor):
+            return BSR(*(a.cpu().numpy() for a in (self.indptr, self.indices, self.blocks)),
+                       self.shape, self.blocksize).todense()
+        return self.to_scipy().toarray()
+
+    def astype(self, dtype) -> "BSR":
+        return dataclasses.replace(self, blocks=np.asarray(self.blocks).astype(dtype))
+
+    def to(self, device=None, dtype=None) -> "BSR":
+        """Upload as tensors (int64 indices), or move a device BSR."""
+        def index(a):
+            return torch.as_tensor(a).to(device=device, dtype=torch.int64)
+        return BSR(index(self.indptr), index(self.indices),
+                   torch.as_tensor(self.blocks).to(device=device, dtype=dtype),
+                   self.shape, self.blocksize)
+
+
+@dataclasses.dataclass(frozen=True)
+class BDIA:
+    """Block-diagonal storage, the execution format of block-banded matrices
+    (``lssp_tpu/sparse/types.py: BDIA``): ``blocks[d, i] = A_block[i, i +
+    offsets[d]]`` (row-aligned, offsets in block units), out-of-range
+    blocks 0.  A tensor (ndiag, nrowb, bs, bs) on its device."""
+
+    offsets: Tuple[int, ...]
+    blocks: Any
+    shape: Tuple[int, int]      # scalar shape
+    blocksize: int
+
+    @property
+    def nrowb(self) -> int:
+        return self.shape[0] // self.blocksize
+
+    @property
+    def dtype(self):
+        return self.blocks.dtype
+
+    @property
+    def lo(self) -> int:
+        """Zero block rows before x that the lowest diagonal reads."""
+        return max(0, -min(self.offsets)) if self.offsets else 0
+
+    @property
+    def hi(self) -> int:
+        """Zero block rows after x that the highest diagonal reads."""
+        return max(0, max(self.offsets)) if self.offsets else 0
+
+    @functools.cached_property
+    def shift_index(self) -> torch.Tensor:
+        """(ndiag, nrowb) int64 on ``blocks``' device: the block row of the
+        zero-padded x that block row i of diagonal d reads, lo + off_d + i;
+        built once and cached on the container for the product."""
+        rows = torch.arange(self.nrowb, device=self.blocks.device)
+        offs = torch.tensor(self.offsets, dtype=torch.int64, device=self.blocks.device)
+        return self.lo + offs[:, None] + rows
+
+    def to(self, device=None, dtype=None) -> "BDIA":
+        return BDIA(self.offsets, self.blocks.to(device=device, dtype=dtype), self.shape,
+                    self.blocksize)
+
+    def todense(self) -> np.ndarray:
+        nb, bs = self.nrowb, self.blocksize
+        blk = self.blocks.cpu().numpy()
+        out = np.zeros(self.shape, dtype=blk.dtype)
+        for d, off in enumerate(self.offsets):
+            for i in range(max(0, -off), min(nb, nb - off)):
+                out[i * bs:(i + 1) * bs, (i + off) * bs:(i + off + 1) * bs] = blk[d, i]
         return out

@@ -610,3 +610,74 @@ def test_idrs_shadow_space_on_cuda_is_the_cpu_draw(cuda, dtype):
                            _threefry.uniform((s, n), dtype))
         P = shadow_space(s, n, dtype, cuda).cpu()
         assert _rel(P, shadow_space(s, n, dtype, "cpu")) <= 100 * TOL[dtype]
+
+
+def test_bsr_solve_on_cuda_launches_only_k1(cuda):
+    """A BSR (elasticity, 2×2 blocks) prepares scalar DIA: ``solve_ir`` with
+    the block ILU runs K1 and no other kernel (its apply is BDIA products,
+    plain torch), and takes the CPU's count (6 sweeps there too) ±2."""
+    A = lt.sparse.csr_to_bsr(lt.sparse.elasticity_2d(32), 2)
+    b = torch.ones(A.shape[0], dtype=torch.float64)
+    kw = dict(method="bicgstabl", pc="biluk", options=lt.SolverOptions(rtol=1e-8, atol=0))
+    xc, ic = lt.solve_ir(A, b, pc_options=lt.PCOptions(block_size=2, ilu_sweeps=6), **kw)
+    before = _counts()
+    x, info = lt.solve_ir(A, b.to(cuda), pc_options=lt.PCOptions(block_size=2), **kw)
+    moved = _moved(before)
+    assert info.converged and set(moved) == {"k1"}, moved
+    assert abs(info.nits - ic.nits) <= max(2, int(0.15 * ic.nits)), (info.nits, ic.nits)
+    res = np.linalg.norm(b.numpy() - A.to_scipy() @ x.cpu().numpy())
+    assert res <= 1e-8 * np.linalg.norm(b.numpy())
+
+
+def test_bsr_multi_on_cuda_launches_only_k1k(cuda):
+    A = lt.sparse.csr_to_bsr(lt.sparse.elasticity_2d(24), 2)
+    B = torch.from_numpy(np.random.default_rng(3).standard_normal((A.shape[0], 4)))
+    before = _counts()
+    X, info = lt.solve_ir_multi(A, B.to(cuda), method="blockcg", pc="biluk",
+                                options=lt.SolverOptions(rtol=1e-8, atol=0),
+                                pc_options=lt.PCOptions(block_size=2))
+    moved = _moved(before)
+    assert info.converged.all() and set(moved) == {"k1k"}, moved
+
+
+@pytest.mark.parametrize("pc", ["saamg", "rsamg"])
+def test_dist_amg_on_cuda_launches_only_k4(cuda, pc, monkeypatch):
+    """Distributed saamg / rsamg over 8 shards of the card: every level
+    product is K4 (the plain version raises if taken), and the count is
+    the CPU mesh's ±2."""
+    A = lt.sparse.anisotropic_poisson_2d(64, epsilon=0.01) if pc == "saamg" \
+        else lt.sparse.laplacian_3d(16)
+    b = torch.ones(A.shape[0], dtype=torch.float64)
+    kw = dict(method="cg", pc=pc, options=lt.SolverOptions(rtol=1e-8, atol=0, maxit=200))
+    xc, ic = lt.dist_solve(A, b, mesh=lt.make_mesh(8, devices=["cpu"] * 8), **kw)
+
+    def forbidden(*args, **kw):
+        raise AssertionError("plain path taken on a CUDA tensor")
+    monkeypatch.setattr(ext_mod, "dia_spmv_ext_plain", forbidden)
+    before = _counts()
+    x, info = lt.dist_solve(A, b.to(cuda), mesh=lt.make_mesh(8, devices=[cuda] * 8), **kw)
+    moved = _moved(before)
+    assert info.converged and set(moved) == {"k4"}, moved
+    assert abs(info.nits - ic.nits) <= 2
+    assert torch.linalg.vector_norm(x.cpu() - xc) <= 1e-8 * torch.linalg.vector_norm(xc)
+
+
+@pytest.mark.parametrize("pc,kw", [("biluk", dict(block_size=2)), ("bilut", dict(block_size=2)),
+                                   ("vbiluk", dict(block_sizes=[2] * 576)),
+                                   ("vbilut", dict(block_sizes=[4] * 288))])
+def test_block_pcs_on_cuda_match_cpu(cuda, pc, kw):
+    """``solve`` on a BSR with each block-ILU name on the card (6 sweeps over
+    BDIA factors): K1 alone among the kernels, the CPU's count (6 sweeps
+    there too) ±2, x to 1e-8."""
+    A = lt.sparse.csr_to_bsr(lt.sparse.elasticity_2d(24), 2)
+    b = torch.ones(A.shape[0], dtype=torch.float64)
+    o = lt.SolverOptions(maxit=2000, restart=60)
+    xc, ic = lt.solve(A, b, method="gmres", pc=pc, options=o,
+                      pc_options=lt.PCOptions(ilu_sweeps=6, **kw))
+    before = _counts()
+    x, info = lt.solve(A, b.to(cuda), method="gmres", pc=pc, options=o,
+                       pc_options=lt.PCOptions(**kw))
+    moved = _moved(before)
+    assert info.converged and set(moved) == {"k1"}, moved
+    assert abs(info.nits - ic.nits) <= 2, (info.nits, ic.nits)
+    assert torch.linalg.vector_norm(x.cpu() - xc) <= 1e-8 * torch.linalg.vector_norm(xc)
