@@ -127,7 +127,37 @@ just before each solve, each phase's time printed):
    dist_solve_ir_multi block CG + saamg 512², k = 8: the saamg and rsamg
    cells launch only K4 (K4k), and K4 is checked on every DistDIA level.
 The JAX CPU counts of phases 26-27 come from
-``scripts/jax_amg_reference.py``.  Then one step that no solve path uses
+``scripts/jax_amg_reference.py``.
+The transpose path and the relaxation, polynomial and Schwarz PCs (every
+kernel launch counter reset just before each solve, each phase's time
+printed):
+28. solve_ir + ILU(0) (6 sweeps: K2 forward, K2 on the transposed plan for
+   M⁻ᵀ), rtol 1e-8, on the 3-D Laplacian 128³ for bicg, qmr, cgnr and lsqr,
+   and bicg and qmr on the convection-diffusion 1024²: inner its ≤ the JAX
+   CPU count + 15 %, true relres ≤ 1e-8, K1, K2 and transposed-K2
+   launches an inner iteration, only K1 and K2 launch; K2 and K2k against
+   their plain versions on the phase's own transposed fp32 plan and on an
+   fp64 one, that plan's plain apply against ``neumann_ilu_apply_t``; a
+   profiled first refinement round of bicg and cgnr; the tall lsqr
+   (``solve``, fp64, no PC) on [L; 0.1·I], L = ``laplacian_2d(1024)``
+   (2,097,152 × 1,048,576, HYB on K3), b = A·1: ≤ JAX's count through ELL
+   + 15 %, ‖Aᵀ(b − Ax)‖ / ‖Aᵀb‖ ≤ 1e-6, K3 against scipy and its plain
+   version on the phase's own matrix; per-column solve_multi fp64 48³,
+   k = 4, for the four methods (each column its single solve ± 1, only K1k
+   and K2k, K2k also on the transposed plan); dist_solve_ir bicg + bjilu
+   and qmr + jacobi on 128³ over 8 shards (only K4);
+29. solve_ir on 128³ with cg + ssor, poly, chebyshev; gmres(30) + sor
+   (ω 1.3), gs, ras, schwarz, bjacobi (512 blocks, overlap 8); bicg + ssor
+   (the transposed relaxation plan on K2) and qmr + poly (``spmv_t`` in
+   its transpose): ≤ JAX's CPU count + 15 %, true relres ≤ 1e-8, only K1
+   and K2, each PC's host setup apart from the warm solve; K2 on the ssor,
+   sor and ras plans and K1 on poly's matrix against their plain versions.
+The JAX CPU counts of phases 28-29 come from
+``scripts/jax_krylov_reference.py 28 28cd 28tall 28dist 29`` (cgnr and
+lsqr with the port's inner cap, the ssor / sor / gs factors in the
+matrix's dtype; both are JAX defects the port does not copy, ROADMAP C).
+``python3 chip_smoke.py --only 28,29`` runs those two phases alone (a
+development run: no kernel line, no result line).  Then one step that no solve path uses
 times, for each kernel of the JSON line at its shape there, the one
 PyTorch call that computes the same function (a ``torch.sparse_csr_tensor``
 product through cuSPARSE; 12 ``torch.addmm`` for a Neumann apply) as
@@ -1896,6 +1926,381 @@ def phase_dist_amg(lt, np, torch, dev, counters, card, single_saamg, single_rsam
 
 
 # ---------------------------------------------------------------------------
+# The transpose path and the relaxation, polynomial and Schwarz PCs
+# (phases 28-29)
+# ---------------------------------------------------------------------------
+
+# JAX's inner iteration counts on the CPU for phases 28-29 at their full sizes
+# (scripts/jax_krylov_reference.py 28 28cd 28tall 28dist 29; solve_ir with 6
+# Neumann sweeps, rtol 1e-8; 28tall: solve lsqr fp64 through JAX's ELL of the
+# tall system, as its own HYB route fails; 29's ssor / sor / gs cells with the
+# factors kept in the matrix's dtype, as JAX's own fp32 route fails)
+JAX_CPU_TRANSPOSE = {
+    "28": {"bicg": 195, "qmr": 193, "cgnr": 2063, "lsqr": 2399},
+    "28cd": {"bicg": 2787, "qmr": 2800},
+    "28tall": 694,
+    "28dist": {("bicg", "bjilu"): 180, ("qmr", "jacobi"): 519},
+    "29": {"cg+ssor": 213, "cg+poly": 92, "cg+chebyshev": 92, "gmres30+sor": 832,
+           "gmres30+gs": 832, "gmres30+ras": 576, "gmres30+schwarz": 576,
+           "gmres30+bjacobi": 576, "bicg+ssor": 225, "qmr+poly": 101},
+}
+TRANSPOSE_METHODS = ("bicg", "qmr", "cgnr", "lsqr")
+# phase 29: (cell, method, pc, restart, extra PCOptions), as the script runs them
+RELAX_CELLS = [("cg+ssor", "cg", "ssor", None, {}), ("cg+poly", "cg", "poly", None, {}),
+               ("cg+chebyshev", "cg", "chebyshev", None, {}),
+               ("gmres30+sor", "gmres", "sor", 30, {"omega": 1.3}),
+               ("gmres30+gs", "gmres", "gs", 30, {}), ("gmres30+ras", "gmres", "ras", 30, {}),
+               ("gmres30+schwarz", "gmres", "schwarz", 30, {}),
+               ("gmres30+bjacobi", "gmres", "bjacobi", 30, {}),
+               ("bicg+ssor", "bicg", "ssor", None, {}), ("qmr+poly", "qmr", "poly", None, {})]
+
+
+class TransposedLaunches:
+    """Counts the K2 / K2k launches made on the given transposed plans inside
+    it, by watching the one launch function both wrappers call
+    (``ops/neumann._apply``), which still adds to their own counters."""
+
+    def __init__(self, plans):
+        self.ids, self.count = {id(p) for p in plans}, 0
+
+    def __enter__(self):
+        from lssp_tpu_torch.ops import neumann
+        self.neumann, self.apply = neumann, neumann._apply
+
+        def watched(plan, *args):
+            self.count += id(plan) in self.ids
+            return self.apply(plan, *args)
+        neumann._apply = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.neumann._apply = self.apply
+
+
+def transposed_plans(M):
+    """The transposed K2 plan of a PC built with its M⁻ᵀ apply (a
+    ``(forward, transposed)`` pair of plans), or an empty list."""
+    from lssp_tpu_torch.ops.neumann import FusedNeumann
+    st = getattr(M, "state", None)
+    return [st[1]] if isinstance(st, tuple) and len(st) == 2 \
+        and isinstance(st[1], FusedNeumann) else []
+
+
+def held(phase, cell, ref, nits, converged, rr, name):
+    """A cell's count against JAX's CPU count + 15 % (``ROUNDING_SENSITIVE``:
+    1.5 times), its convergence, and a true relres ≤ 1e-8."""
+    sensitive = (phase, cell) in ROUNDING_SENSITIVE
+    limit = int(1.5 * ref) if sensitive else count_limit(ref)
+    check(converged, f"{name}: not converged")
+    check(rr <= 1e-8, f"{name}: true relres {rr:.3e} > 1e-8")
+    check(nits <= limit, f"{name}: {nits} inner its > {limit}")
+    return f"JAX CPU {ref}, limit {limit}{', rounding-sensitive' if sensitive else ''}"
+
+
+def ir_transpose_cells(lt, np, torch, dev, counters, card, phase, A, name, methods):
+    """solve_ir + ILU(0) (6 sweeps: K2 forward, K2 on the transposed plan for
+    M⁻ᵀ), rtol 1e-8, for each transpose method: the count, outer rounds, the
+    warm wall, K1, K2 and transposed-K2 launches an inner iteration; only K1
+    and K2 launch.  Returns (the first method's prepared tuple, walls)."""
+    opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=2000)
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    prep, walls = None, {}
+    for method in methods:
+        t0 = time.perf_counter()
+        p = lt.prepare_ir(A, method=method, pc="ilu0", device=dev)
+        setup_s = time.perf_counter() - t0
+        prep = prep or p
+        check(len(transposed_plans(p[4])) == 1, f"{name} {method}: no transposed K2 plan")
+        for fn in counters:
+            fn.launches = 0
+        with InnerRounds() as rounds, TransposedLaunches(transposed_plans(p[4])) as tl:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, info = lt.solve_ir(A, b, method=method, pc="ilu0", options=opts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        rr = true_relres(A, x, np)
+        its = max(info.nits, 1)
+        walls[method] = wall
+        ref = JAX_CPU_TRANSPOSE[phase][method]
+        lim = held(phase, method, ref, info.nits, info.converged, rr, f"{name} {method}")
+        print(f"{name} solve_ir {method}+ilu0 [{card}]: inner its {info.nits} ({lim}), outer "
+              f"rounds {rounds.count}, setup (prepare_ir) {setup_s:.3f} s, warm {wall:.3f} s, "
+              f"K1 {launches['dia_spmv'] / its:.2f} and K2 "
+              f"{launches['fused_neumann_apply'] / its:.2f} launches an inner iteration (K2 on "
+              f"the transposed plan {tl.count / its:.2f}), true relres {rr:.3e}")
+        check(tl.count > 0, f"{name} {method}: K2 never ran on the transposed plan")
+        check_only(launches, {"dia_spmv", "fused_neumann_apply"}, f"{name} {method}")
+    return prep, walls
+
+
+def check_transposed_plan(lt, np, torch, dev, plan32, A, name):
+    """K2 and K2k against their plain versions on the phase's own
+    transposed fp32 plan (1e-5) and on the fp64 transposed ILU(0) plan of
+    the same matrix (1e-12); that plan's plain apply against
+    ``neumann_ilu_apply_t`` (JAX's transposed sweeps on spmv_t) on the same
+    factors (1e-12).  Returns {kernel: max abs err}."""
+    from lssp_tpu_torch.ops.neumann import (fused_neumann_apply, neumann_apply_plain,
+                                            neumann_block_apply, plan_fused_neumann_t)
+    from lssp_tpu_torch.ops.trisolve import make_neumann_tri, neumann_ilu_apply_t
+    L, U = lt.pc.iluk_factor(A, level=0)
+    plan64 = plan_fused_neumann_t(L, U, 6, device=dev)
+    out = {"neumann_sweep": 0.0, "neumann_sweep_block": 0.0}
+    rng = np.random.default_rng(28)
+    for plan, tol in ((plan32, 1e-5), (plan64, 1e-12)):
+        dt = plan.dtype
+        v = torch.from_numpy(rng.uniform(-1, 1, plan.n)).to(device=dev, dtype=dt)
+        V = torch.from_numpy(rng.uniform(-1, 1, (plan.n, 4))).to(device=dev, dtype=dt)
+        for kname, kernel, plain in (
+                ("neumann_sweep", lambda: fused_neumann_apply(plan, v),
+                 lambda: neumann_apply_plain(plan, v)),
+                ("neumann_sweep_block", lambda: neumann_block_apply(plan, V),
+                 lambda: neumann_apply_plain(plan, V))):
+            y, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            err, abs_err = rel_err(y, ref), (y - ref).abs().max().item()
+            check(bool(torch.isfinite(y).all()) and err <= tol,
+                  f"{name}: {kname} on the transposed {dt} plan: max rel err {err:.3e} > {tol:.0e}")
+            print(f"{name}: {kname} against its plain version on the transposed {str(dt)[6:]} "
+                  f"plan: max_rel_err {err:.3e} max_abs_err {abs_err:.3e}")
+            out[kname] = max(out[kname], abs_err)
+    v = torch.from_numpy(rng.uniform(-1, 1, plan64.n)).to(dev)
+    ref = neumann_ilu_apply_t(make_neumann_tri(L, U, 6, device=dev), v)
+    err = rel_err(neumann_apply_plain(plan64, v), ref)
+    check(err <= 1e-12, f"{name}: the transposed plan's plain apply against "
+          f"neumann_ilu_apply_t: max rel err {err:.3e}")
+    print(f"{name}: the transposed fp64 plan's plain apply against neumann_ilu_apply_t "
+          f"(transposed sweeps on spmv_t): max_rel_err {err:.3e}")
+    return out
+
+
+def tall_system(lt, np, N):
+    """[L; 0.1·I] with L = laplacian_2d(N): a Tikhonov-regularised Poisson
+    least-squares system."""
+    import scipy.sparse as sp
+    L = lt.sparse.laplacian_2d(N).to_scipy()
+    S = sp.vstack([L, 0.1 * sp.eye(L.shape[0], format="csr")]).tocsr()
+    S.sort_indices()
+    return lt.CSR.from_scipy(S)
+
+
+def phase_tall(lt, np, torch, dev, counters, card):
+    """The tall lsqr cell of phase 28: solve(..., method="lsqr"), fp64, no
+    PC, on [L; 0.1·I], L = laplacian_2d(1024), b = A·1: its format, the
+    count (≤ JAX's through ELL + 15 %), ‖Aᵀ(b − Ax)‖ / ‖Aᵀb‖ ≤ 1e-6; the
+    forward product (K3 on the HYB) against scipy and against its plain
+    version on the phase's own matrix.  Returns {kernel: max abs err}."""
+    from lssp_tpu_torch.ops.hyb_spmv import hyb_spmv, hyb_spmv_plain
+    from lssp_tpu_torch.ops.spmv import spmv_t
+    t_phase = t0 = time.perf_counter()
+    A = tall_system(lt, np, 1024)
+    S = A.to_scipy()
+    bh = S @ np.ones(S.shape[1])
+    b = torch.from_numpy(bh).to(dev)
+    opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=20000)
+    A_dev = lt.solvers.facade._prepare_matrix(A, device=dev)[1]
+    setup_s = time.perf_counter() - t0
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, info = lt.solve(A, b, method="lsqr", options=opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    r = bh - S @ x.cpu().numpy()
+    normal = float(np.linalg.norm(S.T @ r) / np.linalg.norm(S.T @ bh))
+    ref = JAX_CPU_TRANSPOSE["28tall"]
+    limit = count_limit(ref)
+    print(f"tall lsqr [laplacian_2d(1024); 0.1 I] {S.shape[0]}x{S.shape[1]} [{card}]: format "
+          f"{type(A_dev).__name__} (remainder {getattr(A_dev, 'nnz_rem', 0)}), its {info.nits} "
+          f"(JAX CPU through ELL {ref}, limit {limit}), converged {info.converged}, "
+          f"||A^T(b-Ax)||/||A^T b|| {normal:.3e}, relres {np.linalg.norm(r) / np.linalg.norm(bh):.3e}, "
+          f"setup {setup_s:.3f} s, solve {wall:.3f} s, K3 {launches['hyb_spmv'] / max(info.nits, 1):.2f} "
+          f"launches an iteration")
+    check(isinstance(A_dev, lt.HYB), f"tall lsqr: format {type(A_dev).__name__}, not HYB")
+    check(info.converged and normal <= 1e-6, f"tall lsqr: normal-equation relres {normal:.3e}")
+    check(info.nits <= limit, f"tall lsqr: {info.nits} its > {limit}")
+    check_only(launches, {"hyb_spmv"}, "tall lsqr")
+    xv = np.random.default_rng(29).uniform(-1, 1, S.shape[1])
+    xt = torch.from_numpy(xv).to(dev)
+    out = {}
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        H, xd = A_dev.to(dtype=dtype), xt.to(dtype)
+        y, plain = hyb_spmv(H, xd), hyb_spmv_plain(H, xd)
+        ys = torch.from_numpy(S @ xv).to(device=dev, dtype=dtype)
+        torch.cuda.synchronize()
+        err, err_s = rel_err(y, plain), rel_err(y, ys)
+        check(err <= tol and err_s <= tol, f"tall lsqr: K3 {dtype} max rel err {err:.3e} "
+              f"(plain), {err_s:.3e} (scipy)")
+        out["hyb_spmv"] = max(out.get("hyb_spmv", 0.0), (y - plain).abs().max().item())
+        print(f"tall lsqr: K3 on the tall {str(dtype)[6:]} HYB: max_rel_err {err:.3e} (plain) "
+              f"{err_s:.3e} (scipy)")
+    yt = spmv_t(A_dev, torch.from_numpy(bh).to(dev)).cpu().numpy()
+    err_t = float(np.abs(yt - S.T @ bh).max() / np.abs(S.T @ bh).max())
+    check(yt.shape == (S.shape[1],) and err_t <= 1e-12, f"tall lsqr: spmv_t err {err_t:.3e}")
+    print(f"tall lsqr: spmv_t on the tall HYB against scipy: {yt.shape[0]} entries, max rel err "
+          f"{err_t:.3e}; cell time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_transpose(lt, np, torch, dev, counters, card):
+    """Phase 28: the transpose path.  solve_ir + ILU(0) for bicg, qmr, cgnr
+    and lsqr on 128³, and bicg and qmr on the convection-diffusion 1024²;
+    the tall lsqr; the per-column forms (solve_multi fp64 48³, k = 4); the
+    distributed bicg + bjilu and qmr + jacobi on 8 shards; K2 and K2k on the
+    transposed plans.  Returns {kernel: max abs err}."""
+    t_phase = time.perf_counter()
+    errs = {}
+
+    def worst(more):
+        for k, v in more.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    A = lt.sparse.laplacian_3d(128)
+    prep, walls = ir_transpose_cells(lt, np, torch, dev, counters, card, "28", A,
+                                     "transpose 128^3", TRANSPOSE_METHODS)
+    worst(check_transposed_plan(lt, np, torch, dev, transposed_plans(prep[4])[0], A,
+                                "transpose 128^3"))
+    opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=2000)
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    for method in ("bicg", "cgnr"):
+        out = {}
+
+        def one_round():
+            out["info"] = lt.solve_ir(A, b, method=method, pc="ilu0", options=opts,
+                                      max_outer=1)[1]
+        wall, busy, nlaunch, top, every = profile_solve(torch, one_round)
+        its = max(out["info"].nits, 1)
+        k2 = every.get("neumann_wavefront_kernel", 0.0) / max(sum(every.values()), 1e-12)
+        print(f"transpose 128^3 solve_ir {method}+ilu0 [{card}]: profiled first refinement "
+              f"round: {out['info'].nits} inner its in {wall:.3f} s ({wall / its * 1e3:.3f} ms an "
+              f"inner iteration), device busy {busy:.1%}, {nlaunch / its:.1f} device launches an "
+              f"inner iteration, K2 {k2:.1%} of the device time, device ms by kernel {top}")
+    cd = lt.sparse.convection_diffusion_2d(1024)
+    ir_transpose_cells(lt, np, torch, dev, counters, card, "28cd", cd,
+                       "transpose convdiff 1024^2", ("bicg", "qmr"))
+    worst(phase_tall(lt, np, torch, dev, counters, card))
+    # the per-column forms
+    N = 48
+    A48 = lt.sparse.laplacian_3d(N)
+    B = serving_block(np, torch, dev, A48.shape[0], k=4)
+    for method in TRANSPOSE_METHODS:
+        M = lt.Solver(method=method, pc="ilu0", device=dev).assemble(A48).M
+        for fn in counters:
+            fn.launches = 0
+        with TransposedLaunches(transposed_plans(M)) as tl:
+            X, info = lt.solve_multi(A48, B, method=method, M=M, options=opts)
+            torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        singles = [lt.solve(A48, B[:, c], method=method, M=M, options=opts)[1].nits
+                   for c in range(4)]
+        rr = block_relres(A48, X, B, np)
+        print(f"per-column {N}^3 solve_multi {method}+ilu0 fp64 k=4: nits {info.nits}, single "
+              f"solves {singles}, true relres max {rr.max():.3e}, K2k launches on the "
+              f"transposed plan {tl.count}")
+        check(bool(np.all(info.converged)), f"per-column {method}: not every column converged")
+        check((np.abs(info.nits - np.array(singles)) <= 1).all(),
+              f"per-column {method}: counts {info.nits} against single solves {singles}")
+        check(tl.count > 0, f"per-column {method}: K2k never ran on the transposed plan")
+        check_only(launches, {"dia_spmm", "neumann_block_apply"}, f"per-column {method}")
+    # the distributed transpose methods
+    mesh = lt.make_mesh(8, devices=[dev] * 8)
+    for (method, pc), ref in JAX_CPU_TRANSPOSE["28dist"].items():
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = lt.dist_solve_ir(A, b, method=method, pc=pc, mesh=mesh, options=opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        rr = true_relres(A, x, np)
+        lim = held("28dist", (method, pc), ref, info.nits, info.converged, rr,
+                   f"dist {method}+{pc}")
+        print(f"dist 128^3 x 8 shards dist_solve_ir {method}+{pc} [{card}]: inner its "
+              f"{info.nits} ({lim}), first {wall:.3f} s, K4 "
+              f"{launches['dia_spmv_ext'] / max(info.nits, 1):.2f} launches an inner iteration, "
+              f"true relres {rr:.3e}")
+        check_only(launches, {"dia_spmv_ext"}, f"dist {method}+{pc}")
+    print(f"transpose: phase time {time.perf_counter() - t_phase:.1f} s")
+    return errs
+
+
+def phase_relax(lt, np, torch, dev, counters, card):
+    """Phase 29: solve_ir on 128³ with the relaxation, polynomial and
+    Schwarz preconditioners (``RELAX_CELLS``): each count ≤ JAX's CPU count
+    + 15 %, true relres ≤ 1e-8, only K1 and K2; each PC's host setup time
+    apart from the warm solve; then K2 against its plain version on the
+    ssor (forward and transposed), sor and ras plans and K1 on poly's
+    matrix.  Returns {kernel: max abs err}."""
+    from lssp_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
+    from lssp_tpu_torch.ops.neumann import fused_neumann_apply, neumann_apply_plain
+    t_phase = time.perf_counter()
+    A = lt.sparse.laplacian_3d(128)
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    Ms = {}
+    for cell, method, pc, restart, extra in RELAX_CELLS:
+        opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=2000,
+                                **({"restart": restart} if restart else {}))
+        pco = lt.PCOptions(**extra)
+        t0 = time.perf_counter()
+        M = lt.prepare_ir(A, method=method, pc=pc, pc_options=pco, device=dev)[4]
+        setup_s = time.perf_counter() - t0
+        Ms[cell] = M
+        for fn in counters:
+            fn.launches = 0
+        with InnerRounds() as rounds, TransposedLaunches(transposed_plans(M)) as tl:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, info = lt.solve_ir(A, b, method=method, pc=pc, options=opts, pc_options=pco)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        rr = true_relres(A, x, np)
+        its = max(info.nits, 1)
+        lim = held("29", cell, JAX_CPU_TRANSPOSE["29"][cell], info.nits, info.converged, rr,
+                   f"relax {cell}")
+        print(f"relax 128^3 solve_ir {cell} ({M.name}) [{card}]: inner its {info.nits} ({lim}), "
+              f"outer rounds {rounds.count}, PC host setup {setup_s:.3f} s, warm {wall:.3f} s, K1 "
+              f"{launches['dia_spmv'] / its:.2f} and K2 {launches['fused_neumann_apply'] / its:.2f}"
+              f" launches an inner iteration (K2 on the transposed plan {tl.count / its:.2f}), "
+              f"true relres {rr:.3e}")
+        allowed = {"dia_spmv"} | ({"fused_neumann_apply"} if "poly" not in pc
+                                  and "cheb" not in pc else set())
+        check_only(launches, allowed, f"relax {cell}")
+        if method in ("bicg", "qmr") and pc == "ssor":
+            check(tl.count > 0, f"relax {cell}: K2 never ran on the transposed plan")
+    errs = {"neumann_sweep": 0.0, "dia_spmv": 0.0}
+    v = torch.from_numpy(np.random.default_rng(30).uniform(-1, 1, A.shape[0])).to(
+        device=dev, dtype=torch.float32)
+    plans = [("ssor", Ms["bicg+ssor"].state[0]), ("ssor transposed", Ms["bicg+ssor"].state[1]),
+             ("sor", Ms["gmres30+sor"].state), ("ras", Ms["gmres30+ras"].state)]
+    for pname, plan in plans:
+        w = v if plan.n == A.shape[0] else torch.from_numpy(
+            np.random.default_rng(31).uniform(-1, 1, plan.n)).to(device=dev, dtype=torch.float32)
+        y, ref = fused_neumann_apply(plan, w), neumann_apply_plain(plan, w)
+        torch.cuda.synchronize()
+        err = rel_err(y, ref)
+        check(bool(torch.isfinite(y).all()) and err <= 1e-5,
+              f"relax: K2 on the {pname} plan: max rel err {err:.3e} > 1e-5")
+        print(f"relax: K2 against its plain version on the {pname} plan (n={plan.n}, L offsets "
+              f"{plan.L.offsets}, U offsets {plan.U.offsets}): max_rel_err {err:.3e}")
+        errs["neumann_sweep"] = max(errs["neumann_sweep"], (y - ref).abs().max().item())
+    D = Ms["cg+poly"].state
+    y, ref = dia_spmv(D, v), dia_spmv_plain(D.data, D.offsets, v)
+    torch.cuda.synchronize()
+    err = rel_err(y, ref)
+    check(err <= 1e-5, f"relax: K1 on poly's matrix: max rel err {err:.3e}")
+    errs["dia_spmv"] = (y - ref).abs().max().item()
+    print(f"relax: K1 against its plain version on poly's fp32 matrix: max_rel_err {err:.3e}")
+    errs["dia_spmv"] = max(errs["dia_spmv"], check_k1_on(np, torch, dev, D, "relax poly"))
+    print(f"relax: phase time {time.perf_counter() - t_phase:.1f} s")
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # the library yardstick and the bound of every kernel in the JSON line
 # ---------------------------------------------------------------------------
 
@@ -2070,6 +2475,18 @@ def main():
           f"lssp_tpu_torch was imported from {lt.__file__}, not from this checkout")
     dev = torch.device("cuda:0")
     card = stack(_kernels)
+    if "--only" in sys.argv:
+        # a development run of the named phases of this slice alone: it prints
+        # no kernel line and no result line
+        only = sys.argv[sys.argv.index("--only") + 1].split(",")
+        counters = (dia_spmv, fused_neumann_apply, hyb_spmv, dia_spmv_ext, dia_spmm,
+                    neumann_block_apply, hyb_spmm, dia_spmm_ext)
+        for phase, fn in (("28", phase_transpose), ("29", phase_relax)):
+            if phase in only:
+                print(json.dumps({f"phase {phase} max_abs_err": fn(lt, np, torch, dev, counters,
+                                                                    card)}))
+        print(f"chip_smoke: ran phases {only} alone; no result line")
+        return
     k1 = phase_k1(lt, np, torch, dev)
     k2 = phase_k2(lt, np, torch, dev)
     launches = phase_main(lt, np, torch, dev, (dia_spmv, fused_neumann_apply))
@@ -2106,6 +2523,8 @@ def main():
     krylov_block_errs = phase_krylov_per_column(lt, np, torch, dev, counters)
     _, block_k1_err = phase_block(lt, np, torch, dev, counters, card)
     dist_amg = phase_dist_amg(lt, np, torch, dev, counters, card, saamg_nits, rsamg_nits)
+    transpose_errs = phase_transpose(lt, np, torch, dev, counters, card)
+    relax_errs = phase_relax(lt, np, torch, dev, counters, card)
     library = phase_library(lt, np, torch, dev, card)
     # each kernel's error is the worst over its own phase and the later
     # phases' checks on their own data
@@ -2113,7 +2532,12 @@ def main():
                  {"dia_spmm": block_err}, krylov_block_errs):
         for kname, err in errs.items():
             krhs[kname]["max_abs_err"] = max(krhs[kname]["max_abs_err"], err)
-    k1["max_abs_err"] = max(k1["max_abs_err"], block_k1_err)
+    k1["max_abs_err"] = max(k1["max_abs_err"], block_k1_err, relax_errs["dia_spmv"])
+    k2["max_abs_err"] = max(k2["max_abs_err"], transpose_errs["neumann_sweep"],
+                            relax_errs["neumann_sweep"])
+    k3["max_abs_err"] = max(k3["max_abs_err"], transpose_errs["hyb_spmv"])
+    krhs["neumann_sweep_block"]["max_abs_err"] = max(
+        krhs["neumann_sweep_block"]["max_abs_err"], transpose_errs["neumann_sweep_block"])
     k4["max_abs_err"] = max(k4["max_abs_err"], dist_amg["saamg"], dist_amg["rsamg"])
     for errs in (saamg_errs, classical_errs, rsamg_errs, *krylov_errs):
         k1["max_abs_err"] = max(k1["max_abs_err"], errs.get("dia_spmv", 0.0))

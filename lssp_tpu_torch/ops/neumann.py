@@ -38,7 +38,7 @@ import torch
 from lssp_tpu_torch import _kernels
 from lssp_tpu_torch.ops.dia_spmv import shifted_sum
 from lssp_tpu_torch.sparse.types import CSR, torch_dtype
-from lssp_tpu_torch.sparse.utils import split_ldu
+from lssp_tpu_torch.sparse.utils import split_ldu, transpose
 
 # the wavefront kernel (csrc/neumann.cu: kThreads, kMaxDiags,
 # kMaxRanges; the launch rejects more): a block of THREADS threads, each
@@ -126,27 +126,56 @@ def _factor(S: CSR, n, max_diags, min_occ, dtype, device):
         stray_vals=torch.from_numpy(vals).to(device=device, dtype=dtype)), reach
 
 
-def plan_fused_neumann(L: CSR, U: CSR, sweeps: int, max_diags: int = 48,
-                       min_occ: float = 0.02, dtype=None, device="cpu") -> FusedNeumann:
-    """The apply's state on ``device`` from host factors L (strictly lower,
-    unit diagonal implied) and U (upper with the diagonal).  ``dtype``
-    (torch) defaults to U's dtype.  The scaled factor and 1/diag are formed
-    in float64 and rounded once, as in the TPU plan."""
+def _scaled_factors(L: CSR, U: CSR):
+    """(Ls, D⁻¹Us, 1/diag) on the host: the strict factors of L and U, U's
+    rows scaled by 1/diag in float64 (rounded once, at the upload)."""
     n = L.shape[0]
-    if dtype is None:
-        dtype = torch_dtype(np.asarray(U.data).dtype)
     Ls, _, _ = split_ldu(L)
     _, dU, Us = split_ldu(U)
     dU = np.asarray(dU, dtype=np.float64)
     inv = 1.0 / np.where(dU == 0, 1.0, dU)
     ipu = np.asarray(Us.indptr)
     urows = np.repeat(np.arange(n), ipu[1:] - ipu[:-1])
-    Us = dataclasses.replace(Us, data=np.asarray(Us.data) * inv[urows])
-    (Lf, reach_l), (Uf, reach_u) = (_factor(S, n, max_diags, min_occ, dtype, device)
-                                    for S in (Ls, Us))
-    return FusedNeumann(L=Lf, U=Uf,
-                        invdiag=torch.from_numpy(inv).to(device=device, dtype=dtype),
-                        n=n, sweeps=int(sweeps), reach=max(reach_l, reach_u))
+    return Ls, dataclasses.replace(Us, data=np.asarray(Us.data) * inv[urows]), inv
+
+
+def _plan(F0: CSR, F1: CSR, inv, n, sweeps, max_diags, min_occ, dtype, device):
+    (f0, reach0), (f1, reach1) = (_factor(S, n, max_diags, min_occ, dtype, device)
+                                  for S in (F0, F1))
+    return FusedNeumann(L=f0, U=f1, invdiag=torch.from_numpy(inv).to(device=device, dtype=dtype),
+                        n=n, sweeps=int(sweeps), reach=max(reach0, reach1))
+
+
+def plan_fused_neumann(L: CSR, U: CSR, sweeps: int, max_diags: int = 48,
+                       min_occ: float = 0.02, dtype=None, device="cpu") -> FusedNeumann:
+    """The apply's state on ``device`` from host factors L (strictly lower,
+    unit diagonal implied) and U (upper with the diagonal).  ``dtype``
+    (torch) defaults to U's dtype.  The scaled factor and 1/diag are formed
+    in float64 and rounded once, as in the TPU plan."""
+    if dtype is None:
+        dtype = torch_dtype(np.asarray(U.data).dtype)
+    Ls, Us, inv = _scaled_factors(L, U)
+    return _plan(Ls, Us, inv, L.shape[0], sweeps, max_diags, min_occ, dtype, device)
+
+
+def plan_fused_neumann_t(L: CSR, U: CSR, sweeps: int, max_diags: int = 48,
+                         min_occ: float = 0.02, dtype=None, device="cpu") -> FusedNeumann:
+    """The plan of the transposed apply z ≈ M⁻ᵀr = L⁻ᵀU⁻ᵀr for M = LU, from
+    the same host factors as ``plan_fused_neumann``.  With U = D(I + D⁻¹Us),
+    U⁻ᵀ = D⁻¹(I + (D⁻¹Us)ᵀ)⁻¹ and L⁻ᵀ = (I + Lsᵀ)⁻¹, so the transposed apply
+    is K2's own apply on a plan whose phase-0 factor is (D⁻¹Us)ᵀ (strictly
+    lower) and whose phase-1 factor is Lsᵀ (strictly upper), with the same
+    1/diag: JAX's ``neumann_ilu_apply_t`` sweeps (``lssp_tpu/ops/
+    trisolve.py:288-302``).  The factors keep K2's orientation (phase 0
+    reads lower rows, phase 1 upper ones); their values are the forward
+    plan's, moved, so the two plans hold the same numbers.  The band/stray
+    split, the reach and the band reads are those of the transposed
+    factors."""
+    if dtype is None:
+        dtype = torch_dtype(np.asarray(U.data).dtype)
+    Ls, Us, inv = _scaled_factors(L, U)
+    return _plan(transpose(Us), transpose(Ls), inv, L.shape[0], sweeps, max_diags, min_occ,
+                 dtype, device)
 
 
 def _factor_plain(F: NeumannFactor, y: torch.Tensor) -> torch.Tensor:

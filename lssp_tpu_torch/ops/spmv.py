@@ -6,8 +6,11 @@ reference include/mvops.h:9-19) plus ``spmv``.  DIA goes through kernel K1
 fold the α/β epilogue into the product.  CSR
 and ELL are plain PyTorch gathers: on a GPU a gather is a real path, not a
 fallback.  BSR (block-row gather) and BDIA (block-diagonal streams) are
-plain PyTorch too, as they are XLA in the JAX package.  Transpose products
-wait for the methods that need them.
+plain PyTorch too, as they are XLA in the JAX package.  ``spmv_t`` (y =
+Aᵀx, for the transpose methods bicg, qmr, cgnr and lsqr and the M⁻ᵀ applies)
+is plain PyTorch for every format, as it is XLA in the JAX package
+(``lssp_tpu/ops/spmv.py:192-258``); it returns ``A.shape[1]`` entries,
+also for a non-square DIA or HYB.
 
 **Block layout.**  Every entry point also takes a block of k vectors, the
 multi-rhs path's operand.  A block is an (n, k) tensor, one column per
@@ -113,6 +116,100 @@ def spmv(A, x):
     if callable(A):
         return A(x)
     raise TypeError(f"unsupported matrix type {type(A)}")
+
+
+def _tail(x):
+    return tuple(x.shape[1:])
+
+
+def _spmv_dia_t(A: DIA, x):
+    """Σ_d data[d, j − off_d]·x[j − off_d] for each column j: row i of
+    diagonal d adds into column i + off_d, one slice add per diagonal in
+    order of d (the sums of JAX's ``_spmv_dia_t``, whose extra terms are
+    zeros).  Rows whose column falls outside the shape hold stored zeros
+    and are skipped, so a tall or wide A gives ``A.shape[1]`` entries."""
+    m, ncols = A.shape
+    y = x.new_zeros((ncols,) + _tail(x), dtype=torch.promote_types(A.data.dtype, x.dtype))
+    for d, off in enumerate(A.offsets):
+        lo, hi = max(0, -off), min(m, ncols - off)
+        if hi > lo:
+            vals = A.data[d, lo:hi]
+            y[lo + off:hi + off] += (vals[:, None] if x.ndim == 2 else vals) * x[lo:hi]
+    return y
+
+
+def _spmv_ell_t(A: ELL, x):
+    n, k = A.cols.shape
+    tail = _tail(x)
+    prod = (A.data[:, :, None] * x[:, None] if tail else A.data * x[:, None])
+    y = x.new_zeros((A.shape[1],) + tail, dtype=prod.dtype)
+    return y.index_add_(0, A.cols.reshape(-1), prod.reshape((n * k,) + tail))
+
+
+def _spmv_csr_t(A: CSR, x):
+    rows = torch.repeat_interleave(torch.arange(A.shape[0], device=x.device),
+                                   A.indptr[1:] - A.indptr[:-1], output_size=A.nnz)
+    vals = A.data[:, None] if x.ndim == 2 else A.data
+    y = x.new_zeros((A.shape[1],) + _tail(x), dtype=torch.promote_types(A.data.dtype, x.dtype))
+    return y.index_add_(0, A.indices, vals * x[rows])
+
+
+def _block_mv_t(blocks, xb):
+    """Σ_i blocks[n, i, j]·xb[n, i]: each block transposed times its piece."""
+    if xb.ndim == 3:
+        return (blocks[..., None] * xb[:, :, None]).sum(dim=1)
+    return (blocks * xb[:, :, None]).sum(dim=1)
+
+
+def _spmv_bsr_t(A: BSR, x):
+    bs, nrowb = A.blocksize, A.nrowb
+    rows = torch.repeat_interleave(torch.arange(nrowb, device=x.device),
+                                   A.indptr[1:] - A.indptr[:-1], output_size=A.nnzb)
+    tail = _tail(x)
+    prod = _block_mv_t(A.blocks, x.reshape((nrowb, bs) + tail)[rows])
+    y = x.new_zeros((A.shape[1] // bs, bs) + tail, dtype=prod.dtype)
+    return y.index_add_(0, A.indices, prod).reshape((A.shape[1],) + tail)
+
+
+def _spmv_bdia_t(A: BDIA, x):
+    """Per block diagonal, each block transposed times its block row of x,
+    added into block row i + off (JAX's ``_spmv_bdia_t``)."""
+    nb, bs = A.nrowb, A.blocksize
+    tail = _tail(x)
+    xb = x.reshape((nb, bs) + tail)
+    y = xb.new_zeros((nb, bs) + tail, dtype=torch.promote_types(A.blocks.dtype, x.dtype))
+    for d, off in enumerate(A.offsets):
+        lo, hi = max(0, -off), min(nb, nb - off)
+        if hi > lo:
+            y[lo + off:hi + off] += _block_mv_t(A.blocks[d, lo:hi], xb[lo:hi])
+    return y.reshape((A.shape[1],) + tail)
+
+
+def spmv_t(A, x):
+    """y = Aᵀ @ x for a DIA, HYB, ELL, BDIA, device BSR or device CSR
+    container; ``x`` (m,) or an (m, k) block, y ``A.shape[1]`` rows.  A
+    callable has no transpose here: ``solvers/base.operator_t`` takes its
+    ``t_op``."""
+    if isinstance(A, DIA):
+        return _spmv_dia_t(A, x)
+    if isinstance(A, HYB):
+        vals = A.rem_vals[:, None] if x.ndim == 2 else A.rem_vals
+        return _spmv_dia_t(A.dia, x).index_add_(0, A.rem_cols.long(),
+                                                vals * x[A.rem_rows.long()])
+    if isinstance(A, ELL):
+        return _spmv_ell_t(A, x)
+    if isinstance(A, BDIA):
+        return _spmv_bdia_t(A, x)
+    if isinstance(A, BSR):
+        if not isinstance(A.blocks, torch.Tensor):
+            raise TypeError("spmv_t needs a device BSR: call BSR.to(device) first")
+        return _spmv_bsr_t(A, x)
+    if isinstance(A, CSR):
+        if not isinstance(A.data, torch.Tensor):
+            raise TypeError("spmv_t needs a device CSR: call CSR.to(device) first")
+        return _spmv_csr_t(A, x)
+    raise TypeError(f"transpose SpMV needs a matrix container, got {type(A)}; "
+                    "pass an operator with a .t_op transpose for callable inputs")
 
 
 def mv_amxpby(alpha, A, x, beta, y):

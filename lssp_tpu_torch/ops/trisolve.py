@@ -10,10 +10,12 @@ Two strategies, as in ``lssp_tpu/ops/trisolve.py``:
 2. **Truncated Neumann** (``ilu_sweeps=k>0``).  For unit-lower L = I + Ls,
    k sweeps of ``y ← r − Ls·y`` give the degree-k truncation of L⁻¹; the
    same for U after scaling its rows by 1/diag.  The preconditioner's
-   apply runs as kernel K2 (``ops/neumann.py``).  ``make_neumann_tri`` /
-   ``neumann_ilu_apply`` here are the same series as one SpMV per sweep,
-   the counterpart of the JAX function of that name; no preconditioner
-   uses them until the transpose SpMV gives them an M⁻ᵀ apply.
+   apply runs as kernel K2 (``ops/neumann.py``), its M⁻ᵀ apply as K2 on
+   the transposed plan (``plan_fused_neumann_t``).  ``make_neumann_tri``,
+   ``neumann_ilu_apply`` and ``neumann_ilu_apply_t`` here are the same
+   series as one SpMV (or ``spmv_t``) per sweep, the counterparts of the
+   JAX functions of those names: the independent reference of both plans
+   in the tests, on no device path.
 """
 from __future__ import annotations
 
@@ -185,4 +187,19 @@ def neumann_ilu_apply(state: NeumannTri, r: torch.Tensor) -> torch.Tensor:
     z = zr
     for _ in range(state.sweeps):
         z = zr - spmv(state.Us, z)
+    return z
+
+
+def neumann_ilu_apply_t(state: NeumannTri, r: torch.Tensor) -> torch.Tensor:
+    """z ≈ M⁻ᵀr = L⁻ᵀU⁻ᵀr by transposed Neumann sweeps on ``spmv_t`` (JAX's
+    ``neumann_ilu_apply_t``): with ``Us`` stored as D⁻¹Us, U⁻ᵀ =
+    D⁻¹(I + UsᵀD⁻¹)⁻¹, and L⁻ᵀ = (I + Lsᵀ)⁻¹."""
+    from lssp_tpu_torch.ops.spmv import spmv_t
+    w = r
+    for _ in range(state.sweeps):
+        w = r - spmv_t(state.Us, w)
+    zr = state.invdiag * w
+    z = zr
+    for _ in range(state.sweeps):
+        z = zr - spmv_t(state.Ls, z)
     return z

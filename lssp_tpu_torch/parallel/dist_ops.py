@@ -9,6 +9,13 @@ takes and returns the flat (n,) vector, or an (n, k) block (the layout of
 ``ops/spmv.py``, viewed as (P, R, k)); shard p owns rows [p·R, (p+1)·R).
 A DIA band's block product is kernel K4k, one launch for every shard and
 column; the HYB remainder and the ELL products gather on the block.
+
+``make_dist_spmv_t`` is the transpose (bicg, qmr, cgnr, lsqr over the
+mesh): the reverse of the halo exchange, each shard's accumulation into
+its halo slots added back into the neighbour that owns those rows; the
+all-gather paths' ``psum_scatter`` is one scatter-add into the flat
+vector.  Plain PyTorch, as it is XLA in the JAX package.
+``OpWithTranspose`` carries it beside the forward operator.
 """
 from __future__ import annotations
 
@@ -118,6 +125,106 @@ def make_dist_spmv(M):
         raise TypeError(f"unsupported distributed matrix {type(M)}")
     op.shards = M.nshards
     return op
+
+
+def dia_shard_t(data: torch.Tensor, offsets, x2: torch.Tensor, lo: int, hi: int):
+    """Every shard's transposed band product into its extended frame:
+    (P, lo + R + hi[, k]), row r of diagonal d adding data[p, d, r]·x[p, r]
+    into slot lo + r + off_d (JAX's ``_make_dia_spmv_t`` before its
+    exchange)."""
+    P, _, R = data.shape
+    tail = tuple(x2.shape[2:])
+    z = x2.new_zeros((P, lo + R + hi) + tail, dtype=torch.promote_types(data.dtype, x2.dtype))
+    for d, off in enumerate(offsets):
+        z[:, lo + off:lo + off + R] += (data[:, d, :, None] if tail else data[:, d]) * x2
+    return z
+
+
+def _make_dia_spmv_t(M: DistDIA):
+    P, R, lo, hi = M.nshards, M.rows_per_shard, M.lo, M.hi
+
+    def op_t(x):
+        z = dia_shard_t(M.data, M.offsets, x.view(P, R, *x.shape[1:]), lo, hi)
+        y = z[:, lo:lo + R].clone()
+        # a shard's left-halo sums belong to the last lo rows of shard p−1,
+        # its right-halo sums to the first hi rows of shard p+1; the ring
+        # wrap adds sums of stored zeros
+        if lo > 0:
+            y[:, R - lo:] += torch.roll(z[:, :lo], -1, dims=0)
+        if hi > 0:
+            y[:, :hi] += torch.roll(z[:, lo + R:], 1, dims=0)
+        return y.view(x.shape)
+
+    return op_t
+
+
+def _make_hyb_spmv_t(M: DistHYB):
+    """The band's transpose, then each remainder entry (local row r, global
+    column c) adds v·x[r] into row c of the flat result."""
+    band_t = _make_dia_spmv_t(M.band)
+    R = M.rows_per_shard
+    shard0 = torch.arange(M.nshards, device=M.rem_rows.device)[:, None] * R
+    rows = (M.rem_rows + shard0).view(-1)
+    cols = M.rem_cols.view(-1)
+    vals = M.rem_vals.view(-1)
+
+    def op_t(x):
+        v = vals[:, None] if x.ndim == 2 else vals
+        return band_t(x).index_add_(0, cols, v * x[rows])
+
+    return op_t
+
+
+def _make_ell_spmv_t(M: DistELL):
+    P, R, h = M.nshards, M.rows_per_shard, M.halo
+
+    def op_t(x):
+        tail = tuple(x.shape[1:])
+        x2 = x.view(P, R, *tail)
+        prod = (M.data[..., None] * x2[:, :, None] if tail else M.data * x2[..., None])
+        if M.mode != "halo":
+            y = x.new_zeros((M.n,) + tail, dtype=prod.dtype)
+            return y.index_add_(0, M.cols.reshape(-1), prod.reshape((-1,) + tail))
+        # each shard's sums into its frame [halo_l | rows | halo_r], then the
+        # halo sums to the neighbours that own them (not wrapped: the ELL
+        # halo reach is checked for interior shards only)
+        z = x.new_zeros((P * (R + 2 * h),) + tail, dtype=prod.dtype)
+        frame = (M.cols + torch.arange(P, device=x.device)[:, None, None] * (R + 2 * h))
+        z = z.index_add_(0, frame.reshape(-1), prod.reshape((-1,) + tail))
+        z = z.view(P, R + 2 * h, *tail)
+        y = z[:, h:h + R].clone()
+        if h > 0:
+            y[:P - 1, R - h:] += z[1:, :h]
+            y[1:, :h] += z[:P - 1, h + R:]
+        return y.view(x.shape)
+
+    return op_t
+
+
+def make_dist_spmv_t(M):
+    """``op_t(x) -> Aᵀ@x`` on the flat vector (or an (n, k) block) for a
+    DistDIA, DistHYB or DistELL: JAX's ``make_dist_spmv_t``."""
+    if isinstance(M, DistHYB):
+        return _make_hyb_spmv_t(M)
+    if isinstance(M, DistDIA):
+        return _make_dia_spmv_t(M)
+    if isinstance(M, DistELL):
+        return _make_ell_spmv_t(M)
+    raise TypeError(f"unsupported distributed matrix {type(M)}")
+
+
+class OpWithTranspose:
+    """A matrix-free operator carrying its transpose as ``t_op``, which
+    ``solvers/base.operator_t`` takes, so that bicg, qmr, cgnr and lsqr run
+    on it; ``shards`` as in ``make_dist_spmv``."""
+
+    def __init__(self, op, op_t):
+        self._op = op
+        self.t_op = op_t
+        self.shards = getattr(op, "shards", None)
+
+    def __call__(self, x):
+        return self._op(x)
 
 
 def apply_dist_spmv(M, x: torch.Tensor) -> torch.Tensor:

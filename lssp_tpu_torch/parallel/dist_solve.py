@@ -18,6 +18,14 @@ through K4), ``rsamg`` (``dist_rs``: the classical hierarchy through the
 same cycle, or the flat saamg plan when the matrix is no shard-alignable
 lattice) and ``amg`` (``dist_amg``: padded-ELL gathers).
 
+The transpose methods (bicg, qmr, cgnr, lsqr) take the operator with its
+transpose (``dist_ops.OpWithTranspose``: ``make_dist_spmv_t``, plain
+PyTorch) and a preconditioner with its shard-local M⁻ᵀ: the identity,
+Jacobi, or block-Jacobi ILU, whose transposed sweeps run kernel K4 on the
+transposed shard bands (or the exact transposed level schedules).  The
+AMG hierarchies have no transpose apply and are refused for them, as in
+JAX.
+
 ``dist_solve_multi`` / ``dist_solve_ir_multi`` take B (n, k): blocks are
 the (P, R, k) view of the (n, k) layout of ``ops/spmv.py``, so every DIA
 product and every Neumann sweep is one launch of K4k for all shards and
@@ -39,16 +47,17 @@ from lssp_tpu_torch.config import (
     Defaults, PCOptions, SolverOptions, resolve_device, smoother_degree,
 )
 from lssp_tpu_torch.ops.trisolve import (
-    default_ilu_sweeps, ilu_apply, level_schedule, neumann_exact_depth,
+    default_ilu_sweeps, ilu_apply, ilu_apply_t, ilu_transpose_schedules, level_schedule,
+    neumann_exact_depth,
 )
 from lssp_tpu_torch.parallel.dist_ops import (
-    _dia_local_spmv, make_dist_spmv, make_psum_dot,
+    OpWithTranspose, _dia_local_spmv, make_dist_spmv, make_dist_spmv_t, make_psum_dot,
 )
 from lssp_tpu_torch.parallel.partition import DistDIA, partition_matrix
 from lssp_tpu_torch.pc.ilu_host import iluk_factor, ilut_factor
 from lssp_tpu_torch.solvers.base import SolveInfo, norm
 from lssp_tpu_torch.solvers.facade import (
-    _memo, reject_block_method, validate_block, validate_system,
+    _memo, needs_transpose_pc, reject_block_method, validate_block, validate_system,
 )
 from lssp_tpu_torch.solvers.refine import _inner_plan, _pc_options_key, refine_multi
 from lssp_tpu_torch.solvers.registry import get_batched_solver, get_block_solver, get_solver
@@ -135,16 +144,37 @@ def _entry_offsets(S: CSR, R: int) -> np.ndarray:
 @dataclasses.dataclass(frozen=True)
 class _DistNeumannILU:
     """Per-shard strict factors on the union offset set, for Neumann sweeps
-    that each stream one shard-local band (kernel K4 on CUDA)."""
+    that each stream one shard-local band (kernel K4 on CUDA).  ``Lt`` and
+    ``Ut`` (set for a transpose method) are the shard-local transposes of
+    ``L`` and ``U``, the bands of the M⁻ᵀ sweeps."""
 
     L: DistDIA              # strict lower, data (P, ndl, R)
     U: DistDIA              # strict upper scaled by 1/diag, (P, ndu, R)
     invdiag: Any            # (P, R)
     sweeps: int
+    Lt: Optional[DistDIA] = None
+    Ut: Optional[DistDIA] = None
 
     def to(self, device) -> "_DistNeumannILU":
+        def move(T):
+            return None if T is None else T.to(device)
         return dataclasses.replace(self, L=self.L.to(device), U=self.U.to(device),
-                                   invdiag=self.invdiag.to(device))
+                                   invdiag=self.invdiag.to(device), Lt=move(self.Lt),
+                                   Ut=move(self.Ut))
+
+
+def shard_transpose(T: DistDIA) -> DistDIA:
+    """The shard-local transpose of a block-diagonal DistDIA (no entry
+    crosses a shard): diagonal off becomes −off, its row r moved to row
+    r + off.  Values move only, so they equal ``T``'s bitwise."""
+    P, nd, R = T.data.shape
+    offs = tuple(sorted(-o for o in T.offsets))
+    data = T.data.new_zeros((P, nd, R))
+    for d, off in enumerate(T.offsets):
+        lo, hi = max(0, -off), min(R, R - off)
+        if hi > lo:
+            data[:, offs.index(-off), lo + off:hi + off] = T.data[:, d, lo:hi]
+    return DistDIA(data, offs, T.n, T.nshards)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,10 +291,14 @@ def _build_dist_amg_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, device, sa_
                                   grid=sa_grid, degree=degree, dtype=dtype, device=device)
 
 
+TRANSPOSE_PCS = (None, "none", "jacobi", "bjilu", "iluk", "ilu0", "ilut")
+
+
 def _build_dist_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, R: int, device,
                    sa_grid=False):
     """``(kind, state)`` with the state's tensors on ``device``; ``kind``
-    selects the apply in ``_shard_pc_apply``."""
+    selects the apply in ``_shard_pc_apply``.  ``pc_opts.transpose`` also
+    builds the shard-local M⁻ᵀ state of block-Jacobi ILU."""
     if pc_type in (None, "none"):
         return "none", None
     if pc_type == "jacobi":
@@ -288,13 +322,24 @@ def _build_dist_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, R: int, device,
         sweeps = default_ilu_sweeps(device)
     if sweeps:
         st = _build_dist_ilu_neumann(factors, Pn, R, sweeps)
+        if isinstance(st, _DistNeumannILUDyn):
+            return "ilu_nmd", st.to(device)
         if st is not None:
-            return ("ilu_nmd" if isinstance(st, _DistNeumannILUDyn) else "ilu_nm"), st.to(device)
+            st = st.to(device)
+            if pc_opts.transpose:
+                st = dataclasses.replace(st, Lt=shard_transpose(st.L), Ut=shard_transpose(st.U))
+            return "ilu_nm", st
         warnings.warn("distributed ILU: a single shard's factor exceeds the streaming "
                       "diagonal cap; falling back to exact level schedules (slow); "
                       "consider RCM ordering or more shards", RuntimeWarning, stacklevel=3)
-    return "ilu", [(level_schedule(L, lower=True, device=device),
-                    level_schedule(U, lower=False, device=device)) for L, U in factors]
+    state = []
+    for L, U in factors:
+        scheds = (level_schedule(L, lower=True, device=device),
+                  level_schedule(U, lower=False, device=device))
+        if pc_opts.transpose:
+            scheds += ilu_transpose_schedules(L, U, device=device)
+        state.append(scheds)
+    return "ilu", state
 
 
 def _sweep_repeat(step, k: int, x0):
@@ -319,7 +364,10 @@ def _shard_pc_apply(kind, state, Pn: int, R: int, op=None, cycles: int = 1):
     runs ``cycles`` V-cycles, each after the first on the residual through
     the distributed operator ``op``."""
     if kind == "none":
-        return lambda r: r
+        def identity(r):
+            return r
+        identity.t = identity
+        return identity
     if kind in ("amg", "saamg"):
         if kind == "amg":
             from lssp_tpu_torch.parallel.dist_amg import dist_vcycle as vcycle
@@ -341,7 +389,10 @@ def _shard_pc_apply(kind, state, Pn: int, R: int, op=None, cycles: int = 1):
         return t[..., None] if r.ndim == 2 else t
 
     if kind == "jacobi":
-        return lambda r: (per_row(state, r) * shards(r)).view(r.shape)
+        def jacobi(r):
+            return (per_row(state, r) * shards(r)).view(r.shape)
+        jacobi.t = jacobi                   # a diagonal scaling is symmetric
+        return jacobi
     if kind == "ilu_nm":
         st = state
 
@@ -351,11 +402,18 @@ def _shard_pc_apply(kind, state, Pn: int, R: int, op=None, cycles: int = 1):
             pad = (0, 0, T.lo, T.hi) if rhs.ndim == 3 else (T.lo, T.hi)
             return lambda y: _dia_local_spmv(T, F.pad(y, pad), -1.0, 1.0, rhs)
 
-        def fn(r):
-            r2 = shards(r)
-            y = _sweep_repeat(sweep(st.L, r2), st.sweeps, r2)
-            zr = per_row(st.invdiag, r) * y
-            return _sweep_repeat(sweep(st.U, zr), st.sweeps, zr).view(r.shape)
+        def apply(T0, T1):
+            def fn(r):
+                r2 = shards(r)
+                y = _sweep_repeat(sweep(T0, r2), st.sweeps, r2)
+                zr = per_row(st.invdiag, r) * y
+                return _sweep_repeat(sweep(T1, zr), st.sweeps, zr).view(r.shape)
+            return fn
+
+        fn = apply(st.L, st.U)
+        if st.Ut is not None:
+            # M⁻ᵀ: the same sweeps on the transposed bands, (D⁻¹Us)ᵀ first
+            fn.t = apply(st.Ut, st.Lt)
         return fn
     if kind == "ilu_nmd":
         st = state
@@ -370,18 +428,44 @@ def _shard_pc_apply(kind, state, Pn: int, R: int, op=None, cycles: int = 1):
             sh = v.gather(1, idx).view(data.shape)
             return (data * torch.where(valid, sh, 0.0)).sum(dim=1)
 
+        def stream_t(data, idx, valid, v):
+            # Σ_k data[k, j − off_k]·v[j − off_k]: each slot's products
+            # shifted by its offset (JAX's ``_stream_dyn_t``)
+            w = data[..., None] * v[:, None] if v.ndim == 3 else data * v[:, None]
+            ix = idx.view(data.shape)
+            if v.ndim == 3:
+                sh = w.gather(2, ix[..., None].expand(*ix.shape, v.shape[2]))
+                return torch.where(valid[..., None], sh, 0.0).sum(dim=1)
+            return torch.where(valid, w.gather(2, ix), 0.0).sum(dim=1)
+
         def fn(r):
             r2 = shards(r)
             y = _sweep_repeat(lambda y: r2 - stream(st.Ldata, iL, vL, y), st.sweeps, r2)
             zr = per_row(st.invdiag, r) * y
             return _sweep_repeat(lambda z: zr - stream(st.Udata, iU, vU, z),
                                  st.sweeps, zr).view(r.shape)
+        iLt, vLt = _dyn_index(-st.Loff, R)
+        iUt, vUt = _dyn_index(-st.Uoff, R)
+
+        def fn_t(r):
+            r2 = shards(r)
+            w = _sweep_repeat(lambda w: r2 - stream_t(st.Udata, iUt, vUt, w), st.sweeps, r2)
+            zr = per_row(st.invdiag, r) * w
+            return _sweep_repeat(lambda z: zr - stream_t(st.Ldata, iLt, vLt, z),
+                                 st.sweeps, zr).view(r.shape)
+        fn.t = fn_t
         return fn
     if kind == "ilu":
         def fn(r):
             r2 = shards(r)
-            return torch.stack([ilu_apply(sl, su, r2[p])
-                                for p, (sl, su) in enumerate(state)]).view(r.shape)
+            return torch.stack([ilu_apply(sc[0], sc[1], r2[p])
+                                for p, sc in enumerate(state)]).view(r.shape)
+        if state and len(state[0]) == 4:
+            def fn_t(r):
+                r2 = shards(r)
+                return torch.stack([ilu_apply_t(sc[2], sc[3], r2[p])
+                                    for p, sc in enumerate(state)]).view(r.shape)
+            fn.t = fn_t
         return fn
     raise ValueError(kind)
 
@@ -516,6 +600,11 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
         fn, solver_opts = get_block_solver(method) or get_batched_solver(method), opts
     else:
         fn, solver_opts = get_solver(method), opts
+    if needs_transpose_pc(method):
+        if pc not in TRANSPOSE_PCS:
+            raise ValueError(f"distributed {method} supports pc in (none, jacobi, bjilu/ilu*): "
+                             f"{pc!r} has no distributed transpose apply")
+        pc_opts = dataclasses.replace(pc_opts, transpose=True)
     mesh = mesh or make_mesh()
     Pn, device = mesh.size, mesh.device
     dtype = torch.float64 if ir else torch.promote_types(torch_dtype(A.dtype), b.dtype)
@@ -537,6 +626,8 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
     if x0 is None:
         x0 = torch.zeros_like(b)
     op = make_dist_spmv(prep["M"])
+    if needs_transpose_pc(method):
+        op = OpWithTranspose(op, make_dist_spmv_t(prep["M"]))
     pc_apply = _shard_pc_apply(prep["kind"], prep["pc_state"], Pn, R, op=op,
                                cycles=max(1, int(pc_opts.amg_cycles)))
     if ir and multi:

@@ -86,3 +86,15 @@ def _setup_jacobi(A, opts, device):
     inv = torch.from_numpy((opts.omega / d).astype(A.data.dtype)).to(device)
     return Preconditioner(_jacobi_apply, state=inv, name="jacobi",
                           apply_t_fn=_jacobi_apply)
+
+
+@register_pc("user")
+def _setup_user(A, opts, device):
+    """Caller-supplied hooks (reference LSSP_PC_USER, pc.cxx:219-227):
+    ``PCOptions.user_setup(A)`` builds the state from the host matrix (none
+    when unset) and ``user_apply(state, r)`` applies M⁻¹.  No M⁻ᵀ is
+    installed: a transpose method needs an ``M`` with a ``.t``."""
+    if opts.user_apply is None:
+        raise ValueError("user PC requires PCOptions.user_apply")
+    state = opts.user_setup(A) if opts.user_setup is not None else ()
+    return Preconditioner(opts.user_apply, state=state, name="user")

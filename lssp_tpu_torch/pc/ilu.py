@@ -3,7 +3,9 @@
 contract lssp_pc_ilu_solve, solver-tri.cxx:48-60)."""
 from __future__ import annotations
 
-from lssp_tpu_torch.ops.neumann import fused_neumann_apply, plan_fused_neumann
+from lssp_tpu_torch.ops.neumann import (
+    fused_neumann_apply, plan_fused_neumann, plan_fused_neumann_t,
+)
 from lssp_tpu_torch.ops.trisolve import (
     default_ilu_sweeps, ilu_apply, ilu_apply_t, ilu_transpose_schedules,
     level_schedule, neumann_exact_depth,
@@ -23,13 +25,23 @@ def _ilu_apply_t_fn(state, r):
     return ilu_apply_t(state[2], state[3], r)
 
 
+def _fused_apply_fn(state, r):
+    return fused_neumann_apply(state[0], r)
+
+
+def _fused_apply_t_fn(state, r):
+    return fused_neumann_apply(state[1], r)
+
+
 def make_ilu_pc(L, U, name, sweeps=None, transpose=False, device="cpu"):
     """Wrap host L/U factors as a Preconditioner with its state on ``device``.
 
     sweeps=0: exact level-scheduled triangular solves.
     sweeps>0: k Neumann sweeps per factor through kernel K2
-    (``fused_neumann_apply``); ``transpose`` raises there, because the
-    Neumann M⁻ᵀ apply waits for the transpose SpMV (ROADMAP A3, A5).
+    (``fused_neumann_apply``); ``transpose`` also builds the transposed
+    plan (``plan_fused_neumann_t``), so that M⁻ᵀ is K2's apply on it
+    (JAX keeps this apply in XLA; the plan costs the factors' bytes once
+    more on the device, so it is built only when asked).
     sweeps=-1: exact through the complete Neumann series (the strict factors
     are nilpotent, so their dependency depth in sweeps is exact).
     sweeps=None: 6 on CUDA, exact on the CPU."""
@@ -43,12 +55,12 @@ def make_ilu_pc(L, U, name, sweeps=None, transpose=False, device="cpu"):
             tris.append((S.indptr, S.indices, T.shape[0], lower))
         sweeps = neumann_exact_depth(tris)
     if sweeps > 0:
-        if transpose:
-            raise NotImplementedError(
-                f"{name}: the M⁻ᵀ apply with ilu_sweeps={sweeps} needs the transpose "
-                "SpMV, not ported yet (ROADMAP A3, A5); use ilu_sweeps=0")
         plan = plan_fused_neumann(L, U, sweeps, device=device)
-        return Preconditioner(fused_neumann_apply, state=plan, name=f"{name}-fn{sweeps}")
+        if not transpose:
+            return Preconditioner(fused_neumann_apply, state=plan, name=f"{name}-fn{sweeps}")
+        return Preconditioner(_fused_apply_fn, state=(plan, plan_fused_neumann_t(
+            L, U, sweeps, device=device)), name=f"{name}-fn{sweeps}",
+            apply_t_fn=_fused_apply_t_fn)
     state = (level_schedule(L, lower=True, device=device),
              level_schedule(U, lower=False, device=device))
     if transpose:

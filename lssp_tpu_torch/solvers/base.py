@@ -15,7 +15,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from lssp_tpu_torch.ops.spmv import spmv
+from lssp_tpu_torch.ops.spmv import spmv, spmv_t
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +64,36 @@ def operator(A) -> Callable:
     if callable(A) and not hasattr(A, "shape"):
         return A
     return lambda v: spmv(A, v)
+
+
+def operator_t(A) -> Callable:
+    """Wrap a matrix container as x ↦ Aᵀ@x (bicg, qmr, cgnr, lsqr).  A
+    callable gives its transpose as a ``t_op`` attribute
+    (``parallel/dist_ops.OpWithTranspose``); one without raises."""
+    if callable(A) and not hasattr(A, "shape"):
+        t_op = getattr(A, "t_op", None)
+        if t_op is not None:
+            return t_op
+        raise TypeError("transpose-based solvers need a matrix container or an operator "
+                        "with a .t_op transpose attribute; otherwise use a transpose-free "
+                        "method")
+    return lambda v: spmv_t(A, v)
+
+
+def pc_transpose(M) -> Callable:
+    """The M⁻ᵀ apply of a preconditioner: its ``t`` attribute (a
+    ``Preconditioner``'s raises when none was installed).  A bare callable
+    without ``t`` raises too: reusing M⁻¹ would corrupt the two-sided
+    recurrences for a nonsymmetric M (a symmetric callable says so with
+    ``M.t = M``)."""
+    if M is None:
+        return identity_pc
+    t = getattr(M, "t", None)
+    if t is not None:
+        return t
+    raise TypeError("transpose-based solvers need a preconditioner with an M^-T apply; "
+                    "this callable M has no .t attribute: attach one (M.t = M if M is "
+                    "symmetric) or use a transpose-free method (gmres/bicgstab/...)")
 
 
 def stopping_tol(r0norm: float, bnorm: float, opts) -> float:

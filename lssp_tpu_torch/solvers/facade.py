@@ -31,13 +31,36 @@ from lssp_tpu_torch.sparse.types import BDIA, BSR, COO, CSR, DIA, ELL, HYB, nump
 from lssp_tpu_torch.sparse.utils import sort_columns
 
 
+# the methods that apply M⁻ᵀ (and Aᵀ): every entry point builds their
+# preconditioner with PCOptions(transpose=True)
+TRANSPOSE_METHODS = frozenset(("bicg", "qmr", "cgnr", "cgn", "lsqr"))
+# the methods that take a rectangular A (least squares)
+_RECTANGULAR_OK = frozenset(("lsqr",))
+
+
+def needs_transpose_pc(method: str) -> bool:
+    """Whether ``method`` applies M⁻ᵀ: its PC is built with the transpose
+    apply (``PCOptions(transpose=True)``), one list for every entry point."""
+    return method.lower() in TRANSPOSE_METHODS
+
+
+def transpose_options(method: str, pc_options):
+    """``pc_options`` with ``transpose=True`` for a transpose method, else
+    as given."""
+    if not needs_transpose_pc(method):
+        return pc_options
+    return dataclasses.replace(pc_options or PCOptions(), transpose=True)
+
+
 def validate_system(A, b, method: str):
     """The reference's assemble-time checks (square operator, matching rhs
-    length; lssp.cxx:147-160).  Returns b as a tensor, cast to float64 when
-    it is not floating point."""
+    length; lssp.cxx:147-160); ``lsqr`` also takes a rectangular A.
+    Returns b as a tensor, cast to float64 when it is not floating point."""
     shape = getattr(A, "shape", None)
-    if shape is not None and len(shape) == 2 and shape[0] != shape[1]:
-        raise ValueError(f"method={method!r} needs a SQUARE matrix, got {shape}")
+    if shape is not None and len(shape) == 2 and shape[0] != shape[1] \
+            and method.lower() not in _RECTANGULAR_OK:
+        raise ValueError(f"method={method!r} needs a SQUARE matrix, got {shape}; use "
+                         "method='lsqr' for least-squares systems")
     if b is None:
         return None
     b = torch.as_tensor(b)
@@ -51,11 +74,13 @@ def validate_system(A, b, method: str):
     return b
 
 
-def validate_block(A, B, entry: str):
+def validate_block(A, B, entry: str, method: str = ""):
     """``validate_system`` for a multi-rhs solve: B must be (n, k) with the
-    matrix's row count; an integer B is cast to float64."""
+    matrix's row count (``lsqr`` takes a rectangular A); an integer B is
+    cast to float64."""
     shape = getattr(A, "shape", None)
-    if shape is not None and len(shape) == 2 and shape[0] != shape[1]:
+    if shape is not None and len(shape) == 2 and shape[0] != shape[1] \
+            and method.lower() not in _RECTANGULAR_OK:
         raise ValueError(f"{entry} needs a SQUARE matrix, got {shape}")
     B = torch.as_tensor(B)
     if B.ndim != 2:
@@ -212,9 +237,10 @@ def _prepare_matrix(A, reorder="auto", device="cpu"):
         host = sort_columns(coo_to_csr(A) if isinstance(A, COO) else A)
         perm = None
         permuted, p = None, None
-        if reorder == "rcm":
+        square = host.shape[0] == host.shape[1]     # a rectangular A (lsqr) keeps its order
+        if square and reorder == "rcm":
             permuted, p = maybe_rcm(host)
-        elif hier:
+        elif square and hier:
             permuted, p = _maybe_hierarchy(host, reorder)
         if p is not None:
             host, perm = permuted, torch.from_numpy(p).to(device)
@@ -257,14 +283,18 @@ def _setup_pc(A_host, pc, pc_options, dtype, device):
 def _as_system(A_dev, b, x0, dtype, device):
     """The matrix, b and x0 on ``device`` in ``dtype``; a block b and x0
     are made contiguous here, at the API boundary, as the k-rhs kernels
-    take no other layout."""
+    take no other layout.  x0 lives in the column space: ``A.shape[1]``
+    rows, which differs from b's for a rectangular A (lsqr)."""
     if isinstance(A_dev, _EXEC_FORMATS) and A_dev.dtype != dtype:
         A_dev = A_dev.to(dtype=dtype)
     b = b.to(device=device, dtype=dtype).contiguous()
-    x0 = (torch.zeros_like(b) if x0 is None
+    shape = getattr(A_dev, "shape", None)
+    xshape = ((shape[1] if shape is not None else b.shape[0]),) + tuple(b.shape[1:])
+    x0 = (b.new_zeros(xshape) if x0 is None
           else torch.as_tensor(x0).to(device=device, dtype=dtype).contiguous())
-    if x0.shape != b.shape:
-        raise ValueError(f"x0 must match the rhs shape {tuple(b.shape)}, got {tuple(x0.shape)}")
+    if tuple(x0.shape) != xshape:
+        raise ValueError(f"x0 must have shape {xshape} (the matrix's columns), got "
+                         f"{tuple(x0.shape)}")
     return A_dev, b, x0
 
 
@@ -294,7 +324,7 @@ def solve(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
     A_host, A_dev, perm, _ = _prepare_matrix(A, reorder=reorder, device=device)
     dtype = _system_dtype(A_dev, b)
     if M is None and pc not in (None, "none"):
-        M = _setup_pc(A_host, pc, pc_options, dtype, device)
+        M = _setup_pc(A_host, pc, transpose_options(method, pc_options), dtype, device)
     A_dev, b, x0 = _as_system(A_dev, b, x0, dtype, device)
     x, info = get_solver(method)(A_dev, _permute(b, perm), _permute(x0, perm), M, opts=opts)
     return _unpermute(x, perm), info
@@ -316,12 +346,12 @@ def solve_multi(A, B, X0=None, method: str = "cg", pc: Optional[str] = "none",
     ``reorder="rcm"`` permutes B's rows."""
     opts = (options or SolverOptions()).resolved()
     device = resolve_device(device, B)
-    B = validate_block(A, B, "solve_multi")
+    B = validate_block(A, B, "solve_multi", method)
     reorder = resolve_reorder(pc, pc_options, reorder)
     A_host, A_dev, perm, _ = _prepare_matrix(A, reorder=reorder, device=device)
     dtype = _system_dtype(A_dev, B)
     if M is None and pc not in (None, "none"):
-        M = _setup_pc(A_host, pc, pc_options, dtype, device)
+        M = _setup_pc(A_host, pc, transpose_options(method, pc_options), dtype, device)
     A_dev, B, X0 = _as_system(A_dev, B, X0, dtype, device)
     return _run_multi(method, A_dev, M, B, X0, perm, opts)
 
@@ -388,7 +418,8 @@ class Solver:
         self.dtype = (_system_dtype(self.A_dev, b) if b is not None
                       else getattr(self.A_dev, "dtype", torch.float64))
         if self.pc_type not in (None, "none"):
-            self.M = _setup_pc(self.A_host, self.pc_type, self.pc_options,
+            self.M = _setup_pc(self.A_host, self.pc_type,
+                               transpose_options(self.method, self.pc_options),
                                self.dtype, self.device)
         if b is not None:
             self.b = b
@@ -434,7 +465,7 @@ class Solver:
         per-column SolveInfo and returns X."""
         if not self.assembled:
             raise RuntimeError("call assemble() first")
-        B = validate_block(self.A_dev, B, "Solver.solve_multi")
+        B = validate_block(self.A_dev, B, "Solver.solve_multi", self.method)
         A_dev, B, X0 = _as_system(self.A_dev, B, X0, self.dtype, self.device)
         self.x, self.info = _run_multi(self.method, A_dev, self.M, B, X0, self.perm,
                                        self.options.resolved())

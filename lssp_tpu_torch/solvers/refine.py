@@ -25,8 +25,8 @@ from lssp_tpu_torch.config import PCOptions, SolverOptions, resolve_device
 from lssp_tpu_torch.ops.spmv import spmv
 from lssp_tpu_torch.solvers.base import norm, SolveInfo, to_host
 from lssp_tpu_torch.solvers.facade import (
-    _permute, _prepare_matrix, _unpermute, reject_block_method,
-    resolve_reorder, validate_block, validate_system,
+    _permute, _prepare_matrix, _unpermute, needs_transpose_pc, reject_block_method,
+    resolve_reorder, transpose_options, validate_block, validate_system,
 )
 from lssp_tpu_torch.solvers.registry import get_batched_solver, get_block_solver, get_solver
 from lssp_tpu_torch.sparse.types import numpy_dtype
@@ -57,8 +57,11 @@ def prepare_ir(A, method: str = "gmres", pc: Optional[str] = "none",
     inner-precision preconditioner from the (reordered) host matrix,
     memoized on the container so a following ``solve_ir`` finds everything
     cached.  Returns (A_host, A64, A32, perm, M32); ``perm`` as in
-    ``facade._prepare_matrix``.  ``device``: None is the current CUDA
-    device (no CUDA device raises: pass ``device="cpu"``)."""
+    ``facade._prepare_matrix``.  A transpose method (``needs_transpose_pc``)
+    gets its PC with the M⁻ᵀ apply, under a memo key of its own: a
+    forward-only PC cached by an earlier solve is never handed to it.
+    ``device``: None is the current CUDA device (no CUDA device raises:
+    pass ``device="cpu"``)."""
     device = resolve_device(device)
     reorder = resolve_reorder(pc, pc_options, reorder)
     A_host, A_dev, perm, cache = _prepare_matrix(A, reorder=reorder, device=device)
@@ -68,14 +71,18 @@ def prepare_ir(A, method: str = "gmres", pc: Optional[str] = "none",
     if mat_key not in cache:
         cache[mat_key] = (A_dev.to(dtype=torch.float64), A_dev.to(dtype=inner_dtype))
     A64, A32 = cache[mat_key]
-    pc_key = ("ir-pc", mat_key, pc, _pc_options_key(pc_options))
+    transpose = needs_transpose_pc(method)
+    pc_key = ("ir-pc", mat_key, pc, transpose, _pc_options_key(pc_options))
     if pc_key not in cache:
         M32 = None
         if pc not in (None, "none"):
-            M32 = pc_mod.setup(A_host.astype(numpy_dtype(inner_dtype)), pc, pc_options,
-                               device=device)
+            M32 = pc_mod.setup(A_host.astype(numpy_dtype(inner_dtype)), pc,
+                               transpose_options(method, pc_options), device=device)
         cache[pc_key] = M32
     return A_host, A64, A32, perm, cache[pc_key]
+
+
+NORMAL_EQUATION_METHODS = ("cgnr", "cgn", "lsqr")
 
 
 def _inner_plan(method, opts, inner_rtol, multi=False):
@@ -83,7 +90,12 @@ def _inner_plan(method, opts, inner_rtol, multi=False):
 
     The inner cap bounds a round that stalls on the fp32 floor just above
     inner_rtol (the outer loop collects the progress either way): 2 restart
-    cycles for GMRES and block GMRES, 200 iterations otherwise.  Inner
+    cycles for GMRES and block GMRES, 200 iterations otherwise, as in JAX.
+    The normal-equation methods (cgnr, cgn, lsqr) take the whole ``maxit``
+    instead: they converge slowly on the squared condition number rather
+    than stall, and a capped round throws their Krylov space away (JAX's
+    200 leaves 128³ + ILU(0) at relres 1.6e-2 after 20 rounds, 4,000 inner
+    iterations; ``scripts/jax_krylov_reference.py 28``).  Inner
     GMRES is the right-preconditioned variant, whose Givens estimate does
     not stall on the fp32 floor the left variant hits with strong
     preconditioners; lgmres runs as rlgmres for the same reason, and
@@ -95,7 +107,8 @@ def _inner_plan(method, opts, inner_rtol, multi=False):
     key = method.lower()
     gmres_like = key in ("gmres", "rgmres", "lgmres", "rlgmres", "fgmres", "cagmres",
                          "cargmres", "blockgmres", "block_gmres")
-    inner_cap = max(2 * opts.restart, 64) if gmres_like else 200
+    inner_cap = (max(2 * opts.restart, 64) if gmres_like
+                 else opts.maxit if key in NORMAL_EQUATION_METHODS else 200)
     inner_opts = dataclasses.replace(opts, rtol=inner_rtol, atol=0.0, rbtol=0.0,
                                      maxit=min(opts.maxit, inner_cap))
     if key in ("blockgmres", "block_gmres"):
@@ -158,7 +171,7 @@ def solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
                                         inner_dtype=inner_dtype, reorder=reorder,
                                         device=device)
     b = _permute(b.to(device=device, dtype=torch.float64), perm)
-    x = (torch.zeros_like(b) if x0 is None
+    x = (b.new_zeros(A64.shape[1]) if x0 is None     # the column space (lsqr)
          else _permute(torch.as_tensor(x0).to(device=device, dtype=torch.float64), perm))
     bnorm = norm(b).item()
     tol = max(opts.rtol * bnorm, opts.atol)
@@ -170,7 +183,7 @@ def solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
     while res > tol and outer < max_outer:
         scale = res if res != 0.0 else 1.0
         r32 = (r / scale).to(inner_dtype)
-        d32, info = fn(A32, r32, torch.zeros_like(r32), M32, opts=inner_opts)
+        d32, info = fn(A32, r32, r32.new_zeros(A32.shape[1]), M32, opts=inner_opts)
         x = x + d32.to(torch.float64) * scale
         r = b - spmv(A64, x)
         res = norm(r).item()
@@ -202,20 +215,21 @@ def solve_ir_multi(A, B, X0=None, method: str = "blockgmres", pc: Optional[str] 
     (kernels K1k-K3k on CUDA).  Other arguments as in ``solve_ir``."""
     opts = (options or SolverOptions()).resolved()
     device = resolve_device(device, B)
-    B = validate_block(A, B, "solve_ir_multi")
+    B = validate_block(A, B, "solve_ir_multi", method)
     fn, inner_opts = _inner_plan(method, opts, inner_rtol, multi=True)
     _, A64, A32, perm, M32 = prepare_ir(A, method=method, pc=pc, pc_options=pc_options,
                                         inner_dtype=inner_dtype, reorder=reorder,
                                         device=device)
     B = _permute(B.to(device=device, dtype=torch.float64), perm).contiguous()
-    X = (torch.zeros_like(B) if X0 is None
+    X = (B.new_zeros(A64.shape[1], B.shape[1]) if X0 is None
          else _permute(torch.as_tensor(X0).to(device=device, dtype=torch.float64),
                        perm).contiguous())
-    if X.shape != B.shape:
-        raise ValueError(f"X0 must match B's shape {tuple(B.shape)}, got {tuple(X.shape)}")
+    if X.shape != (A64.shape[1], B.shape[1]):
+        raise ValueError(f"X0 must have shape {(A64.shape[1], B.shape[1])}, got "
+                         f"{tuple(X.shape)}")
 
     def inner(R32):
-        return fn(A32, R32, torch.zeros_like(R32), M32, opts=inner_opts)
+        return fn(A32, R32, R32.new_zeros(A32.shape[1], R32.shape[1]), M32, opts=inner_opts)
 
     X, info = refine_multi(lambda V: spmv(A64, V), inner, B, X, opts, max_outer,
                            inner_dtype, norm)

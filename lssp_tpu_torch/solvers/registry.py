@@ -67,7 +67,8 @@ def _populate():
     import importlib
     for mod in ("cg", "gmres", "bicgstab", "bicgstabl", "bicgsafe", "cgs", "gpbicg",
                 "cr", "crs", "bicrstab", "bicrsafe", "gpbicr", "qmrcgstab", "tfqmr",
-                "orthomin", "idrs", "lgmres", "minres", "fgmres"):
+                "orthomin", "idrs", "lgmres", "minres", "fgmres", "bicg", "qmr", "cgnr",
+                "lsqr"):
         importlib.import_module(f"lssp_tpu_torch.solvers.{mod}")
 
 

@@ -21,8 +21,10 @@ def _round_up(x: int, m: int) -> int:
 
 def csr_entry_offsets(indptr, indices, n):
     """Per-entry diagonal offsets (col − row) and their sorted unique set,
-    by a counting pass.  Returns ``(rows, d, offs)``, int32 when 2n < 2³¹.
-    Square matrices only: offsets must lie in [-(n-1), n-1]."""
+    by a counting pass, for a matrix of ``n`` rows.  Returns ``(rows, d,
+    offs)``, int32 when 2n < 2³¹.  Offsets must lie in [-(n-1), n-1]: a
+    square or tall matrix always qualifies, a wide one whose columns pass
+    its row count raises ``ValueError``."""
     ip = np.asarray(indptr)
     it = np.int32 if 2 * n < 2**31 else np.int64
     rows = np.repeat(np.arange(n, dtype=it), np.diff(ip))
@@ -244,7 +246,14 @@ def to_device_format(A: CSR, max_diags: int = 32, dia_fill: float = 2.0,
                      hyb_diags: int = 256, device="cpu"):
     """Pick the execution format for a CSR matrix, on ``device``: DIA when
     the diagonal count is small and the storage waste bounded (stencils),
-    HYB when a dominant band holds most entries, padded ELL otherwise."""
+    HYB when a dominant band holds most entries, padded ELL otherwise.
+
+    A rectangular matrix (lsqr) follows the same rule over its rows: a tall
+    one gets the format JAX gives it (the regularised least-squares system
+    [L; 0.1·I] becomes HYB, its band the two blocks' diagonals), and K1 and
+    K3 bound every read of x by the column count; a wide one whose offsets
+    pass its row count goes to ELL.  ``ops/spmv.spmv_t`` returns
+    ``A.shape[1]`` entries for each of them."""
     n = A.shape[0]
     try:
         _, _, offs = csr_entry_offsets(A.indptr, A.indices, n)

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Iteration counts for the Krylov phases of ``chip_smoke.py`` (23 and 24):
-the JAX package's on the CPU, the reference the port's counts on the card
-are held to, and with ``--port`` the port's own.
+"""Iteration counts for the Krylov phases of ``chip_smoke.py`` (23, 24, 28
+and 29): the JAX package's on the CPU, the reference the port's counts on
+the card are held to, and with ``--port`` the port's own.
 
     JAX_PLATFORMS=cpu python3 scripts/jax_krylov_reference.py [--port [--device D]] [--ulp|--ulp32]
                                                               [23|24] [method ...]
+    JAX_PLATFORMS=cpu python3 scripts/jax_krylov_reference.py [--port [--device D]] [--ulp32]
+                                                              28|28cd|28tall|28hyb|28dist|29
+                                                              [cell ...]
     JAX_PLATFORMS=cpu python3 scripts/jax_krylov_reference.py --shadow
     JAX_PLATFORMS=cpu python3 scripts/jax_krylov_reference.py --ratchet-ulp [--part i/k] [key ...]
 
@@ -26,6 +29,36 @@ count that moves under such changes moves with rounding alone.  An fp64
 ulp of b mostly vanishes in the fp32 cast of the inner right-hand side;
 ``--ulp32`` raises the three entries by one fp32 ulp (1 + 2⁻²³) instead,
 a change of b that the fp32 inner solves see.
+
+The transpose and relaxation cells (``chip_smoke.py`` phases 28-29), each
+one JSON line with its count, whether it converged and the true relative
+residual (scipy):
+
+- ``28``: ``solve_ir`` + ILU(0) (6 sweeps; the transpose methods build the
+  M⁻ᵀ apply), rtol 1e-8, on the 3-D Laplacian 128³ for bicg, qmr, cgnr and
+  lsqr, cgnr and lsqr with the port's inner cap (``normal_equation_inner_cap``;
+  ``--jax-cap`` keeps JAX's, under which cgnr stops unconverged at 4,000
+  inner iterations after 12 min);
+- ``28cd``: bicg and qmr on the convection-diffusion 1024² (beta 20);
+- ``28tall``: ``solve`` lsqr, fp64, no PC, rtol 1e-8, on the Tikhonov
+  least-squares system [L; 0.1·I], L = ``laplacian_2d(1024)`` (2,097,152
+  × 1,048,576), b = A·1; JAX runs it through an ELL container, since its
+  own HYB route fails (``28hyb``); the line also gives ‖Aᵀ(b − Ax)‖ /
+  ‖Aᵀb‖;
+- ``28hyb``: JAX's own route for the same system at 128², which converts
+  it to HYB and fails in ``spmv_t`` (its DIA/HYB transpose product sizes
+  its output by the row count): the line records the error;
+- ``28dist``: ``dist_solve_ir`` bicg + bjilu and qmr + jacobi on 128³ over
+  an 8-slot mesh (8 virtual CPU devices for JAX), 6 sweeps;
+- ``29``: ``solve_ir`` (6 sweeps) on 128³ with the relaxation, polynomial
+  and Schwarz preconditioners: cg + ssor, poly and chebyshev; gmres(30) +
+  sor (ω 1.3), gs, ras, schwarz and bjacobi (512 blocks, overlap 8);
+  bicg + ssor and qmr + poly.  JAX's relaxation factors are kept in the
+  matrix's dtype (``relax_in_matrix_dtype``).
+
+Cells are named as ``chip_smoke.py`` prints them (``cgnr``, ``gmres30+ras``,
+``dist bicg+bjilu``, ...).  ``--ulp32`` gives a solve_ir cell's spread as
+for phases 23-24.
 
 ``--ratchet-ulp`` goes through the ``tests/golden/ratchet.json`` keys the
 port holds (N = 32 and N = 100 on the 2-D Laplacian, b = 1, restart 60,
@@ -49,6 +82,7 @@ an fp64 sum, and how far IDR(s)'s shadow space after MGS is from
 orthonormal in each package (``lssp_tpu/solvers/idrs.py:37-44`` orthogonalizes
 with ``jnp.dot``).
 """
+import importlib
 import json
 import os
 import sys
@@ -69,11 +103,52 @@ METHODS = ["cgs", "cr", "crs", "bicrstab", "bicgsafe", "bicrsafe", "gpbicg", "gp
 
 
 def jax_package():
+    if "28dist" in sys.argv and "xla_force_host_platform_device_count" not in \
+            os.environ.get("XLA_FLAGS", ""):
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                                   + " --xla_force_host_platform_device_count=8").strip()
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     import lssp_tpu
+    if "29" in sys.argv:
+        relax_in_matrix_dtype()
+    if "28" in sys.argv:
+        normal_equation_inner_cap()
     return jax, lssp_tpu
+
+
+def normal_equation_inner_cap():
+    """JAX's ``_inner_plan`` caps every non-GMRES inner solve at 200
+    iterations; cgnr and lsqr then restart their Krylov space each round and
+    at 128³ + ILU(0) end at relres 1.6e-2 after 20 rounds (4,000 inner
+    iterations).  The port gives them the whole maxit
+    (``lssp_tpu_torch/solvers/refine.py: _inner_plan``); for phase 28's
+    counts JAX's plan does too here, in this process only (``--jax-cap``
+    keeps JAX's own)."""
+    if "--jax-cap" in sys.argv:
+        return
+    import dataclasses
+    from lssp_tpu.solvers import refine
+    plan = refine._inner_plan
+
+    def patched(method, opts, inner_rtol):
+        fn, inner_opts = plan(method, opts, inner_rtol)
+        if method.lower() in ("cgnr", "cgn", "lsqr"):
+            inner_opts = dataclasses.replace(inner_opts, maxit=opts.maxit)
+        return fn, inner_opts
+    refine._inner_plan = patched
+
+
+def relax_in_matrix_dtype():
+    """JAX's ssor / sor / gs factors of a float32 matrix come out float64
+    (``lssp_tpu/pc/relax.py: _safe_diag`` promotes the diagonal), and its
+    fp32 ``solve_ir`` then stops with a dtype error in the inner loop
+    (ROADMAP C property 12).  For the phase 29 counts the clamp keeps the
+    diagonal's dtype here, in this process only, as the port does."""
+    from lssp_tpu.pc import relax
+    safe = relax._safe_diag
+    relax._safe_diag = lambda d: safe(d).astype(np.asarray(d).dtype)
 
 
 def jax_shadow(s, n, dtype):
@@ -166,6 +241,117 @@ def ratchet_ulp():
                               jax_max_over_limit=max(counts[1:]) > lim)), flush=True)
 
 
+IR_OPTS = dict(rtol=1e-8, atol=0.0, rbtol=0.0, maxit=2000)
+# chip_smoke.py phase 29: (cell, method, pc, restart, extra PCOptions)
+RELAX_CELLS = [("cg+ssor", "cg", "ssor", None, {}), ("cg+poly", "cg", "poly", None, {}),
+               ("cg+chebyshev", "cg", "chebyshev", None, {}),
+               ("gmres30+sor", "gmres", "sor", 30, {"omega": 1.3}),
+               ("gmres30+gs", "gmres", "gs", 30, {}), ("gmres30+ras", "gmres", "ras", 30, {}),
+               ("gmres30+schwarz", "gmres", "schwarz", 30, {}),
+               ("gmres30+bjacobi", "gmres", "bjacobi", 30, {}),
+               ("bicg+ssor", "bicg", "ssor", None, {}), ("qmr+poly", "qmr", "poly", None, {})]
+
+
+def tall_system(M, N):
+    """[L; 0.1·I] with L = laplacian_2d(N), in package M's CSR."""
+    import scipy.sparse as sp
+    L = M.sparse.laplacian_2d(N).to_scipy()
+    S = sp.vstack([L, 0.1 * sp.eye(L.shape[0], format="csr")]).tocsr()
+    S.sort_indices()
+    return M.sparse.CSR.from_scipy(S)
+
+
+def ir_cell(M, kw, A, method, pc, restart=None, **pco):
+    """A solve_ir cell: b ↦ (x, info)."""
+    opts = M.SolverOptions(**IR_OPTS, **({"restart": restart} if restart else {}))
+    pco = M.PCOptions(ilu_sweeps=6, **pco)
+    return lambda b: M.solve_ir(A, b, method=method, pc=pc, options=opts, pc_options=pco, **kw)
+
+
+def transpose_phase(M, phase, kw):
+    """(the system's name, A, [(cell, b ↦ (x, info))]) of a phase 28-29 key."""
+    if phase in ("28", "29"):
+        A = M.sparse.laplacian_3d(128)
+        if phase == "28":
+            cells = [(m, ir_cell(M, kw, A, m, "ilu0")) for m in ("bicg", "qmr", "cgnr", "lsqr")]
+        else:
+            cells = [(c, ir_cell(M, kw, A, m, pc, restart, **extra))
+                     for c, m, pc, restart, extra in RELAX_CELLS]
+        return "laplacian_3d(128)", A, cells
+    if phase == "28cd":
+        A = M.sparse.convection_diffusion_2d(1024)
+        return ("convection_diffusion_2d(1024)", A,
+                [(m, ir_cell(M, kw, A, m, "ilu0")) for m in ("bicg", "qmr")])
+    if phase in ("28tall", "28hyb"):
+        N = 1024 if phase == "28tall" else 128
+        A = tall_system(M, N)
+        opts = M.SolverOptions(rtol=1e-8, atol=0.0, rbtol=0.0, maxit=20000)
+        if M is T:
+            dev = A
+        elif phase == "28tall":             # the route JAX can take
+            dev = M.sparse.convert.csr_to_ell(A)
+        else:                               # JAX's own route: HYB
+            dev = M.sparse.convert.to_device_format(A)
+        return (f"[laplacian_2d({N}); 0.1 I]", A,
+                [("lsqr", lambda b: M.solve(dev, b, method="lsqr", options=opts, **kw))])
+    if phase == "28dist":
+        A = M.sparse.laplacian_3d(128)
+        if M is T:
+            mesh = T.make_mesh(8, devices=[DEVICE] * 8)
+        else:
+            from lssp_tpu.parallel.dist_solve import make_mesh
+            mesh = make_mesh(8)
+        opts = M.SolverOptions(**IR_OPTS)
+        dist = M.parallel.dist_solve_ir if M is T else \
+            importlib.import_module("lssp_tpu.parallel.dist_solve").dist_solve_ir
+        return "laplacian_3d(128)", A, [
+            (f"dist {m}+{pc}", (lambda m, pc: lambda b: dist(
+                A, b, method=m, pc=pc, mesh=mesh, options=opts,
+                pc_options=M.PCOptions(ilu_sweeps=6)))(m, pc))
+            for m, pc in (("bicg", "bjilu"), ("qmr", "jacobi"))]
+    raise ValueError(f"unknown phase {phase!r}")
+
+
+def run_transpose(M, kw, phases, only, bump, ulp):
+    for p in phases:
+        name, A, cells = transpose_phase(M, p, kw)
+        S = A.to_scipy()
+        tall = p in ("28tall", "28hyb")
+        for cell, run in cells:
+            if only and cell not in only:
+                continue
+            runs = []
+            for seed in ([None, 0, 1, 2] if ulp and not tall else [None]):
+                ones = S @ np.ones(S.shape[1]) if tall else np.ones(A.shape[0])
+                if seed is not None:        # three entries of b one ulp up
+                    ones[np.random.default_rng(seed).integers(0, A.shape[0], 3)] = bump
+                b = torch.from_numpy(ones).to(DEVICE) if PORT else ones
+                t0 = time.perf_counter()
+                try:
+                    x, info = run(b)
+                except Exception as e:      # 28hyb: JAX's own route fails
+                    runs.append(dict(error=f"{type(e).__name__}: {e}"[:300],
+                                     seconds=round(time.perf_counter() - t0, 1)))
+                    continue
+                x = x.cpu().numpy() if PORT else np.asarray(x)
+                r = ones - S @ x
+                out = dict(nits=int(info.nits), converged=bool(info.converged),
+                           relres=float(np.linalg.norm(r) / np.linalg.norm(ones)),
+                           seconds=round(time.perf_counter() - t0, 1))
+                if tall:
+                    out["normal_relres"] = float(np.linalg.norm(S.T @ r)
+                                                 / np.linalg.norm(S.T @ ones))
+                runs.append(out)
+            line = dict(package=M.__name__, device=DEVICE if PORT else "cpu", phase=p,
+                        matrix=name, cell=cell, **runs[0])
+            if len(runs) > 1:
+                line["ulp"] = [(r["nits"], r["converged"]) for r in runs[1:]]
+            print(json.dumps(line), flush=True)
+
+
+TRANSPOSE_PHASES = ("28", "28cd", "28tall", "28hyb", "28dist", "29")
+
+
 def main():
     if "--shadow" in sys.argv:
         return shadow()
@@ -184,7 +370,11 @@ def main():
     bump = float(np.nextafter(np.float32(1), np.float32(2))) if "--ulp32" in sys.argv \
         else np.nextafter(1.0, 2.0)
     args = [a for a in sys.argv[1:] if a not in ("--port", "--ulp", "--ulp32", "--device",
-                                                 DEVICE, "--jax-shadow")]
+                                                 DEVICE, "--jax-shadow", "--jax-cap")]
+    transpose = [a for a in args if a in TRANSPOSE_PHASES]
+    if transpose:
+        return run_transpose(M, kw, transpose, [a for a in args if a not in transpose], bump,
+                             ulp)
     only = [a for a in args if not a.isdigit()]
     opts = M.SolverOptions(rtol=1e-8, atol=0.0, rbtol=0.0, maxit=2000)
     pco = M.PCOptions(ilu_sweeps=6)

@@ -681,3 +681,74 @@ def test_block_pcs_on_cuda_match_cpu(cuda, pc, kw):
     assert info.converged and set(moved) == {"k1"}, moved
     assert abs(info.nits - ic.nits) <= 2, (info.nits, ic.nits)
     assert torch.linalg.vector_norm(x.cpu() - xc) <= 1e-8 * torch.linalg.vector_norm(xc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("level", [0, 1])
+def test_transposed_plan_on_cuda_matches_plain(cuda, level, dtype):
+    """K2 and K2k on the transposed plan (M⁻ᵀ) against its plain version,
+    one launch an apply."""
+    from lssp_tpu_torch.ops.neumann import plan_fused_neumann_t
+    A = lt.sparse.convection_diffusion_2d(40, beta=10.0)
+    L, U = iluk_factor(A, level=level)
+    plan = plan_fused_neumann_t(L, U, 6, dtype=dtype, device=cuda)
+    g = torch.Generator(device="cpu").manual_seed(level)
+    r = torch.rand(A.shape[0], generator=g, dtype=dtype).to(cuda)
+    R = torch.rand(A.shape[0], 4, generator=g, dtype=dtype).to(cuda)
+    before = (fused_neumann_apply.launches, neumann_block_apply.launches)
+    assert _rel(fused_neumann_apply(plan, r), neumann_apply_plain(plan, r)) <= TOL[dtype]
+    assert _rel(neumann_block_apply(plan, R), neumann_apply_plain(plan, R)) <= TOL[dtype]
+    assert (fused_neumann_apply.launches, neumann_block_apply.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("method,pc", [("bicg", "ssor"), ("qmr", "ilu0"), ("cgnr", "ilu0"),
+                                       ("lsqr", "iluk")])
+def test_transpose_solve_ir_on_cuda(cuda, method, pc):
+    """solve_ir with a transpose method on the card: K2 runs both M⁻¹ and
+    M⁻ᵀ, only K1 and K2 launch, and the count is within 15 % of the CPU's
+    (same 6 sweeps)."""
+    A = lt.sparse.convection_diffusion_2d(48, beta=10.0)
+    b = torch.ones(A.shape[0], dtype=torch.float64)
+    o = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0)
+    pco = lt.PCOptions(ilu_sweeps=6)
+    counters = (dia_spmv, fused_neumann_apply, hyb_spmv, dia_spmv_ext)
+    for fn in counters:
+        fn.launches = 0
+    x, info = lt.solve_ir(A, b.to(cuda), method=method, pc=pc, options=o, pc_options=pco)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    _, ref = lt.solve_ir(A, b, method=method, pc=pc, options=o, pc_options=pco)
+    assert info.converged and abs(info.nits - ref.nits) <= max(2, 0.15 * ref.nits)
+    assert launches["dia_spmv"] > 0 and launches["fused_neumann_apply"] >= 2 * info.nits
+    assert launches["hyb_spmv"] == launches["dia_spmv_ext"] == 0
+    assert np.linalg.norm(b.numpy() - A.to_scipy() @ x.cpu().numpy()) <= 1e-8 * 48 * 1.01
+
+
+def test_tall_lsqr_on_cuda_runs_k3(cuda):
+    """lsqr on the tall [L; 0.1·I] runs its forward product on K3 (HYB)
+    and gives the least-squares answer."""
+    L = lt.sparse.laplacian_2d(64).to_scipy()
+    S = sp.vstack([L, 0.1 * sp.eye(L.shape[0])]).tocsr()
+    A = lt.CSR.from_scipy(S)
+    b = torch.from_numpy(S @ np.ones(S.shape[1])).to(cuda)
+    before = hyb_spmv.launches
+    x, info = lt.solve(A, b, method="lsqr",
+                       options=lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=5000))
+    r = S @ np.ones(S.shape[1]) - S @ x.cpu().numpy()
+    assert info.converged and hyb_spmv.launches - before >= info.nits
+    assert np.linalg.norm(S.T @ r) <= 1e-6 * np.linalg.norm(S.T @ (S @ np.ones(S.shape[1])))
+
+
+def test_dist_transpose_on_cuda_launches_only_k4(cuda):
+    """dist_solve_ir bicg + bjilu over 8 shards of the card: the forward
+    product and both sweeps (M⁻¹, and M⁻ᵀ on the transposed bands) run K4."""
+    A = lt.sparse.laplacian_3d(16)
+    counters = (dia_spmv, fused_neumann_apply, hyb_spmv, dia_spmv_ext)
+    for fn in counters:
+        fn.launches = 0
+    x, info = lt.dist_solve_ir(A, torch.ones(A.shape[0], dtype=torch.float64, device=cuda),
+                               method="bicg", pc="bjilu",
+                               mesh=lt.make_mesh(8, devices=[cuda] * 8),
+                               options=lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0))
+    assert info.converged and dia_spmv_ext.launches >= 25 * info.nits
+    assert dia_spmv.launches == fused_neumann_apply.launches == hyb_spmv.launches == 0

@@ -286,9 +286,13 @@ def test_shadow_space_after_mgs(s, n, dt):
 
 # ---- the registry and the solve_ir inner plan ---------------------------------
 
+TRANSPOSE = ["bicg", "qmr", "cgnr", "cgn", "lsqr"]
+
+
 def test_registry_holds_the_ported_methods():
-    assert sorted(T.solvers.SOLVERS) == sorted(["cg", "gmres", "rgmres", "bicgstab"] + NEW)
-    for name in NEW:
+    assert sorted(T.solvers.SOLVERS) == sorted(["cg", "gmres", "rgmres", "bicgstab"] + NEW
+                                               + TRANSPOSE)
+    for name in NEW + TRANSPOSE:
         assert T.solvers.get_batched_solver(name) is T.solvers.get_solver(name)
 
 
@@ -299,11 +303,17 @@ def _names(fn, table):
 @pytest.mark.parametrize("method", sorted(set(T.solvers.SOLVERS) & set(J.solvers.SOLVERS))
                          + ["blockcg", "blockgmres"])
 def test_inner_plan_matches_jax(method):
+    """The same inner method and options as JAX's; the normal-equation
+    methods (cgnr, cgn, lsqr) alone take the whole maxit as their inner cap
+    where JAX caps them at 200 (``refine._inner_plan``)."""
     for restart in (20, 50):
         fj, oj = jrefine._inner_plan(method, J.SolverOptions(restart=restart).resolved(), 1e-3)
         ft, ot = trefine._inner_plan(method, T.SolverOptions(restart=restart).resolved(), 1e-3,
                                      multi=method.startswith("block"))
         assert _names(ft, T.solvers.SOLVERS) == _names(fj, J.solvers.SOLVERS)
+        if method in trefine.NORMAL_EQUATION_METHODS:
+            assert (oj.maxit, ot.maxit) == (200, T.SolverOptions().resolved().maxit)
+            oj = dataclasses.replace(oj, maxit=ot.maxit)
         assert dataclasses.asdict(ot) == dataclasses.asdict(oj)
 
 

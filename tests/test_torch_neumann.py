@@ -458,14 +458,19 @@ def test_wavefront_schedule_at_the_kernels_shapes():
 
 def test_ilu_pc_sweep_resolution():
     """ilu_sweeps None → exact on the CPU (the fused K2 plan on CUDA);
-    k > 0 → the K2 plan, also when transpose=True is asked for, which raises
-    because the Neumann M⁻ᵀ apply is not ported; a setup without transpose
-    raises on M.t instead of applying M⁻¹."""
+    k > 0 → the K2 plan, and with transpose=True also the transposed K2
+    plan, whose apply is M.t; a setup without transpose raises on M.t
+    instead of applying M⁻¹."""
+    from lssp_tpu_torch.ops.neumann import plan_fused_neumann_t
     A = T.sparse.laplacian_2d(8)
     assert T.pc.setup(A, "ilu0", device="cpu").name == "ilu0"
     assert T.pc.setup(A, "ilu0", T.PCOptions(ilu_sweeps=3), device="cpu").name == "ilu0-fn3"
-    with pytest.raises(NotImplementedError, match="transpose SpMV"):
-        T.pc.setup(A, "ilu0", T.PCOptions(ilu_sweeps=3, transpose=True), device="cpu")
+    Mn = T.pc.setup(A, "ilu0", T.PCOptions(ilu_sweeps=3, transpose=True), device="cpu")
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(64))
+    L, U = t_iluk(A, level=0)
+    assert Mn.name == "ilu0-fn3" and torch.equal(
+        Mn.t(r), neumann_apply_plain(plan_fused_neumann_t(L, U, 3), r))
+    assert torch.equal(Mn(r), neumann_apply_plain(plan_fused_neumann(L, U, 3), r))
     with pytest.raises(ValueError, match="transpose"):
         T.pc.setup(A, "ilu0", device="cpu").t(torch.ones(64, dtype=torch.float64))
     Mt = T.pc.setup(A, "ilu0", T.PCOptions(ilu_sweeps=0, transpose=True),

@@ -86,6 +86,6 @@ def test_unknown_names_list_the_registry():
     with pytest.raises(ValueError, match="available"):
         T.solve(A_T, torch.ones(N * N, dtype=torch.float64), pc="nosuch")
     assert sorted(T.solvers.SOLVERS) == [
-        "bicgsafe", "bicgstab", "bicgstabl", "bicrsafe", "bicrstab", "cg", "cgs", "cr", "crs",
-        "fgmres", "gmres", "gpbicg", "gpbicr", "idrs", "lgmres", "minres", "orthomin",
-        "qmrcgstab", "rgmres", "rlgmres", "tfqmr"]
+        "bicg", "bicgsafe", "bicgstab", "bicgstabl", "bicrsafe", "bicrstab", "cg", "cgn",
+        "cgnr", "cgs", "cr", "crs", "fgmres", "gmres", "gpbicg", "gpbicr", "idrs", "lgmres",
+        "lsqr", "minres", "orthomin", "qmr", "qmrcgstab", "rgmres", "rlgmres", "tfqmr"]
