@@ -156,8 +156,44 @@ The JAX CPU counts of phases 28-29 come from
 ``scripts/jax_krylov_reference.py 28 28cd 28tall 28dist 29`` (cgnr and
 lsqr with the port's inner cap, the ssor / sor / gs factors in the
 matrix's dtype; both are JAX defects the port does not copy, ROADMAP C).
+The direct solvers, ilutp, arms and the communication-avoiding methods
+(every kernel launch counter reset just before each solve, each phase's
+time printed):
+30. solve(method="direct") (pc="lu": AMD, the multifrontal LU on the host,
+   exact level-scheduled sweeps on the card) on the 2-D Laplacian 512²,
+   coupled3d_25 and convdiff_rot_128: nits 1, true relres ≤ 1e-9, x
+   against scipy's spsolve (≤ 1e-8 on the Laplacian), the factorization
+   split, the factor's nnz, the schedules' levels and slots, one apply's
+   time and device launches, only K1 / K3 (the residual products);
+   Solver(method="direct") on 512²: one numeric factorization for 3
+   right-hand sides and a k = 8 solve_multi whose columns equal their
+   single solves to 1e-12; solve_ir(method="direct"), the fp32 LU inner,
+   relres ≤ 1e-8; solve_lsq, qr (host Givens QR, run last) and normal
+   (the LU of AᵀA swept on the card), on [L; 0.1·I], L =
+   laplacian_2d(256) (131,072 × 65,536): ‖Aᵀ(b − Ax)‖ / ‖Aᵀb‖ ≤ 1e-10
+   and x within 1e-8 of spsolve(AᵀA, Aᵀb), x on the card;
+   K1 / K3 on the residuals' matrices at the path's dtypes;
+31. solve_ir gmres(30) + ilutp (6 sweeps) on coupled3d_25 and the
+   convection-diffusion 256², the columns the pivoting moved, K2 on the
+   permuted fp32 and fp64 plans and, through bicg + ilutp, on the
+   transposed plan; the tiny-diagonal pivot system at n = 128 through
+   solve gmres fp64, 6 sweeps (≤ JAX + 15 %) and exact (≤ 5), the
+   pivoting engaged; solve_ir gmres(30) + arms on the convection-diffusion
+   and the anisotropic (ε 0.01) 256², with the levels, the coarse n and
+   its schedule, the setup and one apply's time; solve_ir + ILU(0) on
+   128³ with cg, pipecg, gmres(30) and cagmres(30), pipecg's count minus
+   cg's;
+   dist_solve_ir pipecg + bjilu on 128³ over 8 shards: only K4, one
+   reduction over the shards an inner iteration (counted), K4 on its
+   partition; per column, solve_multi fp64 48³, k = 4, pipecg and cagmres.
+JAX cannot run phase 30's direct cells (its padded level schedules would
+need 1e9-1e12 slots; ROADMAP C property 14): they are held to scipy, and
+``scripts/jax_krylov_reference.py 30`` gives JAX's host factors'
+statistics there; phase 31's counts (``JAX_CPU_DIRECT``) come from
+``scripts/jax_krylov_reference.py 31``.
 ``python3 chip_smoke.py --only 28,29`` runs those two phases alone (a
-development run: no kernel line, no result line).  Then one step that no solve path uses
+development run: no kernel line, no result line), as ``--only 30,31``
+does phases 30-31.  Then one step that no solve path uses
 times, for each kernel of the JSON line at its shape there, the one
 PyTorch call that computes the same function (a ``torch.sparse_csr_tensor``
 product through cuSPARSE; 12 ``torch.addmm`` for a Neumann apply) as
@@ -1674,14 +1710,14 @@ class Timers:
             setattr(self.module, nm, fn)
 
 
-def check_k1_on(np, torch, dev, D, name):
+def check_k1_on(np, torch, dev, D, name, dtypes=None):
     """K1 against its plain version on one DIA in fp32 and fp64 (1e-5 /
-    1e-12); returns the max abs err."""
+    1e-12), or in ``dtypes``; returns the max abs err."""
     from lssp_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
     tol = {torch.float32: 1e-5, torch.float64: 1e-12}
     x64 = torch.from_numpy(np.random.default_rng(26).uniform(-1, 1, D.shape[1])).to(dev)
     worst = 0.0
-    for dtype in (torch.float32, torch.float64):
+    for dtype in dtypes or (torch.float32, torch.float64):
         Dd, x = D.to(dtype=dtype), x64.to(dtype)
         y, ref = dia_spmv(Dd, x), dia_spmv_plain(Dd.data, Dd.offsets, x)
         torch.cuda.synchronize()
@@ -1689,7 +1725,8 @@ def check_k1_on(np, torch, dev, D, name):
         check(bool(torch.isfinite(y).all()) and err <= tol[dtype],
               f"{name}: K1 {dtype} max rel err {err:.3e} > {tol[dtype]:.0e}")
         worst = max(worst, (y - ref).abs().max().item())
-    print(f"{name}: K1 against its plain version (fp32, fp64): max abs err {worst:.3e}")
+    names = ", ".join(str(d)[6:] for d in dtypes or (torch.float32, torch.float64))
+    print(f"{name}: K1 against its plain version ({names}): max abs err {worst:.3e}")
     return worst
 
 
@@ -2301,6 +2338,528 @@ def phase_relax(lt, np, torch, dev, counters, card):
 
 
 # ---------------------------------------------------------------------------
+# The direct solvers, ilutp, arms and the communication-avoiding methods
+# (phases 30-31)
+# ---------------------------------------------------------------------------
+
+# JAX's counts on the CPU for phase 31 at the card's sizes
+# (scripts/jax_krylov_reference.py 31; solve_ir with 6 Neumann sweeps, rtol
+# 1e-8; the pivot cells through solve, fp64; "128^3 ..." with ILU(0))
+JAX_CPU_DIRECT = {
+    "gmres30+ilutp coupled3d_25": 27, "gmres30+ilutp convdiff_256": 320,
+    "ilutp pivot n=128 6 sweeps": 14, "ilutp pivot n=128 exact": 1,
+    "gmres30+arms convdiff_256": 11, "gmres30+arms aniso_256": 18,
+    "cg+ilu0 128^3": 194, "pipecg+ilu0 128^3": 290, "gmres30+ilu0 128^3": 256,
+    "cagmres30+ilu0 128^3": 256, "dist pipecg+bjilu 128^3": 251,
+}
+# the pivot system's exact cell: JAX's own test asserts at most 5
+PIVOT_EXACT_LIMIT = 5
+DIRECT_COUNTERS = ("dia_spmv", "hyb_spmv")
+
+
+def tiny_diagonal(lt, np, n=128):
+    """``tests/test_ilu.py: test_robust_on_tiny_diagonal``'s system (50
+    diagonal entries of 1e-14, a sub- and a superdiagonal): its pivoted
+    factors are exact, their triangular solves grow exponentially with n,
+    so it stays at the test's n = 128."""
+    import scipy.sparse as sp
+    d = np.r_[np.full(50, 1e-14), np.ones(n - 50)]
+    return lt.CSR.from_scipy((sp.diags(d) + 0.5 * sp.diags(np.ones(n - 1), 1)
+                              + 0.3 * sp.diags(np.ones(n - 1), -1)).tocsr())
+
+
+def schedule_line(state):
+    """Levels and slots of an lu apply state's two schedules, and their
+    layout."""
+    sl, su = state[0], state[1]
+    return (f"{type(sl).__name__} L {sl.nlevels} levels {sl.slots} slots, U {su.nlevels} "
+            f"levels {su.slots} slots")
+
+
+def device_launches(torch, fn):
+    """The device launches (kernels and copies) of one call of ``fn``, from
+    torch.profiler recording the device alone (an exact apply runs tens of
+    thousands; recording the host ops too costs minutes)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def apply_time(torch, fn, v, reps=3, launches=True):
+    """(the median host seconds of ``reps`` synchronized calls of fn(v), and
+    with ``launches`` the device launches of one call, else None)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(v)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return (sorted(times)[len(times) // 2],
+            device_launches(torch, lambda: fn(v)) if launches else None)
+
+
+def direct_cell(lt, np, torch, dev, counters, card, name, A, x_tol):
+    """solve(method="direct") on A, b = 1: nits 1, true relres ≤ 1e-9
+    (scipy), x against scipy's spsolve (≤ x_tol where given); the
+    factorization split (AMD, symbolic, numeric), the factor's nnz, the
+    schedules, one apply's time and device launches; only K1 / K3 launch
+    (the two residual products).  The solve's own factorization is kept
+    (``FactorMemo``) for the PC whose apply is timed.  Returns the lu PC."""
+    import scipy.sparse.linalg as spla
+    from lssp_tpu_torch import native
+    from lssp_tpu_torch.pc import lu as lu_pc
+    S = A.to_scipy()
+    n = A.shape[0]
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    for fn in counters:
+        fn.launches = 0
+    memo = FactorMemo(lu_pc, "splu_factor")
+    with Timers(native, "amd_order", "mf_symbolic", "mf_numeric", "splu") as tm, memo:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = lt.solve(A, b, method="direct")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        f = memo.last
+        M = lt.pc.setup(A, "lu", device=dev)        # the same factors, scheduled again
+    xh = x.cpu().numpy()
+    rr = float(np.linalg.norm(1.0 - S @ xh) / np.sqrt(n))
+    t0 = time.perf_counter()
+    xs = spla.spsolve(S.tocsc(), np.ones(n))
+    sp_s = time.perf_counter() - t0
+    dx = float(np.linalg.norm(xh - xs) / np.linalg.norm(xs))
+    f_nnz = f.L.nnz + f.U.nnz
+    z = M(b)
+    same = repeat_equal(torch, lambda: M(b), z, 2)
+    t_apply, nl = apply_time(torch, M, b)
+    print(f"direct {name} n={n} [{card}]: nits {info.nits}, true relres {rr:.3e}, x vs spsolve "
+          f"{dx:.3e} (spsolve {sp_s:.2f} s), solve {wall:.2f} s with factor: AMD "
+          f"{tm.seconds['amd_order']:.2f} s, symbolic {tm.seconds['mf_symbolic']:.2f} s, numeric "
+          f"{tm.seconds['mf_numeric'] + tm.seconds['splu']:.2f} s; factor nnz {f_nnz} (fill "
+          f"{f_nnz / A.nnz:.1f}); {schedule_line(M.state)}; one apply {t_apply * 1e3:.1f} ms, "
+          f"{nl} device launches, repeats bitwise equal {same}; launches {launches}")
+    check(info.nits == 1 and info.converged, f"direct {name}: nits {info.nits}, converged "
+          f"{info.converged}")
+    check(rr <= 1e-9, f"direct {name}: true relres {rr:.3e} > 1e-9")
+    check(x_tol is None or dx <= x_tol, f"direct {name}: x vs spsolve {dx:.3e} > {x_tol}")
+    check(same, f"direct {name}: repeated exact applies differ")
+    check(any(launches[k] > 0 for k in DIRECT_COUNTERS),
+          f"direct {name}: no residual product launched K1 / K3")
+    check(all(v == 0 for k, v in launches.items() if k not in DIRECT_COUNTERS),
+          f"direct {name}: kernels other than K1 / K3 launched: {launches}")
+    return M
+
+
+def phase_direct(lt, np, torch, dev, counters, card):
+    """Phase 30: the direct path (fp64 unless noted).  solve(method="direct")
+    on the 2-D Laplacian 512² (the multifrontal engine), coupled3d_25 and
+    convdiff_rot_128; Solver(method="direct") on 512², one factorization
+    for 3 right-hand sides, and its solve_multi (k = 8, each column its
+    single solve); solve_ir(method="direct") (fp32 LU inner) on 512²;
+    solve_lsq on the tall [L; 0.1·I], L = laplacian_2d(256), by both
+    routes, the host Givens QR last, after every timed apply.  K1 / K3
+    against their plain versions on the residual products' matrices at the
+    path's dtypes.  Returns {kernel: max abs err}."""
+    import scipy.sparse.linalg as spla
+    from lssp_tpu_torch import native
+    t_phase = time.perf_counter()
+    errs = {"dia_spmv": 0.0, "hyb_spmv": 0.0}
+    tall = tall_system(lt, np, 256)
+    St = tall.to_scipy()
+    bh = St @ np.ones(St.shape[1])
+    A = lt.sparse.laplacian_2d(512)
+    n = A.shape[0]
+    direct_cell(lt, np, torch, dev, counters, card, "laplacian_2d(512)", A, 1e-8)
+    for name in ("coupled3d_25", "convdiff_rot_128"):
+        V = lt.sparse.read_matrix_market(os.path.join(HERE, "benchmarks", "matrices",
+                                                      name + ".mtx.gz"))
+        direct_cell(lt, np, torch, dev, counters, card, name, V, None)
+        Vd = lt.solvers.facade._prepare_matrix(V, device=dev)[1]
+        if isinstance(Vd, lt.HYB):
+            v = torch.from_numpy(np.random.default_rng(30).uniform(-1, 1, V.shape[0])).to(dev)
+            err, abs_err = check_k3(torch, Vd, v, v, 1e-12, f"direct {name}")
+            errs["hyb_spmv"] = max(errs["hyb_spmv"], abs_err)
+            print(f"direct {name}: K3 float64 against its plain version: max_rel_err {err:.3e}")
+        else:
+            errs["dia_spmv"] = max(errs["dia_spmv"], check_k1_on(
+                np, torch, dev, Vd, f"direct {name}", dtypes=(torch.float64,)))
+    # the 512² residuals run in fp64 (direct) and fp32 (solve_ir's inner)
+    errs["dia_spmv"] = max(errs["dia_spmv"], check_k1_on(
+        np, torch, dev, lt.solvers.facade._prepare_matrix(A, device=dev)[1], "direct 512^2"))
+    # the lifecycle: one factorization, three right-hand sides
+    rng = np.random.default_rng(31)
+    calls = {"n": 0}
+    inner = native.mf_numeric
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return inner(*a, **k)
+    native.mf_numeric = counted
+    try:
+        t0 = time.perf_counter()
+        s = lt.Solver(method="direct", device=dev).assemble(A)
+        assemble_s = time.perf_counter() - t0
+        walls = []
+        for j in range(3):
+            bj = torch.from_numpy(rng.standard_normal(n)).to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xj = s.solve(bj)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            rj = np.linalg.norm(bj.cpu().numpy() - A.to_scipy() @ xj.cpu().numpy())
+            check(rj <= 1e-9 * np.linalg.norm(bj.cpu().numpy()) and s.nits == 1,
+                  f"Solver direct rhs {j}: relres {rj:.3e}")
+        B = torch.from_numpy(rng.standard_normal((n, 8))).to(dev)
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        X = s.solve_multi(B)
+        torch.cuda.synchronize()
+        multi_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        multi_nits = s.info.nits
+        cols = [s.solve(B[:, c]) for c in range(8)]
+    finally:
+        native.mf_numeric = inner
+    check(calls["n"] == 1, f"Solver direct: {calls['n']} numeric factorizations")
+    dxm = max(float((X[:, c] - cols[c]).abs().max() / cols[c].abs().max()) for c in range(8))
+    print(f"Solver direct 512^2 [{card}]: assemble (factor included) {assemble_s:.2f} s, "
+          f"numeric factorizations {calls['n']} for 3 + 8 single solves and a k=8 block, "
+          f"re-solves {', '.join(f'{w:.3f}' for w in walls)} s; solve_multi k=8 {multi_s:.3f} s, "
+          f"nits {multi_nits}, max column rel diff from its single solve {dxm:.3e}, launches "
+          f"{launches}")
+    check(dxm <= 1e-12, f"solve_multi direct: a column differs from its single solve by {dxm:.3e}")
+    check(bool(np.all(multi_nits == 1)), f"solve_multi direct: nits {multi_nits}")
+    check(launches["dia_spmm"] > 0 and all(v == 0 for k, v in launches.items()
+                                           if k != "dia_spmm"),
+          f"solve_multi direct: launches {launches}")
+    # mixed precision: the fp32 LU inner (the fp32 matrix's own
+    # factorization), fp64 outer
+    for fn in counters:
+        fn.launches = 0
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    with Timers(native, "amd_order", "mf_symbolic", "mf_numeric", "splu") as tm, \
+            InnerRounds() as rounds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = lt.solve_ir(A, b, method="direct",
+                              options=lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    rr = true_relres(A, x, np)
+    M32 = lt.prepare_ir(A, method="direct", device=dev)[4]   # solve_ir's, memoized
+    t32, _ = apply_time(torch, M32, b.to(torch.float32), launches=False)
+    factor_s = sum(tm.seconds.values())
+    print(f"solve_ir direct 512^2 [{card}]: outer rounds {rounds.count}, inner its {info.nits}, "
+          f"true relres {rr:.3e}, {wall:.2f} s with the fp32 matrix's factorization (AMD "
+          f"{tm.seconds['amd_order']:.2f} s, symbolic {tm.seconds['mf_symbolic']:.2f} s, numeric "
+          f"{tm.seconds['mf_numeric'] + tm.seconds['splu']:.2f} s), {wall - factor_s:.2f} s "
+          f"without it; fp32 apply {t32 * 1e3:.1f} ms, launches {launches}")
+    check(info.converged and rr <= 1e-8, f"solve_ir direct: relres {rr:.3e}")
+    check(M32.state[0].vals.dtype == torch.float32, "solve_ir direct: the inner LU is not fp32")
+    check_only(launches, {"dia_spmv"}, "solve_ir direct")
+    # direct least squares on the tall Tikhonov system
+    atb = St.T @ bh
+    xs = spla.spsolve((St.T @ St).tocsc(), atb)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, _ = lt.solve_lsq(tall, torch.from_numpy(bh).to(dev), method="normal")
+    torch.cuda.synchronize()
+    normal_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    check(all(v == 0 for v in launches.values()), f"solve_lsq normal: launches {launches}")
+    # the host Givens QR (numpy and C++, no device work but x's copy)
+    t0 = time.perf_counter()
+    xq, _ = lt.solve_lsq(tall, torch.from_numpy(bh).to(dev), method="qr")
+    qr_s = time.perf_counter() - t0
+    for method, xt, secs in (("normal", x, normal_s), ("qr", xq, qr_s)):
+        xh = xt.cpu().numpy()
+        nrel = float(np.linalg.norm(St.T @ (bh - St @ xh)) / np.linalg.norm(atb))
+        dx = float(np.linalg.norm(xh - xs) / np.linalg.norm(xs))
+        print(f"solve_lsq {method} [laplacian_2d(256); 0.1 I] {St.shape[0]}x{St.shape[1]} "
+              f"[{card}]: {secs:.2f} s, ||A^T(b-Ax)||/||A^T b|| {nrel:.3e}, x vs "
+              f"spsolve(A^T A, A^T b) {dx:.3e}, x on {xt.device}")
+        check(xt.device.type == "cuda", f"solve_lsq {method}: x on {xt.device}")
+        check(nrel <= 1e-10 and dx <= 1e-8, f"solve_lsq {method}: normal relres {nrel:.3e}, "
+              f"x vs spsolve {dx:.3e}")
+    print(f"direct: phase time {time.perf_counter() - t_phase:.1f} s")
+    return errs
+
+
+class FactorMemo:
+    """Inside it, the host factorization ``module.name`` (``pc/ilu``'s
+    ``ilutp_factor``, ``pc/lu``'s ``splu_factor``) returns what it already
+    made of the same matrix (the same values and options) instead of
+    factoring again; both are deterministic, so a second PC of one matrix
+    (the transposed apply of ``bicg``, the apply timed after a solve) gets
+    the same factors.  ``last`` is the latest result."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.cache, self.hits, self.last = module, name, {}, 0, None
+
+    def __enter__(self):
+        import zlib
+        self.fn = getattr(self.module, self.name)
+
+        def memo(A, **kw):
+            key = (A.shape, zlib.crc32(A.indptr), zlib.crc32(A.indices),
+                   zlib.crc32(A.data.astype("float64")), repr(sorted(kw.items())))
+            if key in self.cache:
+                self.hits += 1
+            else:
+                self.cache[key] = self.fn(A, **kw)
+            self.last = self.cache[key]
+            return self.last
+        setattr(self.module, self.name, memo)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def ir_cell(lt, np, torch, dev, counters, card, cell, A, method, pc, allowed, restart=30,
+            pc_options=None):
+    pc_options = pc_options or lt.PCOptions(ilu_sweeps=6)
+    """A solve_ir cell of phase 31, b = 1, rtol 1e-8: its count against
+    ``JAX_CPU_DIRECT`` + 15 %, true relres ≤ 1e-8, only ``allowed``
+    kernels; the setup apart.  Returns (info, the inner PC, setup s,
+    warm s, launches)."""
+    opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=2000, restart=restart)
+    t0 = time.perf_counter()
+    M32 = lt.prepare_ir(A, method=method, pc=pc, pc_options=pc_options, device=dev)[4]
+    setup_s = time.perf_counter() - t0
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    for fn in counters:
+        fn.launches = 0
+    with InnerRounds() as rounds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = lt.solve_ir(A, b, method=method, pc=pc, options=opts, pc_options=pc_options)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    rr = true_relres(A, x, np)
+    ref = JAX_CPU_DIRECT[cell]
+    limit = count_limit(ref)
+    its = max(info.nits, 1)
+    print(f"{cell} solve_ir ({M32.name if M32 is not None else 'none'}) [{card}]: inner its "
+          f"{info.nits} (JAX CPU {ref}, limit {limit}), outer rounds {rounds.count}, setup "
+          f"{setup_s:.2f} s, solve {wall:.2f} s, true relres {rr:.3e}, launches an inner "
+          f"iteration {', '.join(f'{k} {v / its:.2f}' for k, v in launches.items() if v)}")
+    check(info.converged and rr <= 1e-8, f"{cell}: not converged (relres {rr:.3e})")
+    check(info.nits <= limit, f"{cell}: {info.nits} inner its > {limit}")
+    check_only(launches, allowed, cell)
+    return info, M32, setup_s, wall, launches
+
+
+def check_k2_plan(lt, np, torch, dev, plan, name, tol):
+    """K2 against its plain version on one plan; returns the max abs err."""
+    from lssp_tpu_torch.ops.neumann import fused_neumann_apply, neumann_apply_plain
+    v = torch.from_numpy(np.random.default_rng(32).uniform(-1, 1, plan.n)).to(
+        device=dev, dtype=plan.dtype)
+    y, ref = fused_neumann_apply(plan, v), neumann_apply_plain(plan, v)
+    torch.cuda.synchronize()
+    err, abs_err = rel_err(y, ref), (y - ref).abs().max().item()
+    check(bool(torch.isfinite(y).all()) and err <= tol,
+          f"{name}: K2 max rel err {err:.3e} > {tol:.0e}")
+    print(f"{name}: K2 against its plain version ({str(plan.dtype)[6:]}, n={plan.n}): "
+          f"max_rel_err {err:.3e} max_abs_err {abs_err:.3e}")
+    return abs_err
+
+
+def arms_cells(lt, np, torch, dev, counters, card):
+    """solve_ir gmres(30) + arms on the convection-diffusion and the
+    anisotropic Poisson 256²: the levels, the coarse n and its schedule,
+    the setup and one apply's time, then the solve."""
+    for kind, A in (("convdiff", lt.sparse.convection_diffusion_2d(256)),
+                    ("aniso", lt.sparse.anisotropic_poisson_2d(256, 0.01))):
+        t0 = time.perf_counter()
+        M32 = lt.prepare_ir(A, method="gmres", pc="arms", pc_options=lt.PCOptions(ilu_sweeps=6),
+                            device=dev)[4]
+        setup_s = time.perf_counter() - t0
+        v = torch.ones(A.shape[0], dtype=torch.float32, device=dev)
+        t_apply, _ = apply_time(torch, M32, v, reps=1, launches=False)
+        levels, coarse = M32.state
+        print(f"arms {kind} 256^2 [{card}]: {len(levels)} levels, coarse n "
+              f"{coarse[2].numel()}, coarse {schedule_line(coarse)}, "
+              f"setup {setup_s:.2f} s, one apply {t_apply * 1e3:.1f} ms")
+        ir_cell(lt, np, torch, dev, counters, card, f"gmres30+arms {kind}_256", A, "gmres",
+                "arms", {"dia_spmv"})
+
+
+def phase_ilutp_arms_ca(lt, np, torch, dev, counters, card):
+    """Phase 31: ilutp, arms and the communication-avoiding methods.
+    solve_ir gmres(30) + ilutp (K2, 6 sweeps) on coupled3d_25 and the
+    convection-diffusion 256², with the columns the pivoting moved, K2 on
+    the permuted plans (fp32 and fp64) and, through bicg + ilutp, on the
+    transposed plan; the pivot system (n = 128) through solve gmres fp64
+    with 6 sweeps and exact; solve_ir gmres(30) + arms on the
+    convection-diffusion and the anisotropic Poisson 256²; solve_ir +
+    ILU(0) on 128³ with pipecg beside cg and cagmres beside gmres(30);
+    dist_solve_ir pipecg + bjilu on 128³ over 8 shards (only K4, one
+    reduction over the shards an iteration); per column, solve_multi fp64
+    48³, k = 4, pipecg and cagmres.  Returns {kernel: max abs err}."""
+    from lssp_tpu_torch.ops.neumann import plan_fused_neumann
+    from lssp_tpu_torch.parallel import dist_ops
+    t_phase = time.perf_counter()
+    errs = {"neumann_sweep": 0.0, "dist_spmv_ext": 0.0}
+    c3 = lt.sparse.read_matrix_market(os.path.join(HERE, "benchmarks", "matrices",
+                                                   "coupled3d_25.mtx.gz"))
+    cd = lt.sparse.convection_diffusion_2d(256)
+    from lssp_tpu_torch.pc import ilu as ilu_pc
+    with FactorMemo(ilu_pc, "ilutp_factor") as memo:
+        for cell, A, allowed in (("gmres30+ilutp coupled3d_25", c3,
+                                  {"hyb_spmv", "fused_neumann_apply"}),
+                                 ("gmres30+ilutp convdiff_256", cd,
+                                  {"dia_spmv", "fused_neumann_apply"})):
+            info, M32, _, _, launches = ir_cell(lt, np, torch, dev, counters, card, cell, A,
+                                                "gmres", "ilutp", allowed)
+            perm = M32.state[2].cpu().numpy()
+            moved = int((perm != np.arange(len(perm))).sum())
+            print(f"{cell}: the pivoting moved {moved} columns; K2 "
+                  f"{launches['fused_neumann_apply']} launches on the permuted plan")
+            errs["neumann_sweep"] = max(errs["neumann_sweep"], check_k2_plan(
+                lt, np, torch, dev, M32.state[0], f"{cell} permuted fp32 plan", 1e-5))
+            L, U, _ = memo.last
+            errs["neumann_sweep"] = max(errs["neumann_sweep"], check_k2_plan(
+                lt, np, torch, dev, plan_fused_neumann(L, U, 6, dtype=torch.float64,
+                                                       device=dev),
+                f"{cell} permuted fp64 plan", 1e-12))
+        # M⁻ᵀ: bicg + ilutp on the convection-diffusion (the factors reused)
+        opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=2000)
+        six = lt.PCOptions(ilu_sweeps=6)
+        Mt = lt.prepare_ir(cd, method="bicg", pc="ilutp", pc_options=six, device=dev)[4]
+        plans = transposed_plans(dataclasses.replace(Mt, state=Mt.state[0]))
+        check(len(plans) == 1, "bicg + ilutp: no transposed K2 plan")
+        for fn in counters:
+            fn.launches = 0
+        with TransposedLaunches(plans) as tl:
+            x, info = lt.solve_ir(cd, torch.ones(cd.shape[0], dtype=torch.float64, device=dev),
+                                  method="bicg", pc="ilutp", options=opts, pc_options=six)
+            torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        rr = true_relres(cd, x, np)
+        print(f"bicg+ilutp convdiff_256 solve_ir [{card}]: inner its {info.nits}, true relres "
+              f"{rr:.3e}, K2 {launches['fused_neumann_apply']} launches, {tl.count} on the "
+              f"transposed plan (factor reused {memo.hits} times)")
+        check(info.converged and rr <= 1e-8 and tl.count > 0, "bicg + ilutp on the card")
+        check_only(launches, {"dia_spmv", "fused_neumann_apply"}, "bicg + ilutp")
+        errs["neumann_sweep"] = max(errs["neumann_sweep"], check_k2_plan(
+            lt, np, torch, dev, plans[0], "bicg+ilutp transposed fp32 plan", 1e-5))
+    # the pivot path
+    P = tiny_diagonal(lt, np)
+    for sweeps, cell in ((6, "ilutp pivot n=128 6 sweeps"), (0, "ilutp pivot n=128 exact")):
+        for fn in counters:
+            fn.launches = 0
+        pco = lt.PCOptions(ilu_sweeps=sweeps)
+        x, info = lt.solve(P, torch.ones(128, dtype=torch.float64, device=dev),
+                           method="gmres", pc="ilutp", options=lt.SolverOptions(maxit=200),
+                           pc_options=pco)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        M = lt.pc.setup(P, "ilutp", pco, device=dev)
+        moved = int((M.state[2].cpu().numpy() != np.arange(128)).sum())
+        res = float(np.linalg.norm(1.0 - P.to_scipy() @ x.cpu().numpy()))
+        ref = JAX_CPU_DIRECT[cell]
+        limit = PIVOT_EXACT_LIMIT if sweeps == 0 else count_limit(ref)
+        print(f"{cell} solve gmres fp64 [{card}]: its {info.nits} (JAX CPU {ref}, limit "
+              f"{limit}), moved columns {moved}, residual {res:.3e}, launches {launches}")
+        check(moved > 0, f"{cell}: the pivoting moved no column")
+        check(info.converged and res < 1e-6 and info.nits <= limit, f"{cell}: its {info.nits}")
+        if sweeps:
+            check(launches["fused_neumann_apply"] > 0, f"{cell}: K2 never launched")
+            errs["neumann_sweep"] = max(errs["neumann_sweep"], check_k2_plan(
+                lt, np, torch, dev, M.state[0], f"{cell} fp64 plan", 1e-12))
+    arms_cells(lt, np, torch, dev, counters, card)
+    # the communication-avoiding methods beside their classical forms
+    A = lt.sparse.laplacian_3d(128)
+    counts = {}
+    for cell, method in (("cg+ilu0 128^3", "cg"), ("pipecg+ilu0 128^3", "pipecg"),
+                         ("gmres30+ilu0 128^3", "gmres"), ("cagmres30+ilu0 128^3", "cagmres")):
+        counts[method] = ir_cell(lt, np, torch, dev, counters, card, cell, A, method, "ilu0",
+                                 {"dia_spmv", "fused_neumann_apply"})[0].nits
+    print(f"128^3 solve_ir + ilu0 [{card}]: pipecg - cg = {counts['pipecg'] - counts['cg']}, "
+          f"cagmres - gmres(30) = {counts['cagmres'] - counts['gmres']} inner its")
+    # distributed pipecg: one reduction over the shards an iteration
+    mesh = lt.make_mesh(8, devices=[dev] * 8)
+    psums = {"n": 0}
+    orig = dist_ops.psum
+
+    def counted(partials):
+        psums["n"] += 1
+        return orig(partials)
+    cell = "dist pipecg+bjilu 128^3"
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    for fn in counters:
+        fn.launches = 0
+    dist_ops.psum = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with InnerRounds() as rounds:
+            x, info = lt.dist_solve_ir(A, b, method="pipecg", pc="bjilu", mesh=mesh,
+                                       options=lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0,
+                                                                maxit=2000),
+                                       pc_options=lt.PCOptions(ilu_sweeps=6))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        dist_ops.psum = orig
+    launches = {fn.__name__: fn.launches for fn in counters}
+    rr = true_relres(A, x, np)
+    ref = JAX_CPU_DIRECT[cell]
+    limit = count_limit(ref)
+    # outside the iterations: ‖b‖ and the first residual's norm, then each
+    # round the inner ‖b‖, ‖r0‖ and final ‖r‖ and the outer residual's norm
+    outside = 2 + 4 * rounds.count
+    print(f"{cell} over 8 shards [{card}]: inner its {info.nits} (JAX CPU {ref}, limit "
+          f"{limit}), first call {wall:.2f} s, true relres {rr:.3e}, K4 "
+          f"{launches['dia_spmv_ext'] / max(info.nits, 1):.2f} launches an inner iteration, "
+          f"{psums['n']} reductions over the shards in {rounds.count} rounds: "
+          f"{(psums['n'] - outside) / max(info.nits, 1):.2f} an inner iteration")
+    check(info.converged and rr <= 1e-8 and info.nits <= limit, f"{cell}: its {info.nits}")
+    check_only(launches, {"dia_spmv_ext"}, cell)
+    check(psums["n"] == info.nits + outside, f"{cell}: {psums['n']} reductions over the shards "
+          f"for {info.nits} inner its")
+    prep = list(A._prepared_cache["dist"].values())[-1]
+    errs["dist_spmv_ext"] = check_dist_path(lt, np, torch, dev, prep, cell)[0]
+    # per column
+    A48 = lt.sparse.laplacian_3d(48)
+    B = serving_block(np, torch, dev, A48.shape[0], k=4)
+    opts = lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, maxit=2000, restart=30)
+    for method in ("pipecg", "cagmres"):
+        for fn in counters:
+            fn.launches = 0
+        six = lt.PCOptions(ilu_sweeps=6)
+        X, info = lt.solve_multi(A48, B, method=method, pc="ilu0", options=opts, pc_options=six)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        singles = [lt.solve(A48, B[:, c], method=method, pc="ilu0", options=opts,
+                            pc_options=six)[1].nits for c in range(4)]
+        rr = block_relres(A48, X, B, np)
+        print(f"per-column 48^3 solve_multi {method}+ilu0 fp64 k=4: nits {info.nits}, single "
+              f"solves {singles}, true relres max {rr.max():.3e}")
+        check(bool(np.all(info.converged)), f"per-column {method}: not every column converged")
+        check((np.abs(info.nits - np.array(singles)) <= 1).all(),
+              f"per-column {method}: counts {info.nits} against single solves {singles}")
+        check_only(launches, {"dia_spmm", "neumann_block_apply"}, f"per-column {method}")
+    print(f"ilutp / arms / communication-avoiding: phase time "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # the library yardstick and the bound of every kernel in the JSON line
 # ---------------------------------------------------------------------------
 
@@ -2481,7 +3040,8 @@ def main():
         only = sys.argv[sys.argv.index("--only") + 1].split(",")
         counters = (dia_spmv, fused_neumann_apply, hyb_spmv, dia_spmv_ext, dia_spmm,
                     neumann_block_apply, hyb_spmm, dia_spmm_ext)
-        for phase, fn in (("28", phase_transpose), ("29", phase_relax)):
+        for phase, fn in (("28", phase_transpose), ("29", phase_relax), ("30", phase_direct),
+                          ("31", phase_ilutp_arms_ca)):
             if phase in only:
                 print(json.dumps({f"phase {phase} max_abs_err": fn(lt, np, torch, dev, counters,
                                                                     card)}))
@@ -2525,6 +3085,8 @@ def main():
     dist_amg = phase_dist_amg(lt, np, torch, dev, counters, card, saamg_nits, rsamg_nits)
     transpose_errs = phase_transpose(lt, np, torch, dev, counters, card)
     relax_errs = phase_relax(lt, np, torch, dev, counters, card)
+    direct_errs = phase_direct(lt, np, torch, dev, counters, card)
+    ca_errs = phase_ilutp_arms_ca(lt, np, torch, dev, counters, card)
     library = phase_library(lt, np, torch, dev, card)
     # each kernel's error is the worst over its own phase and the later
     # phases' checks on their own data
@@ -2532,13 +3094,16 @@ def main():
                  {"dia_spmm": block_err}, krylov_block_errs):
         for kname, err in errs.items():
             krhs[kname]["max_abs_err"] = max(krhs[kname]["max_abs_err"], err)
-    k1["max_abs_err"] = max(k1["max_abs_err"], block_k1_err, relax_errs["dia_spmv"])
+    k1["max_abs_err"] = max(k1["max_abs_err"], block_k1_err, relax_errs["dia_spmv"],
+                            direct_errs["dia_spmv"])
     k2["max_abs_err"] = max(k2["max_abs_err"], transpose_errs["neumann_sweep"],
-                            relax_errs["neumann_sweep"])
-    k3["max_abs_err"] = max(k3["max_abs_err"], transpose_errs["hyb_spmv"])
+                            relax_errs["neumann_sweep"], ca_errs["neumann_sweep"])
+    k3["max_abs_err"] = max(k3["max_abs_err"], transpose_errs["hyb_spmv"],
+                            direct_errs["hyb_spmv"])
     krhs["neumann_sweep_block"]["max_abs_err"] = max(
         krhs["neumann_sweep_block"]["max_abs_err"], transpose_errs["neumann_sweep_block"])
-    k4["max_abs_err"] = max(k4["max_abs_err"], dist_amg["saamg"], dist_amg["rsamg"])
+    k4["max_abs_err"] = max(k4["max_abs_err"], dist_amg["saamg"], dist_amg["rsamg"],
+                            ca_errs["dist_spmv_ext"])
     for errs in (saamg_errs, classical_errs, rsamg_errs, *krylov_errs):
         k1["max_abs_err"] = max(k1["max_abs_err"], errs.get("dia_spmv", 0.0))
         k2["max_abs_err"] = max(k2["max_abs_err"], errs.get("neumann_sweep", 0.0))

@@ -15,7 +15,11 @@ cycles on the same kernels, and ``amg_solve`` is the standalone AMG solver;
 over a shard mesh they run as distributed hierarchies (``parallel/``,
 every banded level product on K4).  Block matrices (``BSR``) run as
 scalar DIA on K1 where their diagonals allow, with the block-ILU family
-``biluk``, ``bilut``, ``vbiluk`` and ``vbilut`` (``pc/biluk.py``).
+``biluk``, ``bilut``, ``vbiluk`` and ``vbilut`` (``pc/biluk.py``).  The
+direct solvers (``method="direct"`` / ``"splu"``, the ``lu`` PC: AMD
+ordering, Gilbert–Peierls or supernodal multifrontal LU on the host, exact
+level-scheduled sweeps on the device) and ``solve_lsq`` (sparse QR or the
+normal equations) need no kernel beyond the residual products.
 
 Entry points run on the current CUDA device unless given a CPU tensor or
 ``device="cpu"``; without a CUDA device they raise rather than fall back.
@@ -35,7 +39,7 @@ from lssp_tpu_torch.parallel import (
     dist_solve, dist_solve_ir, dist_solve_ir_multi, dist_solve_multi, make_mesh,
 )
 from lssp_tpu_torch.solvers import (
-    SolveInfo, Solver, prepare_ir, solve, solve_ir, solve_ir_multi, solve_multi,
+    SolveInfo, Solver, prepare_ir, solve, solve_ir, solve_ir_multi, solve_lsq, solve_multi,
 )
 from lssp_tpu_torch.sparse import BDIA, BSR, COO, CSR, DIA, ELL, HYB
 
@@ -45,7 +49,7 @@ __all__ = [
     "sparse", "ops", "parallel", "solvers", "pc", "amg", "amg_solve",
     "SolverOptions", "PCOptions", "Defaults",
     "solve", "solve_ir", "prepare_ir", "Solver", "SolveInfo",
-    "solve_multi", "solve_ir_multi",
+    "solve_multi", "solve_ir_multi", "solve_lsq",
     "dist_solve", "dist_solve_ir", "dist_solve_multi", "dist_solve_ir_multi", "make_mesh",
     "BDIA", "BSR", "COO", "CSR", "DIA", "ELL", "HYB",
 ]

@@ -137,3 +137,25 @@ def rs_from_jax(h, device="cpu"):
         for l in h.levels)
     return RSAMG(levels=levels, coarse_inv=_t(h.coarse_inv, device), cycles=int(h.cycles),
                  n_top=int(h.n_top), gamma=int(h.gamma))
+
+
+def splu_from_jax(L_arrays, U_arrays, perm_in, perm_out, nclamped=0):
+    """The port's host ``SpLU`` from the fields of JAX's
+    (``lssp_tpu.pc.lu_host.SpLU``): L and U as ``(indptr, indices, data,
+    shape)`` tuples, the two permutations and the clamp count."""
+    from lssp_tpu_torch.pc.lu_host import SpLU
+    return SpLU(L=csr_from_arrays(*L_arrays), U=csr_from_arrays(*U_arrays),
+                perm_in=np.asarray(perm_in, np.int32), perm_out=np.asarray(perm_out, np.int32),
+                nclamped=int(nclamped))
+
+
+def arms_from_jax(levels, coarse, dtype=np.float64, device="cpu"):
+    """The port's ARMS apply state from JAX's: ``levels`` one ``(f_idx,
+    c_idx, invd, E, F)`` per level with E and F as ``(cols, data, shape)``
+    ELL fields, and ``coarse`` the coarsest level's ``SpLU`` (the port's,
+    e.g. from ``splu_from_jax``), scheduled in ``dtype`` on ``device``."""
+    from lssp_tpu_torch.pc.lu import lu_state
+    lv = [(_t(f, device, np.int64), _t(c, device, np.int64), _t(d, device),
+           ell_from_arrays(*E, device=device), ell_from_arrays(*F, device=device))
+          for f, c, d, E, F in levels]
+    return lv, lu_state(coarse, np.dtype(dtype), device)

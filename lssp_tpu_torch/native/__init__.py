@@ -1,8 +1,12 @@
 """Native C++ host kernels, loaded with ctypes: the ILU setup (level sets,
-ILU(0), the ILU(k) symbolic phase, ILUT; ``src/ilu.cpp``) and the AMG setup
+ILU(0), the ILU(k) symbolic phase, ILUT; ``src/ilu.cpp``), the AMG setup
 (the fused Galerkin product and Gershgorin bound, ``src/rap.cpp``; the
 lumping filters, ``src/amgfilter.cpp``; the greedy strength aggregation,
-``src/aggregate.cpp``).
+``src/aggregate.cpp``) and the direct solvers (the minimum-degree ordering,
+``src/amd.cpp``; the Gilbert–Peierls LU, ``src/splu.cpp``; the supernodal
+multifrontal LU, ``src/mf.cpp``, which takes its BLAS / LAPACK from scipy's
+``cython_blas`` / ``cython_lapack`` capsules; the George–Heath sparse QR,
+``src/spqr.cpp``).
 
 The sources are the JAX package's, built here the same way (``g++ -O3
 -march=native -ffp-contract=off``) so the outputs are bit-identical.  The
@@ -22,7 +26,8 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_HERE, "src", f)
-         for f in ("ilu.cpp", "rap.cpp", "amgfilter.cpp", "aggregate.cpp")]
+         for f in ("ilu.cpp", "rap.cpp", "amgfilter.cpp", "aggregate.cpp", "amd.cpp",
+                   "splu.cpp", "mf.cpp", "spqr.cpp")]
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "liblssp_torch_native.so")
 
@@ -75,6 +80,7 @@ def load():
         lib.lssp_pattern_free.argtypes = [ctypes.c_void_p]
         lib.lssp_pattern_free.restype = None
         _declare_amg(lib)
+        _declare_direct(lib)
         _lib = lib
         return _lib
 
@@ -100,6 +106,39 @@ def _declare_amg(lib) -> None:
         _i64p, _i64p, _f64p, _i64p, _i64p, _f64p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_double, np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"), _i64p]
     lib.lssp_greedy_aggregate.restype = None
+
+
+def _declare_direct(lib) -> None:
+    lib.lssp_amd_order.argtypes = [_i64p, _i64p, ctypes.c_int64, _i64p]
+    lib.lssp_amd_order.restype = None
+    lib.lssp_splu.argtypes = [_i64p, _i64p, _f64p, ctypes.c_int64, ctypes.c_double,
+                              ctypes.c_double, ctypes.c_double, ctypes.POINTER(ctypes.c_int64)]
+    lib.lssp_splu.restype = ctypes.c_void_p
+    lib.lssp_splu_sizes.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+                                    ctypes.POINTER(ctypes.c_int64)]
+    lib.lssp_splu_sizes.restype = None
+    lib.lssp_splu_fetch.argtypes = [ctypes.c_void_p, _i64p, _i64p, _f64p, _i64p, _i64p,
+                                    _f64p, _i64p]
+    lib.lssp_splu_fetch.restype = None
+    lib.lssp_splu_free.argtypes = [ctypes.c_void_p]
+    lib.lssp_splu_free.restype = None
+    lib.lssp_spqr.argtypes = [_i64p, _i64p, _f64p, ctypes.c_int64, ctypes.c_int64, _f64p,
+                              ctypes.c_int64, ctypes.POINTER(ctypes.c_double),
+                              ctypes.POINTER(ctypes.c_int64)]
+    lib.lssp_spqr.restype = ctypes.c_void_p
+    lib.lssp_spqr_fetch.argtypes = [ctypes.c_void_p, _i64p, _i64p, _f64p, _f64p]
+    lib.lssp_spqr_fetch.restype = None
+    lib.lssp_spqr_free.argtypes = [ctypes.c_void_p]
+    lib.lssp_spqr_free.restype = None
+    lib.lssp_mf_symbolic.argtypes = [_i64p, _i64p, ctypes.c_long, _i64p, _i64p, _i64p,
+                                     _i64p, _i64p, ctypes.c_long]
+    lib.lssp_mf_symbolic.restype = ctypes.c_long
+    lib.lssp_mf_numeric.argtypes = [
+        _i64p, _i64p, _f64p, _i64p, _i64p, _f64p, ctypes.c_long,
+        _i64p, _i64p, _i64p, _i64p, ctypes.c_long, ctypes.c_double, ctypes.c_double,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        _i64p, _i64p, _f64p, ctypes.c_long, _i64p, _i64p, _f64p, ctypes.c_long, _i64p]
+    lib.lssp_mf_numeric.restype = ctypes.c_long
 
 
 _available = None
@@ -268,3 +307,119 @@ def greedy_aggregate(A, T, g: int, theta: float, virt: np.ndarray) -> np.ndarray
         np.ascontiguousarray(T.indices, np.int64), np.ascontiguousarray(T.data, np.float64),
         n, g, theta, np.ascontiguousarray(virt, np.uint8), ids)
     return ids
+
+
+def amd_order(indptr: np.ndarray, indices: np.ndarray, n: int) -> np.ndarray:
+    """Minimum-degree ordering on the A+Aᵀ pattern; the same permutation as
+    the oracle ``sparse/reorder.py: amd_permutation``."""
+    perm = np.empty(n, dtype=np.int64)
+    load().lssp_amd_order(np.ascontiguousarray(indptr, np.int64),
+                          np.ascontiguousarray(indices, np.int64), n, perm)
+    return perm
+
+
+def splu(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray, n: int,
+         pivot_tol: float, ztol: float, zval: float):
+    """Left-looking sparse LU with threshold partial pivoting of the CSC
+    matrix (indptr, indices, data).  Returns (Lp, Li, Lx, Up, Ui, Ux, pinv,
+    nclamped): L unit-diagonal (not stored) and U with its diagonal, both
+    CSC in pivot-row numbering; pinv maps an original row to its pivot
+    position."""
+    lib = load()
+    info = ctypes.c_int64(0)
+    h = lib.lssp_splu(np.ascontiguousarray(indptr, np.int64),
+                      np.ascontiguousarray(indices, np.int64),
+                      np.ascontiguousarray(data, np.float64),
+                      n, pivot_tol, ztol, zval, ctypes.byref(info))
+    lnnz, unnz = ctypes.c_int64(0), ctypes.c_int64(0)
+    lib.lssp_splu_sizes(h, ctypes.byref(lnnz), ctypes.byref(unnz))
+    Lp, Up = np.zeros(n + 1, np.int64), np.zeros(n + 1, np.int64)
+    Li, Lx = np.zeros(lnnz.value, np.int64), np.zeros(lnnz.value, np.float64)
+    Ui, Ux = np.zeros(unnz.value, np.int64), np.zeros(unnz.value, np.float64)
+    pinv = np.zeros(n, dtype=np.int64)
+    lib.lssp_splu_fetch(h, Lp, Li, Lx, Up, Ui, Ux, pinv)
+    lib.lssp_splu_free(h)
+    return Lp, Li, Lx, Up, Ui, Ux, pinv, int(info.value)
+
+
+def spqr(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray, m: int, n: int, b=None):
+    """The George–Heath sparse QR merge loop (rows pre-ordered, columns
+    pre-permuted by the caller).  Returns (Rp, Rj, Rx, crhs, res2): R as
+    CSR by pivot row with the diagonal first in each row, Qᵀb and the
+    squared residual when ``b`` is given."""
+    lib = load()
+    res2, rnnz = ctypes.c_double(0.0), ctypes.c_int64(0)
+    bv = np.zeros(1, np.float64) if b is None else np.ascontiguousarray(b, np.float64)
+    h = lib.lssp_spqr(np.ascontiguousarray(indptr, np.int64),
+                      np.ascontiguousarray(indices, np.int64),
+                      np.ascontiguousarray(data, np.float64),
+                      m, n, bv, 0 if b is None else 1, ctypes.byref(res2), ctypes.byref(rnnz))
+    Rp = np.zeros(n + 1, dtype=np.int64)
+    Rj = np.zeros(rnnz.value, dtype=np.int64)
+    Rx = np.zeros(rnnz.value, dtype=np.float64)
+    crhs = np.zeros(n, dtype=np.float64)
+    lib.lssp_spqr_fetch(h, Rp, Rj, Rx, crhs)
+    lib.lssp_spqr_free(h)
+    return Rp, Rj, Rx, crhs, float(res2.value)
+
+
+def _blas_ptr(modname: str, fname: str) -> int:
+    """The raw function pointer behind ``scipy.linalg.<modname>``'s capsule
+    for ``fname`` (Fortran calling convention)."""
+    import importlib
+    cap = importlib.import_module("scipy.linalg." + modname).__pyx_capi__[fname]
+    get_name = ctypes.pythonapi.PyCapsule_GetName
+    get_name.restype, get_name.argtypes = ctypes.c_char_p, [ctypes.py_object]
+    get_ptr = ctypes.pythonapi.PyCapsule_GetPointer
+    get_ptr.restype, get_ptr.argtypes = ctypes.c_void_p, [ctypes.py_object, ctypes.c_char_p]
+    return get_ptr(cap, get_name(cap))
+
+
+def mf_symbolic(Mp, Mi, n: int):
+    """The multifrontal symbolic phase on the symmetrized, AMD-ordered
+    pattern (oracle: ``pc/multifrontal.py: mf_symbolic``).  Returns (post,
+    sn_start, sn_parent, rs_ptr, rs_idx), or None when the row sets
+    outgrow every buffer tried."""
+    lib = load()
+    Mp = np.ascontiguousarray(Mp, np.int64)
+    Mi = np.ascontiguousarray(Mi, np.int64)
+    post = np.empty(n, dtype=np.int64)
+    sn_start = np.empty(n + 1, dtype=np.int64)
+    sn_parent = np.empty(n, dtype=np.int64)
+    rs_ptr = np.empty(n + 1, dtype=np.int64)
+    cap = int(4 * len(Mi) + 16 * n + 64)
+    for _ in range(6):
+        rs_idx = np.empty(cap, dtype=np.int64)
+        nsn = lib.lssp_mf_symbolic(Mp, Mi, n, post, sn_start, sn_parent, rs_ptr, rs_idx, cap)
+        if nsn >= 0:
+            return (post, sn_start[:nsn + 1], sn_parent[:nsn], rs_ptr[:nsn + 1],
+                    rs_idx[:rs_ptr[nsn]].copy())
+        cap *= 2
+    return None
+
+
+def mf_numeric(B, C, sn_start, sn_parent, rs_ptr, rs_idx, ztol: float, zval: float):
+    """The multifrontal numeric phase (oracle: ``pc/multifrontal.py:
+    mf_factor_arrays``) on the permuted matrix as scipy CSR ``B`` and CSC
+    ``C``.  Returns (Lr, Lc, Lv, Ur, Uc, Uv, rowof, nclamped), or None."""
+    lib = load()
+    n = B.shape[0]
+    nsn = len(sn_start) - 1
+    w = np.diff(sn_start)
+    nR = np.diff(rs_ptr)
+    capL = int((w * (w - 1) // 2 + (nR - w) * w).sum())
+    capU = int((w * (w + 1) // 2 + (nR - w) * w).sum())
+    Lr, Lc, Lv = np.empty(capL, np.int64), np.empty(capL, np.int64), np.empty(capL, np.float64)
+    Ur, Uc, Uv = np.empty(capU, np.int64), np.empty(capU, np.int64), np.empty(capU, np.float64)
+    rowof = np.empty(n, np.int64)
+    out = lib.lssp_mf_numeric(
+        np.ascontiguousarray(B.indptr, np.int64), np.ascontiguousarray(B.indices, np.int64),
+        np.ascontiguousarray(B.data, np.float64), np.ascontiguousarray(C.indptr, np.int64),
+        np.ascontiguousarray(C.indices, np.int64), np.ascontiguousarray(C.data, np.float64),
+        n, np.ascontiguousarray(sn_start, np.int64), np.ascontiguousarray(sn_parent, np.int64),
+        np.ascontiguousarray(rs_ptr, np.int64), np.ascontiguousarray(rs_idx, np.int64), nsn,
+        ztol, zval, _blas_ptr("cython_blas", "dgemm"), _blas_ptr("cython_blas", "dtrsm"),
+        _blas_ptr("cython_lapack", "dgetrf"), Lr, Lc, Lv, capL, Ur, Uc, Uv, capU, rowof)
+    if out < 0:
+        return None
+    return Lr, Lc, Lv, Ur, Uc, Uv, rowof, int(out)

@@ -2,11 +2,29 @@
 
 Two strategies, as in ``lssp_tpu/ops/trisolve.py``:
 
-1. **Exact, level-scheduled** (``ilu_sweeps=0``).  On the host, once: each
-   row's level (longest dependency chain); rows of one level are
-   independent.  On the device, every apply: a Python loop over the levels,
-   each one gather + row sum + scatter over that level's rows (padded to a
-   rectangle; padding points at a dummy slot ``n``).
+1. **Exact, level-scheduled** (``ilu_sweeps=0``; the ``lu`` PC, ``direct``
+   and ARMS's coarse solve).  On the host, once: each row's level (longest
+   dependency chain); rows of one level are independent.  On the device,
+   every apply: a Python loop over the levels, each one gather + row sum +
+   scatter over that level's rows.  Two layouts hold a schedule, chosen by
+   size (``level_schedule``):
+
+   - ``TriSchedule``, JAX's: every level padded to the factor's widest
+     level ``w`` and longest row ``k``, (nlev, w, k) slots (padding points
+     at a dummy slot ``n``), kept wherever its slots are within twice the
+     factor's nnz;
+   - ``CompactSchedule`` past that: the rows in level order as one CSR,
+     each level a contiguous slice of rows and of entries, the iterate
+     kept in level order, each level's row sums one
+     ``torch.segment_reduce`` (one thread a row on CUDA, no atomics: an
+     apply repeats bitwise).  Its memory is the factor's nnz plus O(n).
+     An LU factor under a fill-reducing ordering has long separator rows
+     and wide leaf levels, and JAX's padding then explodes: 3.2e9 slots
+     for the L factor of ``laplacian_2d(128)`` under AMD, 1.4e12 at 512²
+     (ROADMAP C property 14).  A row sum runs in the stored order, the
+     padded one in ``torch.sum``'s: on the CPU the two agree bit for bit
+     on rows of at most four entries (a 5- or 7-point stencil's ILU(0))
+     and to rounding on longer ones.
 2. **Truncated Neumann** (``ilu_sweeps=k>0``).  For unit-lower L = I + Ls,
    k sweeps of ``y ← r − Ls·y`` give the degree-k truncation of L⁻¹; the
    same for U after scaling its rows by 1/diag.  The preconditioner's
@@ -32,7 +50,7 @@ from lssp_tpu_torch.sparse.utils import split_ldu
 
 @dataclasses.dataclass(frozen=True)
 class TriSchedule:
-    """Device level schedule of one triangular factor."""
+    """Device level schedule of one triangular factor, JAX's padded layout."""
 
     rows: Any           # (nlev, w) int64, padded with n
     cols: Any           # (nlev, w, k) int64, padded with n
@@ -43,6 +61,36 @@ class TriSchedule:
     @property
     def nlevels(self) -> int:
         return int(self.rows.shape[0])
+
+    @property
+    def slots(self) -> int:
+        return int(self.cols.numel())
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactSchedule:
+    """Device level schedule of one triangular factor, the rows in level
+    order as one CSR.  Level l holds the level-order rows
+    ``lev_ptr[l]:lev_ptr[l+1]`` and the entries ``nz_ptr[l]:nz_ptr[l+1]``;
+    ``seg[l]`` are that level's row offsets into its own entries (the
+    ``segment_reduce`` offsets), None for a level without entries."""
+
+    order: Any          # (n,) int64: the row at each level-order position
+    cols: Any           # (nnz,) int64: each entry's column, as a level-order position
+    vals: Any           # (nnz,)
+    seg: Any            # per level: (rows+1,) int64 offsets, or None
+    lev_ptr: tuple      # (nlev+1,) level-order row boundaries (host ints)
+    nz_ptr: tuple       # (nlev+1,) entry boundaries (host ints)
+    invdiag: Any        # (n,) 1/diag in level order, or None
+    n: int
+
+    @property
+    def nlevels(self) -> int:
+        return len(self.lev_ptr) - 1
+
+    @property
+    def slots(self) -> int:
+        return int(self.cols.numel())
 
 
 def default_ilu_sweeps(device) -> int:
@@ -62,21 +110,35 @@ def neumann_exact_depth(tris) -> int:
     return depth
 
 
-def level_schedule(T: CSR, lower: bool = True, diag: Optional[np.ndarray] = None,
-                   device="cpu") -> TriSchedule:
-    """Level schedule of a triangular CSR factor, on ``device``.  ``T`` may
-    hold its diagonal (split off here); a unit-diagonal factor has none
-    stored and ``diag=None``."""
-    n = T.shape[0]
+def _strict_levels(T: CSR, lower: bool, diag):
+    """(indptr, indices, data) of T's strict triangle, its diagonal (None for
+    a unit-diagonal factor) and each row's level."""
     Ls, d, Us = split_ldu(T)
     S = Ls if lower else Us
     if diag is None and np.any(d != 0):
         diag = d
     ip = np.asarray(S.indptr).astype(np.int64)
     idx = np.asarray(S.indices).astype(np.int64)
-    dat = np.asarray(S.data)
+    return ip, idx, np.asarray(S.data), diag, native.levels(ip, idx, T.shape[0], lower)
 
-    lev = native.levels(ip, idx, n, lower)
+
+def level_schedule(T: CSR, lower: bool = True, diag: Optional[np.ndarray] = None,
+                   device="cpu"):
+    """Level schedule of a triangular CSR factor, on ``device``.  ``T`` may
+    hold its diagonal (split off here); a unit-diagonal factor has none
+    stored and ``diag=None``.  JAX's padded ``TriSchedule`` when its nlev·w·k
+    slots are at most twice the strict factor's nnz, else the
+    ``CompactSchedule``: the choice is made by size alone."""
+    n = T.shape[0]
+    ip, idx, dat, diag, lev = _strict_levels(T, lower, diag)
+    nlev = int(lev.max()) + 1 if n else 1
+    w = max(1, int(np.bincount(lev, minlength=nlev).max())) if n else 1
+    k = max(1, int((ip[1:] - ip[:-1]).max()) if n else 1)
+    build = _padded if nlev * w * k <= 2 * len(idx) else _compact
+    return build(ip, idx, dat, diag, lev, n, device)
+
+
+def _padded(ip, idx, dat, diag, lev, n, device) -> TriSchedule:
     nlev = int(lev.max()) + 1 if n else 1
     order = np.argsort(lev, kind="stable")
     counts = np.bincount(lev, minlength=nlev)
@@ -107,11 +169,42 @@ def level_schedule(T: CSR, lower: bool = True, diag: Optional[np.ndarray] = None
                        vals=torch.from_numpy(vals).to(device), invdiag=invd, n=n)
 
 
-def _sweep(sched: TriSchedule, b: torch.Tensor) -> torch.Tensor:
-    """One exact triangular solve: a loop over levels, each a gather, a
-    row sum and a scatter into the extended iterate (slot n is a dummy that
-    stays 0).  ``b`` is (n,) or an (n, k) block, solved column by column
-    in the same gathers."""
+def _compact(ip, idx, dat, diag, lev, n, device) -> CompactSchedule:
+    nlev = int(lev.max()) + 1 if n else 1
+    order = np.argsort(lev, kind="stable")
+    pos = np.empty(n, dtype=np.int64)
+    pos[order] = np.arange(n)
+    rn = (ip[1:] - ip[:-1])[order]
+    rptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(rn, out=rptr[1:])
+    # the entries of the rows in level order, each row's in its stored order
+    take = np.repeat(ip[:-1][order] - rptr[:-1], rn) + np.arange(rptr[-1])
+    lev_ptr = np.zeros(nlev + 1, dtype=np.int64)
+    np.cumsum(np.bincount(lev, minlength=nlev), out=lev_ptr[1:])
+    nz_ptr = rptr[lev_ptr]
+    seg = tuple(torch.from_numpy(rptr[lev_ptr[l]:lev_ptr[l + 1] + 1] - nz_ptr[l]).to(device)
+                if nz_ptr[l + 1] > nz_ptr[l] else None for l in range(nlev))
+    invd = None
+    if diag is not None:
+        invd = torch.from_numpy((1.0 / np.asarray(diag)).astype(dat.dtype)[order]).to(device)
+    return CompactSchedule(order=torch.from_numpy(order).to(device),
+                           cols=torch.from_numpy(pos[idx[take]]).to(device),
+                           vals=torch.from_numpy(np.ascontiguousarray(dat[take])).to(device),
+                           seg=seg, lev_ptr=tuple(int(v) for v in lev_ptr),
+                           nz_ptr=tuple(int(v) for v in nz_ptr), invdiag=invd, n=n)
+
+
+def _sweep(sched, b: torch.Tensor) -> torch.Tensor:
+    """One exact triangular solve of ``b`` ((n,) or an (n, k) block, solved
+    column by column in the same gathers) on either layout."""
+    if isinstance(sched, CompactSchedule):
+        return _sweep_compact(sched, b)
+    return _sweep_padded(sched, b)
+
+
+def _sweep_padded(sched: TriSchedule, b: torch.Tensor) -> torch.Tensor:
+    """A loop over levels, each a gather, a row sum and a scatter into the
+    extended iterate (slot n is a dummy that stays 0)."""
     n = sched.n
     tail = tuple(b.shape[1:])
     be = torch.cat([b, b.new_zeros((1,) + tail)])
@@ -133,12 +226,41 @@ def _sweep(sched: TriSchedule, b: torch.Tensor) -> torch.Tensor:
     return xe[:n]
 
 
-def ilu_apply(sched_l: TriSchedule, sched_u: TriSchedule, r: torch.Tensor):
+def _sweep_compact(sched: CompactSchedule, b: torch.Tensor) -> torch.Tensor:
+    """A loop over levels on the level-order iterate y: level l's rows are
+    y[r0:r1] = (b[order][r0:r1] − segment sums of vals·y[cols]) · 1/diag,
+    written in place; x = y scattered back through ``order``."""
+    tail = tuple(b.shape[1:])
+    bl = b[sched.order]
+    vals = sched.vals.to(b.dtype)
+    ide = None if sched.invdiag is None else sched.invdiag.to(b.dtype)
+    if tail:
+        vals = vals[:, None]
+        ide = None if ide is None else ide[:, None]
+    y = torch.empty_like(bl)
+    lp, zp = sched.lev_ptr, sched.nz_ptr
+    for lev in range(sched.nlevels):
+        r0, r1, e0, e1 = lp[lev], lp[lev + 1], zp[lev], zp[lev + 1]
+        out = y[r0:r1]
+        if e1 > e0:
+            prod = vals[e0:e1] * y[sched.cols[e0:e1]]
+            torch.sub(bl[r0:r1], torch.segment_reduce(prod, "sum", offsets=sched.seg[lev],
+                                                      axis=0, unsafe=True), out=out)
+        else:
+            out.copy_(bl[r0:r1])
+        if ide is not None:
+            out.mul_(ide[r0:r1])
+    x = torch.empty_like(y)
+    x[sched.order] = y
+    return x
+
+
+def ilu_apply(sched_l, sched_u, r: torch.Tensor):
     """z = U⁻¹ (L⁻¹ r), exact (reference lssp_pc_ilu_solve)."""
     return _sweep(sched_u, _sweep(sched_l, r))
 
 
-def ilu_apply_t(sched_ut: TriSchedule, sched_lt: TriSchedule, r: torch.Tensor):
+def ilu_apply_t(sched_ut, sched_lt, r: torch.Tensor):
     """z = M⁻ᵀ r = L⁻ᵀ (U⁻ᵀ r) for M = LU, from the schedules of Uᵀ (lower,
     with the diagonal) and Lᵀ (upper, unit diagonal)."""
     return _sweep(sched_lt, _sweep(sched_ut, r))

@@ -232,11 +232,43 @@ def apply_dist_spmv(M, x: torch.Tensor) -> torch.Tensor:
     return make_dist_spmv(M)(x)
 
 
-def make_psum_dot(nshards: int):
-    """Distributed ⟨x, y⟩: per-shard partial sums, then a sum over the
-    shard axis (the ``psum``); a 0-d tensor."""
-    def pdot(x, y):
-        return dot(x.view(nshards, -1).T, y.view(nshards, -1).T).sum()
+def psum(partials: torch.Tensor) -> torch.Tensor:
+    """The reduction over the shards: the per-shard partial sums on the
+    last axis, summed (JAX's ``lax.psum``).  Every reduction of
+    ``make_psum_dot``'s dot goes through here once."""
+    return partials.sum(dim=-1)
 
+
+def make_psum_dot(nshards: int):
+    """Distributed ⟨x, y⟩: each shard's partial sum, then one ``psum`` over
+    the shard axis; a 0-d tensor for flat (n,) vectors, (k,) for (n, k)
+    blocks.  The distributed launcher hands it to every method as its
+    ``dot`` (JAX's ``parallel/dist_ops.make_psum_dot``).  ``.many(pairs)``
+    gives the inner products of all the pairs from ONE stacked ``psum`` of
+    their partials and ``.rows(V, w)`` all ⟨V[j], w⟩ from one ``psum`` of
+    the coefficient vector, the communication-avoiding contract of pipecg
+    and cagmres (``solvers/base.dot_many`` / ``dot_rows``).  On the CPU a
+    partial sums in ``base.dot``'s order; on the card the partials of every
+    shard (and column) are one reduction."""
+    def partial(x, y):
+        # (R, [k,] P): shard p's rows in the last index, summed over the rows
+        xs = x.view(nshards, -1, *x.shape[1:]).movedim(0, -1)
+        ys = y.view(nshards, -1, *y.shape[1:]).movedim(0, -1)
+        if x.device.type != "cpu":
+            return (xs * ys).sum(dim=0)
+        return dot(xs, ys)
+
+    def pdot(x, y):
+        return psum(partial(x, y))
+
+    def many(pairs):
+        glob = psum(torch.stack([partial(a, b) for a, b in pairs]))
+        return tuple(glob[i] for i in range(len(pairs)))
+
+    def rows(V, w):
+        return psum(torch.stack([partial(V[j], w) for j in range(V.shape[0])]))
+
+    pdot.many = many
+    pdot.rows = rows
     return pdot
 

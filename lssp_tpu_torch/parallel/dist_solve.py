@@ -36,6 +36,7 @@ the per-shard Grams; any other method runs its per-column batched form.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import Any, Optional, Tuple
 
@@ -64,7 +65,6 @@ from lssp_tpu_torch.solvers.registry import get_batched_solver, get_block_solver
 from lssp_tpu_torch.sparse.convert import coo_to_csr
 from lssp_tpu_torch.sparse.types import COO, CSR, numpy_dtype, torch_dtype
 from lssp_tpu_torch.sparse.utils import diagonal, split_ldu
-
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -607,6 +607,10 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
         pc_opts = dataclasses.replace(pc_opts, transpose=True)
     mesh = mesh or make_mesh()
     Pn, device = mesh.size, mesh.device
+    pdot = make_psum_dot(Pn)
+    if get_block_solver(method) is None:
+        # every inner product of the method is a psum over the shards
+        fn = functools.partial(fn, dot=pdot)
     dtype = torch.float64 if ir else torch.promote_types(torch_dtype(A.dtype), b.dtype)
     n_orig = A.shape[0]
     b = b.to(device=device, dtype=dtype).contiguous()
@@ -636,10 +640,11 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
         def inner(R32):
             return fn(op, R32, torch.zeros_like(R32), pc_apply, opts=solver_opts)
 
-        x, info = refine_multi(op64, inner, b, x0, opts, max_outer, inner_dtype, norm)
+        x, info = refine_multi(op64, inner, b, x0, opts, max_outer, inner_dtype,
+                               functools.partial(norm, dot_fn=pdot))
     elif ir:
         x, info = _shard_ir(op, make_dist_spmv(prep["M64"]), pc_apply, fn, b, x0, opts,
-                            solver_opts, max_outer, inner_dtype, make_psum_dot(Pn))
+                            solver_opts, max_outer, inner_dtype, pdot)
     else:
         x, info = fn(op, b, x0, pc_apply, opts=solver_opts)
     return x[:n_orig], info

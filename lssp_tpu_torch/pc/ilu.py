@@ -1,7 +1,12 @@
-"""ILU(0) / ILU(k) / ILUT preconditioners: host factorization, device apply
-(reference assemble pc-iluk.cxx:566-581, pc-ilut.cxx:429-456; apply
-contract lssp_pc_ilu_solve, solver-tri.cxx:48-60)."""
+"""ILU(0) / ILU(k) / ILUT / ILUTP preconditioners: host factorization,
+device apply (reference assemble pc-iluk.cxx:566-581, pc-ilut.cxx:429-456;
+apply contract lssp_pc_ilu_solve, solver-tri.cxx:48-60)."""
 from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
 
 from lssp_tpu_torch.ops.neumann import (
     fused_neumann_apply, plan_fused_neumann, plan_fused_neumann_t,
@@ -11,7 +16,7 @@ from lssp_tpu_torch.ops.trisolve import (
     level_schedule, neumann_exact_depth,
 )
 from lssp_tpu_torch.pc.base import Preconditioner, register_pc
-from lssp_tpu_torch.pc.ilu_host import iluk_factor, ilut_factor
+from lssp_tpu_torch.pc.ilu_host import iluk_factor, ilut_factor, ilutp_factor
 from lssp_tpu_torch.sparse.utils import split_ldu
 
 
@@ -91,3 +96,34 @@ def setup_ilut(A, opts, device):
                        num_blocks=opts.num_blocks or 1)
     return make_ilu_pc(L, U, "ilut", opts.ilu_sweeps, transpose=opts.transpose,
                        device=device)
+
+
+def _ilutp_apply(inner_fn, state, r):
+    inner_state, iperm, perm = state
+    return inner_fn(inner_state, r)[iperm]      # undo the column pivoting
+
+
+def _ilutp_apply_t(inner_t_fn, state, r):
+    # M⁻¹ = G·U⁻¹L⁻¹ with (Gy)[c] = y[iperm[c]], so M⁻ᵀ = L⁻ᵀU⁻ᵀ·Gᵀ, Gᵀr = r[perm]
+    inner_state, iperm, perm = state
+    return inner_t_fn(inner_state, r[perm])
+
+
+@register_pc("ilutp")
+def setup_ilutp(A, opts, device):
+    """ILUT with column pivoting (the LIS ``ilutp``), robust on matrices with
+    small or zero diagonals: L·U ≈ A[:, perm] from the host heap loop
+    (``ilutp_factor``), the permuted factors in A's dtype through
+    ``make_ilu_pc`` (exact level schedules, or K2's Neumann sweeps and, for
+    M⁻ᵀ, K2 on the transposed plan of the same factors applied to r[perm]),
+    the permutation undone by a gather."""
+    L, U, perm = ilutp_factor(A, tol=opts.ilut_tol, p=opts.ilut_p, permtol=opts.ilutp_permtol)
+    dtype = np.asarray(A.data).dtype
+    inner = make_ilu_pc(L.astype(dtype), U.astype(dtype), "ilutp-inner", opts.ilu_sweeps,
+                        transpose=opts.transpose, device=device)
+    state = (inner.state, torch.from_numpy(np.argsort(perm)).to(device),
+             torch.from_numpy(np.asarray(perm, np.int64)).to(device))
+    return Preconditioner(functools.partial(_ilutp_apply, inner.apply_fn), state=state,
+                          name=f"ilutp[{inner.name}]",
+                          apply_t_fn=(functools.partial(_ilutp_apply_t, inner.apply_t_fn)
+                                      if inner.apply_t_fn is not None else None))

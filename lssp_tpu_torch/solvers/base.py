@@ -37,7 +37,9 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The port's one inner product: Σ_i a[i]·b[i] over dim 0, a 0-d tensor
     for (n,) vectors and a (k,) one for (n, k) blocks, one sum per column
     (broadcast trailing dims give one sum each).  Every dot and norm of the
-    solvers, the AMG solve and the distributed reduction comes here.
+    solvers and the AMG solve comes here, and on the CPU each shard's
+    partial of the distributed one (``parallel/dist_ops.make_psum_dot``;
+    on the card those partials are one reduction of their own).
 
     On CUDA each column is ``torch.dot`` of the (strided) column: cuBLAS
     sums a strided fp64 column as the contiguous vector, so a batched lane
@@ -54,9 +56,46 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(np.asarray(np.add.reduce(rows, axis=-1)))
 
 
-def norm(v: torch.Tensor) -> torch.Tensor:
-    """‖v‖ as √⟨v, v⟩ (``dot``); (k,) column norms for an (n, k) block."""
-    return torch.sqrt(dot(v, v))
+def _dot_rows(V: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """⟨V[j], w⟩ for every row j of a basis V (m, n) (+ lane), each summed as
+    ``dot`` sums one pair: on the CPU in one pairwise reduction of the m
+    contiguous rows, on CUDA one ``torch.dot`` a row."""
+    if V.device.type != "cpu":
+        return torch.stack([dot(V[j], w) for j in range(V.shape[0])])
+    return dot(V.movedim(0, -1), w.unsqueeze(-1)).movedim(-1, 0)
+
+
+dot.rows = _dot_rows
+
+
+def dot_many(dot_fn, pairs):
+    """The inner products ⟨aᵢ, bᵢ⟩ of ``pairs`` together: through
+    ``dot_fn.many`` where it has one (the distributed dot: ONE reduction
+    over the shards for all the pairs, ``parallel/dist_ops.make_psum_dot``),
+    else one ``dot_fn`` call a pair, never a local sum that would skip a
+    custom dot's reduction (JAX's ``solvers/base.dot_many``)."""
+    many = getattr(dot_fn, "many", None)
+    if many is not None:
+        return many(pairs)
+    return tuple(dot_fn(a, b) for a, b in pairs)
+
+
+def dot_rows(dot_fn, V: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """All basis inner products ⟨V[j], w⟩ at once, the classical
+    Gram-Schmidt primitive of cagmres: ``dot_fn.rows`` where it has one
+    (the distributed dot: one reduction over the shards for the whole
+    coefficient vector), else one ``dot_fn`` call a row (JAX's
+    ``solvers/base.dot_rows``)."""
+    rows = getattr(dot_fn, "rows", None)
+    if rows is not None:
+        return rows(V, w)
+    return torch.stack([dot_fn(V[j], w) for j in range(V.shape[0])])
+
+
+def norm(v: torch.Tensor, dot_fn=dot) -> torch.Tensor:
+    """‖v‖ as √⟨v, v⟩ through ``dot_fn`` (``dot``, or a solve's own: the
+    distributed one); (k,) column norms for an (n, k) block."""
+    return torch.sqrt(dot_fn(v, v))
 
 
 def operator(A) -> Callable:

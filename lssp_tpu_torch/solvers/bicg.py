@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from lssp_tpu_torch.solvers.base import (
-    dot, init_state, nonzero, norm, operator_t, pc_transpose,
+    dot as base_dot, init_state, nonzero, norm, operator_t, pc_transpose,
 )
 from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
@@ -20,10 +20,10 @@ from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 @register_batched("bicg")
 @register_solver("bicg")
-def bicg(A, b, x0=None, M=None, opts=None):
+def bicg(A, b, x0=None, M=None, opts=None, dot=base_dot):
     op, pc, x, r = init_state(A, b, x0, M)
     opt, pct = operator_t(A), pc_transpose(M)
-    L = Lanes(b, r, opts)
+    L = Lanes(b, r, opts, dot=dot)
     L.rel = True
     rt = r                                  # shadow residual r̃0 = r0
     p = pt = rho_old = None
@@ -39,7 +39,7 @@ def bicg(A, b, x0=None, M=None, opts=None):
         sigma = dot(pt, q)
         alpha = rho / nonzero(sigma)
         r_new = r - alpha * q
-        res, rho_h, sigma_h = L.read(norm(r_new), rho, sigma)
+        res, rho_h, sigma_h = L.read(norm(r_new, dot), rho, sigma)
         brk = (np.abs(rho_h) <= opts.breakdown) | (np.abs(sigma_h) <= opts.breakdown)
         x = L.pick(L.active & ~brk, x + alpha * p, x)
         r, rt = r_new, rt - alpha * qt

@@ -6,12 +6,12 @@ from __future__ import annotations
 
 import torch
 
-from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.base import dot as base_dot, init_state, nonzero, norm
 from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
-def qsi_eta(first, y, ay, r):
+def qsi_eta(first, y, ay, r, dot):
     """The reference's (ζ, η) from the five dots of y, ay = A·M⁻¹(r or t)
     and r: on the first iteration ζ = ⟨ay, r⟩/⟨ay, ay⟩ and η = 0."""
     t1, t4 = dot(ay, r), dot(ay, ay)
@@ -24,9 +24,9 @@ def qsi_eta(first, y, ay, r):
 
 @register_batched("bicgsafe")
 @register_solver("bicgsafe")
-def bicgsafe(A, b, x0=None, M=None, opts=None):
+def bicgsafe(A, b, x0=None, M=None, opts=None, dot=base_dot):
     op, pc, x, r = init_state(A, b, x0, M)
-    L = Lanes(b, r, opts)
+    L = Lanes(b, r, opts, dot=dot)
     rtld = r
     p = mr = pc(r)
     ap = amr = op(mr)
@@ -36,7 +36,7 @@ def bicgsafe(A, b, x0=None, M=None, opts=None):
     first = True
     while L.active.any():
         alpha = rho_old / nonzero(dot(rtld, ap))
-        qsi, eta = qsi_eta(first, y, amr, r)
+        qsi, eta = qsi_eta(first, y, amr, r, dot)
         mt = pc(eta * y + qsi * ap)
         u = mt + (eta * beta) * u
         au = op(u)
@@ -45,7 +45,7 @@ def bicgsafe(A, b, x0=None, M=None, opts=None):
         x_new = x + alpha * p + z
         r = r - alpha * ap - y
         rho = dot(rtld, r)
-        res, rho_h = L.read(norm(r), rho)
+        res, rho_h = L.read(norm(r, dot), rho)
         x = L.pick(L.active, x_new, x)
         L.advance(res, done=rho_h == 0.0)
         if L.active.any():

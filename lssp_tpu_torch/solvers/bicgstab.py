@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch.solvers.base import (
-    SolveInfo, dot, history_init, history_init_block, history_update,
+    SolveInfo, dot as base_dot, history_init, history_init_block, history_update,
     history_update_block, init_state, norm, stopping_tol, to_host,
 )
 from lssp_tpu_torch.solvers.base import dot, nonzero as _nonzero, norm
@@ -17,10 +17,10 @@ from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
 @register_solver("bicgstab")
-def bicgstab(A, b, x0=None, M=None, opts=None):
+def bicgstab(A, b, x0=None, M=None, opts=None, dot=base_dot):
     op, pc, x, r = init_state(A, b, x0, M)
-    bnorm = norm(b).item()
-    r0norm = norm(r).item()
+    bnorm = norm(b, dot).item()
+    r0norm = norm(r, dot).item()
     tol = stopping_tol(r0norm, bnorm, opts)
     hist = history_init(opts, r0norm)
     rh = r                                   # shadow residual r̂ = r0
@@ -37,7 +37,7 @@ def bicgstab(A, b, x0=None, M=None, opts=None):
         v = op(ph)
         alpha = rho1 / _nonzero(dot(rh, v))
         s = r - alpha * v
-        fail, s_small = torch.stack([rho1 == 0.0, norm(s) <= opts.breakdown]).tolist()
+        fail, s_small = torch.stack([rho1 == 0.0, norm(s, dot) <= opts.breakdown]).tolist()
         if fail:                             # ρ = 0: stop, x and r unchanged
             done = True
         elif s_small:                        # ‖s‖-breakdown: half-update, exit
@@ -51,7 +51,7 @@ def bicgstab(A, b, x0=None, M=None, opts=None):
             x = x + alpha * ph + omega * sh
             r = s - omega * t
         rho0 = rho1
-        res = norm(r).item()
+        res = norm(r, dot).item()
         it += 1
         history_update(opts, hist, it, res)
     return x, SolveInfo(nits=it, residual=res, converged=res <= tol,
@@ -59,7 +59,7 @@ def bicgstab(A, b, x0=None, M=None, opts=None):
 
 
 @register_batched("bicgstab")
-def bicgstab_batched(A, B, X0=None, M=None, opts=None):
+def bicgstab_batched(A, B, X0=None, M=None, opts=None, dot=base_dot):
     """BiCGSTAB on every column of an (n, k) block, each column on its own
     single-rhs trajectory (the per-column path of ``solve_multi``, as
     ``cg_batched``).  A column stops at its tolerance, at maxit, or at its
@@ -67,8 +67,8 @@ def bicgstab_batched(A, B, X0=None, M=None, opts=None):
     together (a second sync, as in ``bicgstab``) to pick each column's
     branch."""
     op, pc, X, R = init_state(A, B, X0, M)
-    r0_t = norm(R)
-    bnorm, r0norm = to_host(norm(B), r0_t)
+    r0_t = norm(R, dot)
+    bnorm, r0norm = to_host(norm(B, dot), r0_t)
     tol = np.maximum(np.maximum(opts.rtol * r0norm, opts.atol), opts.rbtol * bnorm)
     tol_t = torch.from_numpy(tol).to(B.device)
     hist = history_init_block(opts, B.shape[1], r0norm)
@@ -92,7 +92,7 @@ def bicgstab_batched(A, B, X0=None, M=None, opts=None):
         alpha = rho1 / _nonzero(dot(Rh, V))
         S = R - alpha * V
         fail_t = act_t & (rho1 == 0.0)
-        small_t = act_t & ~fail_t & (norm(S) <= opts.breakdown)
+        small_t = act_t & ~fail_t & (norm(S, dot) <= opts.breakdown)
         full_t = act_t & ~fail_t & ~small_t
         fail, small = (f.astype(bool) for f in to_host(fail_t, small_t))
         if (active & ~fail & ~small).any():
@@ -106,7 +106,7 @@ def bicgstab_batched(A, B, X0=None, M=None, opts=None):
             R = torch.where(small_t, B - op(Xh), R)
             X = Xh
         rho0, first = rho1, False
-        res_t = norm(R)
+        res_t = norm(R, dot)
         it_t = it_t + act_t
         act_t = full_t & (res_t.double() > tol_t) & (it_t < opts.maxit)
         res_h, act_h = to_host(res_t, act_t)

@@ -15,12 +15,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.base import dot as base_dot, init_state, nonzero, norm
 from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
-def _mr(R, U, xh, l):
+def _mr(R, U, xh, l, dot):
     """The MR part on the residuals R[0..l] and directions U[0..l] (lists):
     modified Gram–Schmidt on R[1..l], the γ, γ′, γ″ recurrences and the
     update.  Returns (x̂, R, U, ω)."""
@@ -59,10 +59,10 @@ def _mr(R, U, xh, l):
 
 @register_batched("bicgstabl")
 @register_solver("bicgstabl")
-def bicgstabl(A, b, x0=None, M=None, opts=None):
+def bicgstabl(A, b, x0=None, M=None, opts=None, dot=base_dot):
     l = opts.bgsl
     op, pc, xp, r0 = init_state(A, b, x0, M)
-    L = Lanes(b, r0, opts, limit=opts.maxit + 1)
+    L = Lanes(b, r0, opts, limit=opts.maxit + 1, dot=dot)
     rtld = r0
     xh = torch.zeros_like(b)
     zero = torch.zeros_like(b)
@@ -82,7 +82,7 @@ def bicgstabl(A, b, x0=None, M=None, opts=None):
             alpha = rho1 / nonzero(nu)
             xh_n = xh + alpha * U[0]
             R = [R[i] - alpha * U[i + 1] for i in range(j + 1)] + R[j + 1:]
-            rho1_h, nu_h, nrm = L.read(rho1, nu, norm(R[0]))
+            rho1_h, nu_h, nrm = L.read(rho1, nu, norm(R[0], dot))
             fail = (rho1_h == 0.0) | (nu_h == 0.0)
             go = ~stop & ~fail
             xh = L.pick(go, xh_n, xh)
@@ -94,9 +94,9 @@ def bicgstabl(A, b, x0=None, M=None, opts=None):
             R[j + 1] = op(pc(R[j]))
         go = ~stop
         if go.any():                        # the MR part
-            xh_n, R, U, omega = _mr(R, U, xh, l)
+            xh_n, R, U, omega = _mr(R, U, xh, l, dot)
             xh = L.pick(go, xh_n, xh)
-            (res,) = L.read(norm(R[0]))
+            (res,) = L.read(norm(R[0], dot))
             L.res = np.where(go, res, L.res)
             L.record(go)
         L.settle(stop)

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.base import dot as base_dot, init_state, nonzero, norm
 from lssp_tpu_torch.solvers.bicgsafe import qsi_eta
 from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
@@ -14,9 +14,9 @@ from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 @register_batched("bicrsafe")
 @register_solver("bicrsafe")
-def bicrsafe(A, b, x0=None, M=None, opts=None):
+def bicrsafe(A, b, x0=None, M=None, opts=None, dot=base_dot):
     op, pc, x, r = init_state(A, b, x0, M)
-    L = Lanes(b, r, opts)
+    L = Lanes(b, r, opts, dot=dot)
     rtld = r
     artld = op(rtld)
     p = mr = pc(r)
@@ -28,7 +28,7 @@ def bicrsafe(A, b, x0=None, M=None, opts=None):
     while L.active.any():
         map_ = pc(ap)
         alpha = rho_old / nonzero(dot(artld, map_))
-        qsi, eta = qsi_eta(first, y, amr, r)
+        qsi, eta = qsi_eta(first, y, amr, r, dot)
         u = (eta * beta) * u + qsi * map_ + eta * my      # (:82-85)
         au = op(u)
         z = eta * z + qsi * mr - alpha * u
@@ -39,7 +39,7 @@ def bicrsafe(A, b, x0=None, M=None, opts=None):
         mr_new = mr - alpha * map_ - my
         amr_new = op(mr_new)
         rho = dot(rtld, amr_new)
-        res, rho_h = L.read(norm(r), rho)
+        res, rho_h = L.read(norm(r, dot), rho)
         x = L.pick(L.active, x_new, x)
         L.advance(res, done=rho_h == 0.0)
         if L.active.any():

@@ -7,16 +7,16 @@ from __future__ import annotations
 
 import numpy as np
 
-from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.base import dot as base_dot, init_state, nonzero, norm
 from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
 @register_batched("bicrstab")
 @register_solver("bicrstab")
-def bicrstab(A, b, x0=None, M=None, opts=None):
+def bicrstab(A, b, x0=None, M=None, opts=None, dot=base_dot):
     op, pc, x, r = init_state(A, b, x0, M)
-    L = Lanes(b, r, opts)
+    L = Lanes(b, r, opts, dot=dot)
     rtld = op(r)
     p = z = pc(r)
     rho_old = dot(rtld, z)
@@ -33,7 +33,7 @@ def bicrstab(A, b, x0=None, M=None, opts=None):
         r = s - omega * ams
         z = pc(r)
         rho = dot(rtld, z)
-        snorm, rnorm, rho_h = L.read(norm(s), norm(r), rho)
+        snorm, rnorm, rho_h = L.read(norm(s, dot), norm(r, dot), rho)
         early = snorm <= L.tol              # ‖s‖ converged: x += αp only, and stop
         x = L.pick(L.active & early, x_half, L.pick(L.active, x_full, x))
         res = np.where(early, snorm, rnorm)

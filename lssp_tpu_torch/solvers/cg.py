@@ -10,17 +10,17 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch.solvers.base import (
-    SolveInfo, dot, history_init, history_init_block, history_update,
+    SolveInfo, dot as base_dot, history_init, history_init_block, history_update,
     history_update_block, init_state, norm, stopping_tol, to_host,
 )
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
 @register_solver("cg")
-def cg(A, b, x0=None, M=None, opts=None):
+def cg(A, b, x0=None, M=None, opts=None, dot=base_dot):
     op, pc, x, r = init_state(A, b, x0, M)
-    bnorm = norm(b).item()
-    r0norm = norm(r).item()
+    bnorm = norm(b, dot).item()
+    r0norm = norm(r, dot).item()
     tol = stopping_tol(r0norm, bnorm, opts)
     hist = history_init(opts, r0norm)
     it, res = 0, r0norm
@@ -33,7 +33,7 @@ def cg(A, b, x0=None, M=None, opts=None):
         alpha = rho / dot(q, p)
         x = x + alpha * p
         r = r - alpha * q
-        res = norm(r).item()
+        res = norm(r, dot).item()
         it += 1
         rho_old = rho
         history_update(opts, hist, it, res, r0norm, bnorm)
@@ -42,7 +42,7 @@ def cg(A, b, x0=None, M=None, opts=None):
 
 
 @register_batched("cg")
-def cg_batched(A, B, X0=None, M=None, opts=None):
+def cg_batched(A, B, X0=None, M=None, opts=None, dot=base_dot):
     """CG on every column of an (n, k) block: the per-column path of
     ``solve_multi`` (JAX runs ``jax.vmap(cg)``).  Each column follows its
     own single-rhs trajectory and keeps its own count: a column whose
@@ -52,8 +52,8 @@ def cg_batched(A, B, X0=None, M=None, opts=None):
     all k columns; one host sync per iteration brings the k residuals and
     the active mask over together."""
     op, pc, X, R = init_state(A, B, X0, M)
-    r0_t = norm(R)
-    bnorm, r0norm = to_host(norm(B), r0_t)
+    r0_t = norm(R, dot)
+    bnorm, r0norm = to_host(norm(B, dot), r0_t)
     tol = np.maximum(np.maximum(opts.rtol * r0norm, opts.atol), opts.rbtol * bnorm)
     tol_t = torch.from_numpy(tol).to(B.device)
     hist = history_init_block(opts, B.shape[1], r0norm)
@@ -73,7 +73,7 @@ def cg_batched(A, B, X0=None, M=None, opts=None):
         X = torch.where(act_t, X + alpha * P, X)
         R = torch.where(act_t, R - alpha * Q, R)
         rho_old, first = rho, False
-        res_t = norm(R)
+        res_t = norm(R, dot)
         it_t = it_t + act_t
         act_t = act_t & (res_t.double() > tol_t) & (it_t < opts.maxit)
         res_h, act_h = to_host(res_t, act_t)

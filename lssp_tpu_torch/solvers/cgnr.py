@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from lssp_tpu_torch.solvers.base import (
-    dot, identity_pc, nonzero, norm, operator, operator_t, pc_transpose,
+    dot as base_dot, identity_pc, nonzero, norm, operator, operator_t, pc_transpose,
 )
 from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
@@ -21,7 +21,7 @@ from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 @register_batched("cgnr", "cgn")
 @register_solver("cgnr", "cgn")
-def cgnr(A, b, x0=None, M=None, opts=None):
+def cgnr(A, b, x0=None, M=None, opts=None, dot=base_dot):
     a_op, a_opt = operator(A), operator_t(A)
     if M is None:
         op, opt, pc = a_op, a_opt, identity_pc
@@ -31,7 +31,7 @@ def cgnr(A, b, x0=None, M=None, opts=None):
     # y iterates with x = x0 + M⁻¹y; without M, y starts at x0 itself
     y = torch.zeros_like(b) if x0 is None or M is not None else x0
     r = b - a_op(x0) if x0 is not None else b - 0.0 * b
-    L = Lanes(b, r, opts)
+    L = Lanes(b, r, opts, dot=dot)
     L.rel = True
     z = opt(r)
     p, zn2 = z, dot(z, z)
@@ -46,7 +46,7 @@ def cgnr(A, b, x0=None, M=None, opts=None):
         zn2_new = dot(z, z)
         p = z + (zn2_new / nonzero(zn2)) * p
         zn2 = zn2_new
-        res, zn2_h = L.read(norm(r), zn2)
+        res, zn2_h = L.read(norm(r, dot), zn2)
         L.advance(res, done=zn2_h <= opts.breakdown)
     if M is None:
         return L.result(y)

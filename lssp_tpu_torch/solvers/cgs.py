@@ -8,16 +8,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.base import dot as base_dot, init_state, nonzero, norm
 from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
 @register_batched("cgs")
 @register_solver("cgs")
-def cgs(A, b, x0=None, M=None, opts=None):
+def cgs(A, b, x0=None, M=None, opts=None, dot=base_dot):
     op, pc, x, r = init_state(A, b, x0, M)
-    L = Lanes(b, r, opts)
+    L = Lanes(b, r, opts, dot=dot)
     rtld = r
     p = q = torch.zeros_like(r)
     rho_old = L.scalar(1.0, b)
@@ -33,7 +33,7 @@ def cgs(A, b, x0=None, M=None, opts=None):
         uhat = pc(u + q)
         x_new = x + alpha * uhat
         r_new = r - alpha * op(uhat)
-        res, rho_h, tdot_h = L.read(norm(r_new), rho, tdot)
+        res, rho_h, tdot_h = L.read(norm(r_new, dot), rho, tdot)
         fail = (rho_h == 0.0) | (tdot_h == 0.0)
         x = L.pick(L.active & ~fail, x_new, x)
         r = r_new

@@ -5,16 +5,16 @@ from __future__ import annotations
 
 import numpy as np
 
-from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.base import dot as base_dot, init_state, nonzero, norm
 from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
 @register_batched("cr")
 @register_solver("cr")
-def cr(A, b, x0=None, M=None, opts=None):
+def cr(A, b, x0=None, M=None, opts=None, dot=base_dot):
     op, pc, x, r = init_state(A, b, x0, M)
-    L = Lanes(b, r, opts)
+    L = Lanes(b, r, opts, dot=dot)
     p = z = pc(r)
     q = op(p)
     while L.active.any():
@@ -23,7 +23,7 @@ def cr(A, b, x0=None, M=None, opts=None):
         alpha = dot(r, qtld) / nonzero(rho)
         x_new = x + alpha * p
         r = r - alpha * q
-        res, rho_h = L.read(norm(r), rho)
+        res, rho_h = L.read(norm(r, dot), rho)
         fail = rho_h == 0.0
         x = L.pick(L.active & ~fail, x_new, x)
         L.advance(np.where(fail, L.res, res), done=fail)

@@ -7,16 +7,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.base import dot as base_dot, init_state, nonzero, norm
 from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
 @register_batched("crs")
 @register_solver("crs")
-def crs(A, b, x0=None, M=None, opts=None):
+def crs(A, b, x0=None, M=None, opts=None, dot=base_dot):
     op, pc, x, r = init_state(A, b, x0, M)
-    L = Lanes(b, r, opts)
+    L = Lanes(b, r, opts, dot=dot)
     rtld = op(r)                            # shadow = A·r0
     p = q = torch.zeros_like(r)
     rho_old = L.scalar(1.0, b)
@@ -33,7 +33,7 @@ def crs(A, b, x0=None, M=None, opts=None):
         uq = u + q
         x_new = x + alpha * uq
         r = r - alpha * op(uq)
-        res, rho_h, tdot_h = L.read(norm(r), rho, tdot)
+        res, rho_h, tdot_h = L.read(norm(r, dot), rho, tdot)
         fail = (rho_h == 0.0) | (tdot_h == 0.0)
         x = L.pick(L.active & ~fail, x_new, x)
         L.advance(np.where(fail, L.res, res), done=fail)

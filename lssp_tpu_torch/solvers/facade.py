@@ -38,6 +38,15 @@ TRANSPOSE_METHODS = frozenset(("bicg", "qmr", "cgnr", "cgn", "lsqr"))
 _RECTANGULAR_OK = frozenset(("lsqr",))
 
 
+def direct_pc(method: str, pc, M=None):
+    """The PC a solve builds: ``"lu"`` for ``direct`` / ``splu`` when no PC
+    and no M is given (a direct solve is one apply of the exact-LU PC, as
+    in JAX's facade), else ``pc``."""
+    if method.lower() in ("direct", "splu") and pc in (None, "none") and M is None:
+        return "lu"
+    return pc
+
+
 def needs_transpose_pc(method: str) -> bool:
     """Whether ``method`` applies M⁻ᵀ: its PC is built with the transpose
     apply (``PCOptions(transpose=True)``), one list for every entry point."""
@@ -320,6 +329,7 @@ def solve(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
     device = resolve_device(device, b)
     b = validate_system(A, b, method)
     reject_block_method(method, "solve_multi")
+    pc = direct_pc(method, pc, M)
     reorder = resolve_reorder(pc, pc_options, reorder)
     A_host, A_dev, perm, _ = _prepare_matrix(A, reorder=reorder, device=device)
     dtype = _system_dtype(A_dev, b)
@@ -347,6 +357,7 @@ def solve_multi(A, B, X0=None, method: str = "cg", pc: Optional[str] = "none",
     opts = (options or SolverOptions()).resolved()
     device = resolve_device(device, B)
     B = validate_block(A, B, "solve_multi", method)
+    pc = direct_pc(method, pc, M)
     reorder = resolve_reorder(pc, pc_options, reorder)
     A_host, A_dev, perm, _ = _prepare_matrix(A, reorder=reorder, device=device)
     dtype = _system_dtype(A_dev, B)
@@ -411,6 +422,7 @@ class Solver:
         ``x0`` stay in the user's order; each solve permutes them in."""
         self.device = resolve_device(self.device_request, b)
         b = validate_system(A, b, self.method)
+        self.pc_type = direct_pc(self.method, self.pc_type)
         reorder = resolve_reorder(self.pc_type, self.pc_options, reorder)
         self.A_host, self.A_dev, self.perm, _ = _prepare_matrix(A, reorder=reorder,
                                                                 device=self.device)

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import init_state, norm
+from lssp_tpu_torch.solvers.base import dot as base_dot, init_state, norm
 from lssp_tpu_torch.solvers.lanes import Lanes, combine
 from lssp_tpu_torch.solvers.lgmres import arnoldi, solve_ym
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
@@ -20,16 +20,16 @@ from lssp_tpu_torch.sparse.types import numpy_dtype
 
 @register_batched("fgmres")
 @register_solver("fgmres")
-def fgmres(A, b, x0=None, M=None, opts=None):
+def fgmres(A, b, x0=None, M=None, opts=None, dot=base_dot):
     m = opts.restart
     op, pc, x, rg = init_state(A, b, x0, M)
-    L = Lanes(b, rg, opts)
+    L = Lanes(b, rg, opts, dot=dot)
     dt = numpy_dtype(b.dtype).type
     tol = L.tol.astype(dt)
     tiny = torch.finfo(b.dtype).tiny
     while L.active.any():
         live = L.active
-        bp_t = norm(rg)
+        bp_t = norm(rg, dot)
         v0 = rg / torch.clamp(bp_t, min=tiny)
         (bp,) = L.read(bp_t)
         Z = b.new_zeros((m,) + tuple(b.shape))
@@ -39,11 +39,12 @@ def fgmres(A, b, x0=None, M=None, opts=None):
             return op(Z[i])
 
         V, H, gg, kk, itr, gs = arnoldi(column, v0, bp.astype(dt), m, L.it, opts.maxit, tol,
-                                        opts.breakdown, live, check_maxit=True, discard=False)
+                                        opts.breakdown, live, check_maxit=True, discard=False,
+                                        dot=dot)
         nv = int(kk.max())
         x = L.pick(live, x + combine(solve_ym(H, gg, kk, m, L.shape, b)[:nv], Z[:nv]), x)
         rg = b - op(x)
-        (res,) = L.read(norm(rg))          # the true residual each restart
+        (res,) = L.read(norm(rg, dot))          # the true residual each restart
         L.it = np.where(live, itr, L.it)
         L.res = np.where(live, res, L.res)
         L.record(live)

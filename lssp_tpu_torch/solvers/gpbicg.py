@@ -10,17 +10,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.base import dot as base_dot, init_state, nonzero, norm
 from lssp_tpu_torch.solvers.bicgsafe import qsi_eta
 from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
-def gpbi(A, b, x0, M, opts, cr: bool):
+def gpbi(A, b, x0, M, opts, cr: bool, dot):
     """GPBiCG, or with ``cr`` GPBiCR (reference solver-gpbicr.cxx:4-164):
     shadow r̃ = A·r0 and every ρ = ⟨r̃, M⁻¹·⟩."""
     op, pc, x, r = init_state(A, b, x0, M)
-    L = Lanes(b, r, opts)
+    L = Lanes(b, r, opts, dot=dot)
     p = mr = pc(r)
     rtld = op(r) if cr else r
     rho_old = dot(rtld, p if cr else r)
@@ -36,7 +36,7 @@ def gpbi(A, b, x0, M, opts, cr: bool):
         t = r - alpha * ap
         mt = mr - alpha * map_
         amt = op(mt)
-        qsi, eta = qsi_eta(first, y, amt, t)
+        qsi, eta = qsi_eta(first, y, amt, t, dot)
         u = eta * (beta * u + mt_old - mr) + qsi * map_      # (:103-106)
         z = eta * z + qsi * mr - alpha * u
         x_half = x + alpha * p
@@ -44,7 +44,7 @@ def gpbi(A, b, x0, M, opts, cr: bool):
         r_full = t - qsi * amt - eta * y
         mr_full = pc(r_full) if cr else None
         rho = dot(rtld, mr_full if cr else r_full)
-        d0_h, tnorm, rnorm, rho_h = L.read(d0, norm(t), norm(r_full), rho)
+        d0_h, tnorm, rnorm, rho_h = L.read(d0, norm(t, dot), norm(r_full, dot), rho)
         fail = d0_h == 0.0
         early = tnorm <= L.tol              # ‖t‖ converged: x += αp, and stop
         go = L.active & ~fail
@@ -62,5 +62,5 @@ def gpbi(A, b, x0, M, opts, cr: bool):
 
 @register_batched("gpbicg")
 @register_solver("gpbicg")
-def gpbicg(A, b, x0=None, M=None, opts=None):
-    return gpbi(A, b, x0, M, opts, cr=False)
+def gpbicg(A, b, x0=None, M=None, opts=None, dot=base_dot):
+    return gpbi(A, b, x0, M, opts, cr=False, dot=dot)

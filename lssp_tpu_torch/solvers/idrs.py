@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch.solvers import _threefry
-from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.base import dot as base_dot, dot_rows, init_state, nonzero, norm
 from lssp_tpu_torch.solvers.lanes import Lanes, combine
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
@@ -41,10 +41,10 @@ def shadow_space(s: int, n: int, dtype: torch.dtype, device, shards: int = 1) ->
         return _SHADOW[key]
     P = _threefry.uniform((s, n // shards), dtype, device)
     for j in range(s):
-        pj = P[j] / torch.sqrt(dot(P[j], P[j]))
+        pj = P[j] / torch.sqrt(base_dot(P[j], P[j]))
         P[j] = pj
         for i in range(j + 1, s):
-            P[i] = P[i] - dot(pj, P[i]) * pj
+            P[i] = P[i] - base_dot(pj, P[i]) * pj
     if shards > 1:
         P = P.repeat(1, shards)
     _SHADOW[key] = P
@@ -53,13 +53,13 @@ def shadow_space(s: int, n: int, dtype: torch.dtype, device, shards: int = 1) ->
     return P
 
 
-def _project(P: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """P·v, (s,) + lane: one GEMV on CUDA, the s dots of ``base.dot``
-    (an order no thread count changes) on the CPU."""
-    if v.device.type != "cpu":
+def _project(P: torch.Tensor, v: torch.Tensor, dot) -> torch.Tensor:
+    """P·v, (s,) + lane: the s inner products of ``dot_rows`` (on the CPU
+    in ``base.dot``'s order, which no thread count changes; on a mesh one
+    reduction over the shards), or one GEMV on CUDA for ``base.dot``."""
+    if dot is base_dot and v.device.type != "cpu":
         return P @ v
-    s, n = P.shape
-    return dot(P.T.reshape((n, s) + (1,) * (v.dim() - 1)), v.unsqueeze(1))
+    return dot_rows(dot, P.reshape(P.shape + (1,) * (v.dim() - 1)), v)
 
 
 def _small_solve(G: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -71,10 +71,10 @@ def _small_solve(G: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 
 @register_batched("idrs")
 @register_solver("idrs")
-def idrs(A, b, x0=None, M=None, opts=None):
+def idrs(A, b, x0=None, M=None, opts=None, dot=base_dot):
     s = opts.idrs
     op, pc, x, r = init_state(A, b, x0, M)
-    L = Lanes(b, r, opts, limit=opts.maxit + 1)
+    L = Lanes(b, r, opts, limit=opts.maxit + 1, dot=dot)
     P = shadow_space(s, b.shape[0], b.dtype, b.device, getattr(A, "shards", 1))
     dX = b.new_zeros((s,) + tuple(b.shape))
     dR = torch.zeros_like(dX)
@@ -92,16 +92,16 @@ def idrs(A, b, x0=None, M=None, opts=None):
         x = L.pick(go, x + dx, x)
         r = r + dr
         dX[k], dR[k] = dx, dr
-        (res,) = L.read(norm(r))
+        (res,) = L.read(norm(r, dot))
         L.it = np.where(go, k + 1, L.it)
         L.res = np.where(go, res, L.res)
         L.record(go)
-        G[:, k] = _project(P, dr)
+        G[:, k] = _project(P, dr, dot)
         stopped = stopped | (L.res <= L.tol)
         if stopped.all():
             break
     L.active = (L.it < L.limit) & (L.res > L.tol)
-    m = _project(P, r)
+    m = _project(P, r, dot)
     oldest = 0
     while L.active.any():
         c = _small_solve(G, m)
@@ -118,9 +118,9 @@ def idrs(A, b, x0=None, M=None, opts=None):
         r = r + dr
         x = L.pick(L.active, x + dx, x)
         dX[oldest], dR[oldest] = dx, dr
-        (res,) = L.read(norm(r))
+        (res,) = L.read(norm(r, dot))
         L.advance(res)
-        h = _project(P, dr)
+        h = _project(P, dr, dot)
         m = m + h
         G[:, oldest] = h
         oldest = (oldest + 1) % s

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch.solvers.base import (
-    SolveInfo, history_init, history_init_block, history_update, history_update_block, norm,
+    SolveInfo, dot as base_dot, history_init, history_init_block, history_update,
+    history_update_block, norm,
 )
 
 
@@ -49,15 +50,17 @@ class Lanes:
     (0-d or (k,)).  A lane is active while ``it < limit`` (``maxit``, or
     ``maxit + 1`` for the methods whose JAX loop tests ``it <= maxit``),
     its residual is above its tolerance and it has not broken down.
-    ``it0``: the count a lane starts at (tfqmr counts from 1)."""
+    ``it0``: the count a lane starts at (tfqmr counts from 1); ``dot``: the
+    solve's inner product, for ‖b‖ and ‖r0‖."""
 
-    def __init__(self, b: torch.Tensor, r: torch.Tensor, opts, limit=None, it0: int = 0):
+    def __init__(self, b: torch.Tensor, r: torch.Tensor, opts, limit=None, it0: int = 0,
+                 dot=base_dot):
         self.opts = opts
         self.single = b.dim() == 1
         self.shape = tuple(b.shape[1:])
         self.device = b.device
         self.limit = opts.maxit if limit is None else limit
-        self.bnorm, self.r0norm = self.read(norm(b), norm(r))
+        self.bnorm, self.r0norm = self.read(norm(b, dot), norm(r, dot))
         self.tol = np.maximum(np.maximum(opts.rtol * self.r0norm, opts.atol),
                               opts.rbtol * self.bnorm)
         self.it = np.full(self.shape, it0, np.int64)

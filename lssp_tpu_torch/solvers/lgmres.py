@@ -20,14 +20,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.base import dot as base_dot, init_state, nonzero, norm
 from lssp_tpu_torch.solvers.gmres import _givens_step, _solve_ym
 from lssp_tpu_torch.solvers.lanes import Lanes, combine
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 from lssp_tpu_torch.sparse.types import numpy_dtype
 
 
-def arnoldi(column, v0, beta_p, m, itr, maxit, tol, breakdown, live, check_maxit, discard):
+def arnoldi(column, v0, beta_p, m, itr, maxit, tol, breakdown, live, check_maxit, discard,
+            dot):
     """One restart cycle of modified Gram–Schmidt Arnoldi with Givens
     rotations on every lane in ``live`` (a host mask of the lane shape).
 
@@ -36,9 +37,9 @@ def arnoldi(column, v0, beta_p, m, itr, maxit, tol, breakdown, live, check_maxit
     is dropped), on |g[i+1]| ≤ its ``tol``, or, with ``check_maxit``, at
     ``maxit`` steps.  ``discard``: LGMRES's solve label (kk = i on a
     tolerance stop, max(i − 1, 0) on a breakdown); else GMRES's (column i
-    kept on a stop).  Returns (V, H (K, m+1, m), g (K, m+1), kk (K,),
-    itr, |g[kk]| (K,)) with K lanes; ``itr`` and the estimates in the
-    lane shape."""
+    kept on a stop).  ``dot``: the solve's inner product.  Returns (V,
+    H (K, m+1, m), g (K, m+1), kk (K,), itr, |g[kk]| (K,)) with K lanes;
+    ``itr`` and the estimates in the lane shape."""
     dt = numpy_dtype(v0.dtype).type
     shape = np.shape(live)
     K = int(np.prod(shape))
@@ -66,7 +67,7 @@ def arnoldi(column, v0, beta_p, m, itr, maxit, tol, breakdown, live, check_maxit
             hij = dot(w, V[j])
             w = w - hij * V[j]
             hs.append(hij)
-        hnorm = norm(w)
+        hnorm = norm(w, dot)
         hcols = torch.stack(hs + [hnorm]).cpu().numpy().reshape(i + 2, K)
         for lane in np.flatnonzero(inner):
             hcol = np.zeros(m + 1, dt)
@@ -94,12 +95,12 @@ def solve_ym(H, gg, kk, m, shape, like):
     return torch.from_numpy(ym.reshape((m,) + shape)).to(like.device)
 
 
-def _lgmres(A, b, x0, M, opts, right):
+def _lgmres(A, b, x0, M, opts, right, dot):
     mk = opts.restart
     auk = max(opts.aug_k, 0)
     m_max = mk + auk
     op, pc, x, rg = init_state(A, b, x0, M)
-    L = Lanes(b, rg, opts)
+    L = Lanes(b, rg, opts, dot=dot)
     dt = numpy_dtype(b.dtype).type
     tiny = np.finfo(dt).tiny
     tol = L.tol.astype(dt)
@@ -111,7 +112,7 @@ def _lgmres(A, b, x0, M, opts, right):
         live = L.active
         m_dyn = mk + min(outer, auk)
         v = rg if right else pc(rg)
-        bp_t = norm(v)
+        bp_t = norm(v, dot)
         v0 = v / nonzero(bp_t)
         (bp,) = L.read(bp_t)
         bp = bp.astype(dt)
@@ -124,7 +125,7 @@ def _lgmres(A, b, x0, M, opts, right):
 
         V, H, gg, kk, itr, gs = arnoldi(column, v0, bp, m_dyn, L.it, opts.maxit,
                                         tol if right else gstol, opts.breakdown, live,
-                                        check_maxit=right, discard=True)
+                                        check_maxit=right, discard=True, dot=dot)
         ym = solve_ym(H, gg, kk, m_dyn, L.shape, b)
         nv = min(int(kk.max()), mk)
         corr = combine(ym[:nv], V[:nv])
@@ -137,7 +138,7 @@ def _lgmres(A, b, x0, M, opts, right):
         else:
             x = L.pick(live, x + corr, x)
             rg = b - op(x)
-            (beta,) = L.read(norm(rg))
+            (beta,) = L.read(norm(rg, dot))
             beta = beta.astype(dt)
             safe = np.maximum(beta / np.maximum(L.r0norm.astype(dt), tiny), tiny)
             gstol = np.where(live, rtol * gs / safe * dt(0.5), gstol)
@@ -156,13 +157,13 @@ def _lgmres(A, b, x0, M, opts, right):
 
 @register_batched("lgmres")
 @register_solver("lgmres")
-def lgmres(A, b, x0=None, M=None, opts=None):
+def lgmres(A, b, x0=None, M=None, opts=None, dot=base_dot):
     """Left-preconditioned LGMRES(m, k) (reference LSSP_SOLVER_LGMRES)."""
-    return _lgmres(A, b, x0, M, opts, right=False)
+    return _lgmres(A, b, x0, M, opts, right=False, dot=dot)
 
 
 @register_batched("rlgmres")
 @register_solver("rlgmres")
-def lgmres_r(A, b, x0=None, M=None, opts=None):
+def lgmres_r(A, b, x0=None, M=None, opts=None, dot=base_dot):
     """Right-preconditioned LGMRES(m, k) (reference LSSP_SOLVER_RLGMRES)."""
-    return _lgmres(A, b, x0, M, opts, right=True)
+    return _lgmres(A, b, x0, M, opts, right=True, dot=dot)

@@ -16,14 +16,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import norm, operator, operator_t, pc_transpose
+from lssp_tpu_torch.solvers.base import dot as base_dot, norm, operator, operator_t, pc_transpose
 from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
 @register_batched("lsqr")
 @register_solver("lsqr")
-def lsqr(A, b, x0=None, M=None, opts=None):
+def lsqr(A, b, x0=None, M=None, opts=None, dot=base_dot):
     a_op, a_opt = operator(A), operator_t(A)
     if M is None:
         op, opt = a_op, a_opt
@@ -32,22 +32,22 @@ def lsqr(A, b, x0=None, M=None, opts=None):
         op, opt = (lambda v: a_op(M(v))), (lambda v: pct(a_opt(v)))
     tiny = torch.finfo(b.dtype).tiny
     r0 = b - a_op(x0) if x0 is not None else b - 0.0 * b
-    L = Lanes(b, r0, opts)
+    L = Lanes(b, r0, opts, dot=dot)
     L.rel = True
-    beta = norm(r0)
+    beta = norm(r0, dot)
     u = r0 / torch.clamp(beta, min=tiny)
     v = opt(u)
-    alfa = norm(v)
+    alfa = norm(v, dot)
     v = v / torch.clamp(alfa, min=tiny)
     y, w, rhobar, phibar = torch.zeros_like(v), v, alfa, beta
     (alfa_h,) = L.read(alfa)
     L.settle(alfa_h <= opts.breakdown)
     while L.active.any():
         u = op(v) - alfa * u                # the bidiagonalization step
-        beta = norm(u)
+        beta = norm(u, dot)
         u = u / torch.clamp(beta, min=tiny)
         v_new = opt(u) - beta * v
-        alfa = norm(v_new)
+        alfa = norm(v_new, dot)
         v = v_new / torch.clamp(alfa, min=tiny)
         rho = torch.clamp(torch.sqrt(rhobar * rhobar + beta * beta), min=tiny)
         c, s = rhobar / rho, beta / rho     # the plane rotation
@@ -61,5 +61,5 @@ def lsqr(A, b, x0=None, M=None, opts=None):
     x = y if M is None else M(y)
     if x0 is not None:
         x = x0 + x
-    (res,) = L.read(norm(b - a_op(x)))
+    (res,) = L.read(norm(b - a_op(x), dot))
     return L.result(x, residual=res, converged=res <= L.tol)

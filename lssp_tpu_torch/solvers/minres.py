@@ -19,16 +19,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import dot, init_state, norm
+from lssp_tpu_torch.solvers.base import dot as base_dot, init_state, norm
 from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
 @register_batched("minres")
 @register_solver("minres")
-def minres(A, b, x0=None, M=None, opts=None):
+def minres(A, b, x0=None, M=None, opts=None, dot=base_dot):
     op, pc, x, r0 = init_state(A, b, x0, M)
-    L = Lanes(b, r0, opts)
+    L = Lanes(b, r0, opts, dot=dot)
     L.rel = True
     tiny = torch.finfo(b.dtype).tiny
     inner_tol = L.tol.copy()
@@ -75,7 +75,7 @@ def minres(A, b, x0=None, M=None, opts=None):
             first = False
             inner = inner & (L.it < opts.maxit) & (np.abs(phibar_h) > inner_tol) \
                 & (beta_h > opts.breakdown)
-        (res,) = L.read(norm(b - op(x)))
+        (res,) = L.read(norm(b - op(x), dot))
         L.res = np.where(outer, res, L.res)
         stalled = np.where(outer, (L.it == it0) & (beta1 <= opts.breakdown), stalled)
         inner_tol = np.where(outer, inner_tol * 0.1, inner_tol)

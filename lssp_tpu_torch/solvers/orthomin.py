@@ -7,17 +7,17 @@ from __future__ import annotations
 
 import numpy as np
 
-from lssp_tpu_torch.solvers.base import dot, init_state, norm
+from lssp_tpu_torch.solvers.base import dot as base_dot, init_state, norm
 from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
 @register_batched("orthomin")
 @register_solver("orthomin")
-def orthomin(A, b, x0=None, M=None, opts=None):
+def orthomin(A, b, x0=None, M=None, opts=None, dot=base_dot):
     k = opts.restart
     op, pc, x, z0 = init_state(A, b, x0, M)
-    L = Lanes(b, z0, opts)
+    L = Lanes(b, z0, opts, dot=dot)
     r = sd = pc(z0)
     P, Q, C = [r] + [None] * (k - 1), [None] * k, [None] * k
     it = 0
@@ -28,7 +28,7 @@ def orthomin(A, b, x0=None, M=None, opts=None):
         a = dot(r, qj) / cj
         C[j], Q[j] = cj, qj
         x_new = x + a * P[j]
-        res, cj_h = L.read(norm(b - op(x_new)), cj)
+        res, cj_h = L.read(norm(b - op(x_new), dot), cj)
         brk = np.abs(cj_h) <= opts.breakdown
         x = L.pick(L.active & ~brk, x_new, x)
         L.advance(np.where(brk, L.res, res), done=brk)

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch.solvers.base import (
-    dot, init_state, nonzero, norm, operator_t, pc_transpose,
+    dot as base_dot, init_state, nonzero, norm, operator_t, pc_transpose,
 )
 from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
@@ -21,15 +21,15 @@ from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 @register_batched("qmr")
 @register_solver("qmr")
-def qmr(A, b, x0=None, M=None, opts=None):
+def qmr(A, b, x0=None, M=None, opts=None, dot=base_dot):
     op, pc, x, r = init_state(A, b, x0, M)
     opt, pct = operator_t(A), pc_transpose(M)
-    L = Lanes(b, r, opts)
+    L = Lanes(b, r, opts, dot=dot)
     L.rel = True
     tiny = torch.finfo(b.dtype).tiny
     vt = wt = z = r                         # M2 = I: z = M2⁻ᵀ w̃ = w̃
     y = pc(vt)
-    rho, xi = norm(y), norm(z)
+    rho, xi = norm(y, dot), norm(z, dot)
     gamma, eta = L.scalar(1.0, b), L.scalar(-1.0, b)
     theta, eps = L.scalar(0.0, b), L.scalar(1.0, b)
     p = q = d = s = None
@@ -49,10 +49,10 @@ def qmr(A, b, x0=None, M=None, opts=None):
         safe_beta = nonzero(beta)
         vt = pt - safe_beta * v
         y = pc(vt)
-        rho_n = norm(y)
+        rho_n = norm(y, dot)
         wt = opt(q) - safe_beta * w
         z = wt
-        xi_n = norm(z)
+        xi_n = norm(z, dot)
         theta_n = rho_n / torch.clamp(gamma * torch.abs(safe_beta), min=tiny)
         gamma_n = 1.0 / torch.sqrt(1.0 + theta_n * theta_n)
         eta_n = -eta * rho * gamma_n * gamma_n / (safe_beta * torch.clamp(gamma * gamma,
@@ -63,7 +63,7 @@ def qmr(A, b, x0=None, M=None, opts=None):
             tg2 = (theta * gamma_n) ** 2
             d, s = eta_n * p + tg2 * d, eta_n * pt + tg2 * s
         r_new = r - s
-        res, *scal = L.read(norm(r_new), rho, xi, delta, eps_n, beta, gamma_n)
+        res, *scal = L.read(norm(r_new, dot), rho, xi, delta, eps_n, beta, gamma_n)
         brk = np.any([np.abs(v_) <= opts.breakdown for v_ in scal], axis=0)
         x = L.pick(L.active & ~brk, x + d, x)
         r = r_new

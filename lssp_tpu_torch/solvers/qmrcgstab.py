@@ -9,21 +9,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.base import dot as base_dot, init_state, nonzero, norm
 from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
 
 @register_batched("qmrcgstab")
 @register_solver("qmrcgstab")
-def qmrcgstab(A, b, x0=None, M=None, opts=None):
+def qmrcgstab(A, b, x0=None, M=None, opts=None, dot=base_dot):
     op, pc, x, t0 = init_state(A, b, x0, M)
-    L = Lanes(b, t0, opts)
+    L = Lanes(b, t0, opts, dot=dot)
     tiny = torch.finfo(b.dtype).tiny
     # relative threshold on the preconditioned residual (:80 tol /= residual)
     L.tol = L.tol / np.maximum(L.r0norm, tiny)
     rk = br0 = pc(t0)
-    tau = norm(rk)
+    tau = norm(rk, dot)
     (ires,) = L.read(tau)
     L.res = np.full(L.shape, np.inf)           # the loop runs while rerror > rtol alone
     L.active = L.it < L.limit
@@ -38,7 +38,7 @@ def qmrcgstab(A, b, x0=None, M=None, opts=None):
         alpha = rho / nonzero(dot(br0, vk))
         sk = rk - alpha * vk
         # first quasi-minimization
-        btheta = norm(sk) / nonzero(tau)
+        btheta = norm(sk, dot) / nonzero(tau)
         c = 1.0 / torch.sqrt(1.0 + btheta * btheta)
         btau = tau * btheta * c
         b_eta = c * c * alpha
@@ -48,7 +48,7 @@ def qmrcgstab(A, b, x0=None, M=None, opts=None):
         omega = dot(sk, tk) / nonzero(dot(tk, tk))
         rk = sk - omega * tk
         # second quasi-minimization
-        rkn = norm(rk)
+        rkn = norm(rk, dot)
         theta = rkn / nonzero(btau)
         c = 1.0 / torch.sqrt(1.0 + theta * theta)
         tau = btau * theta * c
@@ -59,5 +59,5 @@ def qmrcgstab(A, b, x0=None, M=None, opts=None):
         rerror = rkn_h / np.maximum(ires, tiny)
         L.advance(rerror, trace=rerror * ires)
         rho_old = rho
-    (res,) = L.read(norm(b - op(x)))      # the true residual at exit (:153-157)
+    (res,) = L.read(norm(b - op(x), dot))      # the true residual at exit (:153-157)
     return L.result(x, residual=res, converged=L.res <= L.tol)

@@ -25,7 +25,7 @@ from lssp_tpu_torch.config import PCOptions, SolverOptions, resolve_device
 from lssp_tpu_torch.ops.spmv import spmv
 from lssp_tpu_torch.solvers.base import norm, SolveInfo, to_host
 from lssp_tpu_torch.solvers.facade import (
-    _permute, _prepare_matrix, _unpermute, needs_transpose_pc, reject_block_method,
+    _permute, _prepare_matrix, _unpermute, direct_pc, needs_transpose_pc, reject_block_method,
     resolve_reorder, transpose_options, validate_block, validate_system,
 )
 from lssp_tpu_torch.solvers.registry import get_batched_solver, get_block_solver, get_solver
@@ -63,6 +63,7 @@ def prepare_ir(A, method: str = "gmres", pc: Optional[str] = "none",
     ``device``: None is the current CUDA device (no CUDA device raises:
     pass ``device="cpu"``)."""
     device = resolve_device(device)
+    pc = direct_pc(method, pc)          # IR around a direct solve: an fp32 LU inner
     reorder = resolve_reorder(pc, pc_options, reorder)
     A_host, A_dev, perm, cache = _prepare_matrix(A, reorder=reorder, device=device)
     if A_host is None:

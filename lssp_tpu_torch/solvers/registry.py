@@ -63,12 +63,12 @@ def get_block_solver(name: str):
 
 def _populate():
     """Import the solver modules so their @register_solver decorators run
-    (JAX's ``registry._populate``, less the methods not ported yet)."""
+    (JAX's ``registry._populate``)."""
     import importlib
     for mod in ("cg", "gmres", "bicgstab", "bicgstabl", "bicgsafe", "cgs", "gpbicg",
                 "cr", "crs", "bicrstab", "bicrsafe", "gpbicr", "qmrcgstab", "tfqmr",
                 "orthomin", "idrs", "lgmres", "minres", "fgmres", "bicg", "qmr", "cgnr",
-                "lsqr"):
+                "lsqr", "pipecg", "direct"):
         importlib.import_module(f"lssp_tpu_torch.solvers.{mod}")
 
 

@@ -15,7 +15,7 @@ import math
 import numpy as np
 import torch
 
-from lssp_tpu_torch.solvers.base import dot, init_state, nonzero, norm
+from lssp_tpu_torch.solvers.base import dot as base_dot, init_state, nonzero, norm
 from lssp_tpu_torch.solvers.lanes import Lanes
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
 
@@ -30,13 +30,13 @@ def _half(y, d, tau, theta, eta, alpha, ww):
 
 @register_batched("tfqmr")
 @register_solver("tfqmr")
-def tfqmr(A, b, x0=None, M=None, opts=None):
+def tfqmr(A, b, x0=None, M=None, opts=None, dot=base_dot):
     op, pc, x, r = init_state(A, b, x0, M)
-    L = Lanes(b, r, opts, limit=opts.maxit + 1, it0=1)
+    L = Lanes(b, r, opts, limit=opts.maxit + 1, it0=1, dot=dot)
     rtld = u = p = r
     v = op(pc(p))
     rho_old = dot(r, rtld)
-    tau = w_old = norm(r)
+    tau = w_old = norm(r, dot)
     theta = eta = L.scalar(0.0, b)
     d = torch.zeros_like(r)
     while L.active.any():
@@ -44,7 +44,7 @@ def tfqmr(A, b, x0=None, M=None, opts=None):
         alpha = rho_old / nonzero(s)
         q = u - alpha * v
         r = r - alpha * op(pc(u + q))
-        w = norm(r)
+        w = norm(r, dot)
         d0, tau0, theta0, eta0 = _half(u, d, tau, theta, eta, alpha, torch.sqrt(w * w_old))
         x0_ = x + eta0 * pc(d0)
         d, tau, theta, eta = _half(q, d0, tau0, theta0, eta0, alpha, w)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Iteration counts for the Krylov phases of ``chip_smoke.py`` (23, 24, 28
-and 29): the JAX package's on the CPU, the reference the port's counts on
+"""Iteration counts for the Krylov phases of ``chip_smoke.py`` (23, 24 and
+28-31): the JAX package's on the CPU, the reference the port's counts on
 the card are held to, and with ``--port`` the port's own.
 
     JAX_PLATFORMS=cpu python3 scripts/jax_krylov_reference.py [--port [--device D]] [--ulp|--ulp32]
@@ -8,6 +8,8 @@ the card are held to, and with ``--port`` the port's own.
     JAX_PLATFORMS=cpu python3 scripts/jax_krylov_reference.py [--port [--device D]] [--ulp32]
                                                               28|28cd|28tall|28hyb|28dist|29
                                                               [cell ...]
+    JAX_PLATFORMS=cpu python3 scripts/jax_krylov_reference.py [--port [--device D]] [--ulp32]
+                                                              30|31 [cell ...]
     JAX_PLATFORMS=cpu python3 scripts/jax_krylov_reference.py --shadow
     JAX_PLATFORMS=cpu python3 scripts/jax_krylov_reference.py --ratchet-ulp [--part i/k] [key ...]
 
@@ -60,6 +62,30 @@ Cells are named as ``chip_smoke.py`` prints them (``cgnr``, ``gmres30+ras``,
 ``dist bicg+bjilu``, ...).  ``--ulp32`` gives a solve_ir cell's spread as
 for phases 23-24.
 
+The direct-solver cells (``chip_smoke.py`` phases 30-31), one JSON line each:
+
+- ``30``: the host factors of the direct cells, which JAX computes at any
+  size: ``splu_factor`` (AMD, ``method="auto"``: the multifrontal engine)
+  of the 2-D Laplacian 512², the vendored coupled3d_25 and
+  convdiff_rot_128, and of AᵀA for the tall [L; 0.1·I], L =
+  ``laplacian_2d(256)`` (``solve_lsq``'s normal route): the factor
+  seconds, nnz, and for each factor JAX's padded level schedule (nlev,
+  widest level w, longest row k, nlev·w·k slots) beside the sum over the
+  levels of each level's own width times row length; then ``solve_lsq``
+  (qr route, m·n > 2e7: sparse Givens QR) on the tall system, b = A·1:
+  ‖Aᵀ(b − Ax)‖ / ‖Aᵀb‖ and x's distance from ``spsolve(AᵀA, Aᵀb)``.  JAX's
+  own ``direct`` cannot run at these sizes (its padded schedules would
+  need ``slots`` × 12 bytes); the card's solves are held to scipy;
+- ``31``: ``solve_ir`` gmres(30) + ilutp (6 sweeps) on coupled3d_25 and the
+  convection-diffusion 256² (β 20), with the columns the pivoting moved;
+  the tiny-diagonal pivot system (n = 128, ``tests/test_ilu.py``) through
+  ``solve`` gmres fp64 with 6 sweeps and exact; ``solve_ir`` gmres(30) +
+  arms on the convection-diffusion 256² and the anisotropic Poisson 256²
+  (ε 0.01), with the level count and the coarse n (and at 128², the size
+  an ARMS cell falls back to when its coarse chain is too slow); ``solve_ir`` + ILU(0)
+  (6 sweeps) on 128³ with cg, pipecg, gmres(30) and cagmres(30); and
+  ``dist_solve_ir`` pipecg + bjilu on 128³ over 8 shards.
+
 ``--ratchet-ulp`` goes through the ``tests/golden/ratchet.json`` keys the
 port holds (N = 32 and N = 100 on the 2-D Laplacian, b = 1, restart 60,
 maxit 2000 / 3000, ILU exact, ``biluk`` with ``num_blocks`` = n/4, as
@@ -103,7 +129,7 @@ METHODS = ["cgs", "cr", "crs", "bicrstab", "bicgsafe", "bicrsafe", "gpbicg", "gp
 
 
 def jax_package():
-    if "28dist" in sys.argv and "xla_force_host_platform_device_count" not in \
+    if ("28dist" in sys.argv or "31" in sys.argv) and "xla_force_host_platform_device_count" not in \
             os.environ.get("XLA_FLAGS", ""):
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                    + " --xla_force_host_platform_device_count=8").strip()
@@ -350,6 +376,174 @@ def run_transpose(M, kw, phases, only, bump, ulp):
 
 
 TRANSPOSE_PHASES = ("28", "28cd", "28tall", "28hyb", "28dist", "29")
+DIRECT_PHASES = ("30", "31")
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def vendored(M, name):
+    return M.sparse.read_matrix_market(os.path.join(HERE, "benchmarks", "matrices",
+                                                    name + ".mtx.gz"))
+
+
+def schedule_stats(F, lower):
+    """JAX's padded level schedule of one factor: nlev, the widest level w,
+    the longest row k, nlev·w·k, and Σ over the levels of w_l·k_l."""
+    from lssp_tpu_torch import native
+    from lssp_tpu_torch.sparse.utils import split_ldu
+    S = split_ldu(T.CSR(np.asarray(F.indptr), np.asarray(F.indices), np.asarray(F.data),
+                        F.shape))[0 if lower else 2]
+    ip = np.asarray(S.indptr, np.int64)
+    lev = native.levels(ip, np.asarray(S.indices, np.int64), F.shape[0], lower)
+    nlev = int(lev.max()) + 1
+    width = np.bincount(lev, minlength=nlev)
+    rlen = np.diff(ip)
+    kl = np.zeros(nlev, np.int64)
+    np.maximum.at(kl, lev, rlen)
+    return dict(nnz=int(F.nnz), nlev=nlev, w=int(width.max()), k=int(rlen.max()),
+                slots=nlev * int(width.max()) * int(rlen.max()),
+                slots_per_level=int((width * np.maximum(kl, 1)).sum()))
+
+
+def direct_systems(M):
+    """The factored systems of phase 30: name ↦ host CSR."""
+    import scipy.sparse as sp
+    tall = tall_system(M, 256).to_scipy()
+    G = (tall.T @ tall).tocsr()
+    G.sort_indices()
+    return {"laplacian_2d(512)": M.sparse.laplacian_2d(512),
+            "coupled3d_25": vendored(M, "coupled3d_25"),
+            "convdiff_rot_128": vendored(M, "convdiff_rot_128"),
+            "A^T A of [laplacian_2d(256); 0.1 I]": M.sparse.CSR.from_scipy(G)}
+
+
+def run_direct_30(M, only):
+    from importlib import import_module
+    lu_host = import_module(f"{M.__name__}.pc.lu_host")
+    for name, A in direct_systems(M).items():
+        if only and name not in only:
+            continue
+        t0 = time.perf_counter()
+        f = lu_host.splu_factor(A)
+        secs = time.perf_counter() - t0
+        print(json.dumps(dict(package=M.__name__, phase="30", matrix=name, n=A.shape[0],
+                              factor_seconds=round(secs, 2), nclamped=int(f.nclamped),
+                              L=schedule_stats(f.L, True), U=schedule_stats(f.U, False))),
+              flush=True)
+    if only and "lsq" not in only:
+        return
+    import scipy.sparse.linalg as spla
+    A = tall_system(M, 256)
+    S = A.to_scipy()
+    bh = S @ np.ones(S.shape[1])
+    for method in ("qr",) if M is not T else ("qr", "normal"):
+        t0 = time.perf_counter()
+        kw = dict(device=DEVICE) if M is T else {}
+        x, res = M.solve_lsq(A, bh, method=method, **kw)
+        secs = time.perf_counter() - t0
+        x = x.cpu().numpy() if M is T else np.asarray(x)
+        xs = spla.spsolve((S.T @ S).tocsc(), S.T @ bh)
+        print(json.dumps(dict(package=M.__name__, phase="30", cell=f"solve_lsq {method}",
+                              matrix="[laplacian_2d(256); 0.1 I]", shape=list(S.shape),
+                              seconds=round(secs, 2),
+                              normal_relres=float(res / np.linalg.norm(S.T @ bh)),
+                              x_vs_spsolve=float(np.linalg.norm(x - xs) / np.linalg.norm(xs)))),
+              flush=True)
+
+
+def tiny_diagonal(M, n=128):
+    """``tests/test_ilu.py: test_robust_on_tiny_diagonal``'s matrix."""
+    import scipy.sparse as sp
+    d = np.r_[np.full(50, 1e-14), np.ones(n - 50)]
+    m = (sp.diags(d) + 0.5 * sp.diags(np.ones(n - 1), 1)
+         + 0.3 * sp.diags(np.ones(n - 1), -1)).tocsr()
+    return M.sparse.CSR.from_scipy(m)
+
+
+def phase31_cells(M, kw):
+    """[(cell, A, b ↦ (x, info, extra))] of phase 31."""
+    ir = M.SolverOptions(**IR_OPTS, restart=30)
+
+    def ir_run(A, method, pc, opts=ir, **pco):
+        po = M.PCOptions(ilu_sweeps=6, **pco)
+
+        def run(b):
+            M32 = M.prepare_ir(A, method=method, pc=pc, pc_options=po, **kw)[4]
+            x, info = M.solve_ir(A, b, method=method, pc=pc, options=opts, pc_options=po, **kw)
+            extra = {}
+            if pc == "ilutp":
+                perm = np.asarray(M32.state[2].cpu() if M is T else M32.state[2])
+                extra["moved"] = int((perm != np.arange(len(perm))).sum())
+            if pc == "arms":
+                extra["levels"] = len(M32.state[0])
+                extra["coarse_n"] = int(len(M32.state[1][2]) if M is T
+                                        else M32.state[1][2].shape[0])
+            return x, info, extra
+        return run
+
+    def pivot(sweeps):
+        A = tiny_diagonal(M)
+
+        def run(b):
+            x, info = M.solve(A, b, method="gmres", pc="ilutp",
+                              options=M.SolverOptions(maxit=200),
+                              pc_options=M.PCOptions(ilu_sweeps=sweeps), **kw)
+            return x, info, {}
+        return (f"ilutp pivot n=128 {'exact' if sweeps == 0 else f'{sweeps} sweeps'}", A, run)
+
+    cd = M.sparse.convection_diffusion_2d(256)
+    c3 = vendored(M, "coupled3d_25")
+    an = M.sparse.anisotropic_poisson_2d(256, 0.01)
+    lap = M.sparse.laplacian_3d(128)
+    cells = [("gmres30+ilutp coupled3d_25", c3, ir_run(c3, "gmres", "ilutp")),
+             ("gmres30+ilutp convdiff_256", cd, ir_run(cd, "gmres", "ilutp")),
+             pivot(6), pivot(0),
+             ("gmres30+arms convdiff_256", cd, ir_run(cd, "gmres", "arms")),
+             ("gmres30+arms aniso_256", an, ir_run(an, "gmres", "arms"))]
+    for kind, A128 in (("convdiff", M.sparse.convection_diffusion_2d(128)),
+                       ("aniso", M.sparse.anisotropic_poisson_2d(128, 0.01))):
+        cells.append((f"gmres30+arms {kind}_128", A128, ir_run(A128, "gmres", "arms")))
+    for cell, method in (("cg+ilu0", "cg"), ("pipecg+ilu0", "pipecg"),
+                         ("gmres30+ilu0", "gmres"), ("cagmres30+ilu0", "cagmres")):
+        cells.append((cell + " 128^3", lap, ir_run(lap, method, "ilu0")))
+    if M is T:
+        mesh = T.make_mesh(8, devices=[DEVICE] * 8)
+        dist = T.dist_solve_ir
+    else:
+        mesh = importlib.import_module("lssp_tpu.parallel.dist_solve").make_mesh(8)
+        dist = importlib.import_module("lssp_tpu.parallel.dist_solve").dist_solve_ir
+    cells.append(("dist pipecg+bjilu 128^3", lap, lambda b: dist(
+        lap, b, method="pipecg", pc="bjilu", mesh=mesh, options=M.SolverOptions(**IR_OPTS),
+        pc_options=M.PCOptions(ilu_sweeps=6)) + ({},)))
+    return cells
+
+
+def run_direct(M, kw, phases, only, bump, ulp):
+    for p in phases:
+        if p == "30":
+            run_direct_30(M, only)
+            continue
+        for cell, A, run in phase31_cells(M, kw):
+            if only and not any(o in cell for o in only):
+                continue
+            S = A.to_scipy()
+            runs = []
+            for seed in ([None, 0, 1, 2] if ulp else [None]):
+                ones = np.ones(A.shape[0])
+                if seed is not None:        # three entries of b one ulp up
+                    ones[np.random.default_rng(seed).integers(0, A.shape[0], 3)] = bump
+                b = torch.from_numpy(ones).to(DEVICE) if PORT else ones
+                t0 = time.perf_counter()
+                x, info, extra = run(b)
+                x = x.cpu().numpy() if PORT else np.asarray(x)
+                runs.append(dict(nits=int(info.nits), converged=bool(info.converged),
+                                 relres=float(np.linalg.norm(ones - S @ x)
+                                              / np.linalg.norm(ones)),
+                                 seconds=round(time.perf_counter() - t0, 1), **extra))
+            line = dict(package=M.__name__, device=DEVICE if PORT else "cpu", phase=p,
+                        cell=cell, n=A.shape[0], **runs[0])
+            if len(runs) > 1:
+                line["ulp"] = [(r["nits"], r["converged"]) for r in runs[1:]]
+            print(json.dumps(line), flush=True)
 
 
 def main():
@@ -371,6 +565,9 @@ def main():
         else np.nextafter(1.0, 2.0)
     args = [a for a in sys.argv[1:] if a not in ("--port", "--ulp", "--ulp32", "--device",
                                                  DEVICE, "--jax-shadow", "--jax-cap")]
+    direct = [a for a in args if a in DIRECT_PHASES]
+    if direct:
+        return run_direct(M, kw, direct, [a for a in args if a not in direct], bump, ulp)
     transpose = [a for a in args if a in TRANSPOSE_PHASES]
     if transpose:
         return run_transpose(M, kw, transpose, [a for a in args if a not in transpose], bump,

@@ -287,13 +287,18 @@ def test_shadow_space_after_mgs(s, n, dt):
 # ---- the registry and the solve_ir inner plan ---------------------------------
 
 TRANSPOSE = ["bicg", "qmr", "cgnr", "cgn", "lsqr"]
+ONE_BODY = ["pipecg", "direct", "splu"]        # one function for both forms
+CGS2 = ["cagmres", "cargmres"]
 
 
 def test_registry_holds_the_ported_methods():
     assert sorted(T.solvers.SOLVERS) == sorted(["cg", "gmres", "rgmres", "bicgstab"] + NEW
-                                               + TRANSPOSE)
-    for name in NEW + TRANSPOSE:
+                                               + TRANSPOSE + ONE_BODY + CGS2)
+    assert sorted(T.solvers.SOLVERS) == sorted(J.solvers.registry.SOLVERS)
+    for name in NEW + TRANSPOSE + ONE_BODY:
         assert T.solvers.get_batched_solver(name) is T.solvers.get_solver(name)
+    for name in CGS2:
+        assert name in T.solvers.BATCHED_SOLVERS
 
 
 def _names(fn, table):

@@ -86,6 +86,7 @@ def test_unknown_names_list_the_registry():
     with pytest.raises(ValueError, match="available"):
         T.solve(A_T, torch.ones(N * N, dtype=torch.float64), pc="nosuch")
     assert sorted(T.solvers.SOLVERS) == [
-        "bicg", "bicgsafe", "bicgstab", "bicgstabl", "bicrsafe", "bicrstab", "cg", "cgn",
-        "cgnr", "cgs", "cr", "crs", "fgmres", "gmres", "gpbicg", "gpbicr", "idrs", "lgmres",
-        "lsqr", "minres", "orthomin", "qmr", "qmrcgstab", "rgmres", "rlgmres", "tfqmr"]
+        "bicg", "bicgsafe", "bicgstab", "bicgstabl", "bicrsafe", "bicrstab", "cagmres",
+        "cargmres", "cg", "cgn", "cgnr", "cgs", "cr", "crs", "direct", "fgmres", "gmres",
+        "gpbicg", "gpbicr", "idrs", "lgmres", "lsqr", "minres", "orthomin", "pipecg", "qmr",
+        "qmrcgstab", "rgmres", "rlgmres", "splu", "tfqmr"]
