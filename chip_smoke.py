@@ -795,7 +795,7 @@ def timed_dist_ir(lt, np, torch, dev, A, method, pc, counters, runs=5):
     launches = {fn.__name__: fn.launches for fn in counters}
     check(len(set(its)) == 1, f"dist_solve_ir {method}+{pc}: inner iterations {its} differ "
           "between runs")
-    (prep,) = A._prepared_cache["dist"].values()
+    (prep,) = A._dist_cache.values()
     return x, info, walls[0], walls[1:], launches, prep
 
 
@@ -1208,7 +1208,7 @@ def phase_dist_multi(lt, np, torch, dev, counters, card):
     check((rr <= 1e-8).all(), f"dist multi: true relres {rr} > 1e-8")
     check(info.nits.max() <= 434, f"dist multi: {info.nits.max()} inner iterations > 434")
     check_only(launches, {"dia_spmm_ext"}, "dist multi")
-    (prep,) = A._prepared_cache["dist"].values()
+    (prep,) = A._dist_cache.values()
     check(prep["kind"] == "ilu_nm", f"dist multi: preconditioner kind {prep['kind']}")
     M, st = prep["M"], prep["pc_state"]
     P, R = M.nshards, M.rows_per_shard
@@ -1893,7 +1893,7 @@ def phase_dist_amg(lt, np, torch, dev, counters, card, single_saamg, single_rsam
         launches = {f.__name__: f.launches for f in counters}
         prof = profiled(torch, lambda: fn(A, b, method=method, pc=pc, mesh=mesh, options=o),
                         info.nits, "dia_spmv_ext_kernel") if profile else ""
-        (prep,) = [e for k, e in A._prepared_cache["dist"].items() if k[2] == pc]
+        (prep,) = [e for k, e in A._dist_cache.items() if k[2] == pc]
         return x, info, walls, launches, prep, prof
 
     A = lt.sparse.anisotropic_poisson_2d(1024, epsilon=0.01)
@@ -2832,7 +2832,7 @@ def phase_ilutp_arms_ca(lt, np, torch, dev, counters, card):
     check_only(launches, {"dia_spmv_ext"}, cell)
     check(psums["n"] == info.nits + outside, f"{cell}: {psums['n']} reductions over the shards "
           f"for {info.nits} inner its")
-    prep = list(A._prepared_cache["dist"].values())[-1]
+    prep = list(A._dist_cache.values())[-1]
     errs["dist_spmv_ext"] = check_dist_path(lt, np, torch, dev, prep, cell)[0]
     # per column
     A48 = lt.sparse.laplacian_3d(48)

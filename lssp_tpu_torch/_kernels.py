@@ -115,9 +115,6 @@ def load():
         lib = ctypes.CDLL(_LIB_PATH)
         p, i64, i32, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
         for suf in ("f32", "f64"):
-            fn = getattr(lib, f"lssp_dia_spmv_{suf}")
-            fn.argtypes = [p, p, i32, i64, i64, p, f64, f64, p, p, p]
-            fn.restype = ctypes.c_int
             # K2 / K2k: per factor (band, offsets, ndiag, strays ptr / cols /
             # vals), invd, n, k, r, z0, out, levels, ring_rows, mask, flags,
             # sweeps, rows, tiles, the wait sets (a host int array), the two
@@ -131,6 +128,11 @@ def load():
             fn.restype = ctypes.c_int
             fn = getattr(lib, f"lssp_neumann_rows_per_thread_{suf}")     # kt
             fn.argtypes = [i32]
+            fn.restype = ctypes.c_int
+        # K1 / K3 / K4 and their k-rhs forms K1k / K3k / K4k, also in bf16
+        for suf in ("f32", "f64", "bf16"):
+            fn = getattr(lib, f"lssp_dia_spmv_{suf}")
+            fn.argtypes = [p, p, i32, i64, i64, p, f64, f64, p, p, p]
             fn.restype = ctypes.c_int
             fn = getattr(lib, f"lssp_hyb_spmv_{suf}")
             fn.argtypes = [p, p, i32, i64, i64, p, p, p, p, p, f64, f64, p, p, p]
@@ -152,7 +154,10 @@ def load():
         return _lib
 
 
-SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+# the dtypes of K2 / K2k (csrc/neumann.cu): the TPU kernel is fp32 only, and
+# a bf16 inner solve applies K2 on an fp32 plan (ops/neumann.py)
+NEUMANN_DTYPES = (torch.float32, torch.float64)
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype, shape=None) -> None:
@@ -180,11 +185,12 @@ def check_block(name: str, X: torch.Tensor, dtype, rows: int) -> int:
     return int(X.shape[1])
 
 
-def kernel_dtype(name: str, t: torch.Tensor):
-    """The kernel entry suffix for ``t``'s dtype; raises on other dtypes."""
-    if t.dtype not in SUFFIX:
-        raise TypeError(f"{name}: the CUDA kernel takes float32 or float64, "
-                        f"got {t.dtype}")
+def kernel_dtype(name: str, t: torch.Tensor, dtypes=tuple(SUFFIX)):
+    """The kernel entry suffix for ``t``'s dtype; raises on a dtype outside
+    ``dtypes`` (every kernel but K2 takes float32, float64 and bfloat16)."""
+    if t.dtype not in dtypes:
+        names = ", ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name}: the CUDA kernel takes {names}, got {t.dtype}")
     return SUFFIX[t.dtype]
 
 
@@ -199,3 +205,15 @@ def ptr(t) -> ctypes.c_void_p:
 def check_status(name: str, status: int) -> None:
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
+
+
+# set by utils.debug.nan_guard: the ctypes launches are invisible to its
+# TorchDispatchMode, so while it is on each wrapper checks its output here
+nan_check = False
+
+
+def check_nan(name: str, out: torch.Tensor) -> None:
+    """Raise ``FloatingPointError`` when ``nan_guard`` is on and the
+    kernel's output ``out`` holds a NaN (one flag read a launch when off)."""
+    if nan_check and bool(torch.isnan(out).any()):
+        raise FloatingPointError(f"nan_guard: kernel {name} produced a NaN")

@@ -546,14 +546,18 @@ def setup_rs_pc(A: CSR, opts, device=None):
     """The rsamg preconditioner, on ``device`` (``config.resolve_device``:
     the current CUDA device unless one is named)."""
     from lssp_tpu_torch.pc.base import Preconditioner
-    hier = rs_host_setup(A, theta=opts.amg_theta, max_levels=opts.amg_max_levels,
-                         coarse_size=opts.amg_coarse_size,
-                         smooth_interp=opts.amg_smooth_interp, trunc=opts.amg_trunc,
-                         max_pdiags=opts.amg_max_pdiags)
-    h = build_device_rs(
-        hier, dtype=np.asarray(A.data).dtype,
-        smoother=opts.amg_smoother if opts.amg_smoother != "l1jacobi" else "jacobi",
-        degree=smoother_degree(opts.amg_presmooth, opts.amg_postsmooth),
-        cycles=max(1, int(opts.amg_cycles)),
-        gamma=2 if str(opts.amg_cycle_type).upper() == "W" else 1, device=device)
+    from lssp_tpu_torch.utils import profile as _prof
+    with _prof.phase("amg_host_levels"):
+        hier = rs_host_setup(A, theta=opts.amg_theta, max_levels=opts.amg_max_levels,
+                             coarse_size=opts.amg_coarse_size,
+                             smooth_interp=opts.amg_smooth_interp, trunc=opts.amg_trunc,
+                             max_pdiags=opts.amg_max_pdiags)
+    with _prof.phase("amg_pack_upload"):
+        h = build_device_rs(
+            hier, dtype=np.asarray(A.data).dtype,
+            smoother=opts.amg_smoother if opts.amg_smoother != "l1jacobi" else "jacobi",
+            degree=smoother_degree(opts.amg_presmooth, opts.amg_postsmooth),
+            cycles=max(1, int(opts.amg_cycles)),
+            gamma=2 if str(opts.amg_cycle_type).upper() == "W" else 1, device=device)
+        _prof.add_bytes("amg_pack_upload", _prof.tree_device_bytes(h))
     return Preconditioner(_rs_apply, state=h, name="amg")

@@ -43,6 +43,7 @@ from lssp_tpu_torch.ops.spmv import spmv
 from lssp_tpu_torch.ops.tridiag import line_jacobi_sweeps, tridiag_parts
 from lssp_tpu_torch.sparse.convert import csr_entry_offsets, csr_to_dia, csr_to_ell
 from lssp_tpu_torch.sparse.types import CSR, DIA
+from lssp_tpu_torch.utils import profile as _prof
 
 
 # --------------------------------------------------------------------------
@@ -471,43 +472,51 @@ def sa_setup(A: CSR, g: int = 4, max_levels: int = 12,
     if smooth_levels is None:
         smooth_levels = max_levels if grid is not None else 2
     t0 = time.perf_counter()
-    levels, Al, n_top = sa_host_levels(
-        A, g=g, max_levels=max_levels, coarse_size=coarse_size,
-        omega_p=omega_p, filter_tol=filter_tol,
-        smooth_levels=smooth_levels, grid=grid, theta_dir=theta_dir,
-        strength_tol=strength_tol, pattern_radius=pattern_radius,
-        b_radius=b_radius, host_c=False)
+    with _prof.phase("saamg_host_levels"):
+        levels, Al, n_top = sa_host_levels(
+            A, g=g, max_levels=max_levels, coarse_size=coarse_size,
+            omega_p=omega_p, filter_tol=filter_tol,
+            smooth_levels=smooth_levels, grid=grid, theta_dir=theta_dir,
+            strength_tol=strength_tol, pattern_radius=pattern_radius,
+            b_radius=b_radius, host_c=False)
     t1 = time.perf_counter()
     dev = []
-    for i, (Ah, B, C, dinv, lmax, n_c, agg) in enumerate(levels):
-        A_dia = _to_dia(Ah, dtype, max_diags, device)
-        tri = None
-        if smoother == "line":
-            if isinstance(A_dia, DIA):
-                tri = tridiag_parts(A_dia)
+    with _prof.phase("saamg_pack_upload"):
+        for i, (Ah, B, C, dinv, lmax, n_c, agg) in enumerate(levels):
+            A_dia = _to_dia(Ah, dtype, max_diags, device)
+            tri = None
+            if smoother == "line":
+                if isinstance(A_dia, DIA):
+                    tri = tridiag_parts(A_dia)
+                else:
+                    # the level fell back to ELL (too many diagonals): no
+                    # tridiagonal part, so _smooth runs Chebyshev there
+                    warnings.warn(f"saamg level {i}: line smoother unavailable on a "
+                                  "non-DIA level (too many diagonals); using "
+                                  "Chebyshev for this level", stacklevel=2)
+            B_dia = _to_dia(B, dtype, max_diags, device) if B is not None else None
+            if isinstance(B_dia, DIA):
+                # C = Bᵀ of the LUMPED B from B's uploaded data: R = P0ᵀBᵀ, the
+                # symmetric coarse correction, with no second upload
+                C_dia = _dia_transpose_dev(B_dia)
             else:
-                # the level fell back to ELL (too many diagonals): no
-                # tridiagonal part, so _smooth runs Chebyshev there
-                warnings.warn(f"saamg level {i}: line smoother unavailable on a "
-                              "non-DIA level (too many diagonals); using "
-                              "Chebyshev for this level", stacklevel=2)
-        B_dia = _to_dia(B, dtype, max_diags, device) if B is not None else None
-        if isinstance(B_dia, DIA):
-            # C = Bᵀ of the LUMPED B from B's uploaded data: R = P0ᵀBᵀ, the
-            # symmetric coarse correction, with no second upload
-            C_dia = _dia_transpose_dev(B_dia)
-        else:
-            # ELL fallback: the host C = (lumped B)ᵀ
-            if C is None and B is not None:
-                C = B.T.tocsr()
-            C_dia = _to_dia(C, dtype, max_diags, device) if C is not None else None
-        dev.append(SALevel(
-            A=A_dia, B=B_dia, C=C_dia,
-            dinv=torch.from_numpy(dinv.astype(dtype)).to(device),
-            lmax=float(lmax), g=g, smoother=smoother, degree=degree,
-            n_next=n_c, agg=agg, tri=tri))
+                # ELL fallback: the host C = (lumped B)ᵀ
+                if C is None and B is not None:
+                    C = B.T.tocsr()
+                C_dia = _to_dia(C, dtype, max_diags, device) if C is not None else None
+            dev.append(SALevel(
+                A=A_dia, B=B_dia, C=C_dia,
+                dinv=torch.from_numpy(dinv.astype(dtype)).to(device),
+                lmax=float(lmax), g=g, smoother=smoother, degree=degree,
+                n_next=n_c, agg=agg, tri=tri))
+            # C is derived on the device from B's uploaded data: not counted
+            lev = dev[-1]
+            _prof.add_bytes("saamg_pack_upload",
+                            _prof.tree_device_bytes((lev.A, lev.B, lev.dinv, lev.tri)))
     t2 = time.perf_counter()
-    coarse_inv = torch.from_numpy(np.linalg.inv(Al.toarray()).astype(dtype)).to(device)
+    with _prof.phase("saamg_coarse_inv"):
+        coarse_inv = torch.from_numpy(np.linalg.inv(Al.toarray()).astype(dtype)).to(device)
+        _prof.add_bytes("saamg_coarse_inv", int(coarse_inv.nbytes))
     t3 = time.perf_counter()
     return SAHierarchy(levels=tuple(dev), coarse_inv=coarse_inv, n_top=n_top, gamma=gamma,
                        setup_s={"host_levels": t1 - t0, "pack_upload": t2 - t1,

@@ -38,11 +38,19 @@
 // K1's order, so column c equals K1 on column c up to the compiler's
 // contraction choices.
 //
+// bf16 (the inner precision of solve_ir(inner_dtype=torch.bfloat16); the
+// Pallas kernel takes bf16 too): data, x, z and y are __nv_bfloat16, the
+// products and the sum are float (lssp::Acc), the alpha / beta epilogue is
+// applied in float, and y is rounded once, at the store.  The Pallas kernel
+// sums in the tile's dtype, rounding every step, so this is the more
+// accurate of the two (ROADMAP C property 16).
+//
 // Later work: a shared-memory x window with its halo, 16-byte vector
 // loads in K1.
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "krhs.cuh"
@@ -55,25 +63,29 @@ template <typename T>
 __global__ void dia_spmv_kernel(const T* __restrict__ data,
                                 const int32_t* __restrict__ offsets, int ndiag,
                                 int64_t n, int64_t ncols,
-                                const T* __restrict__ x, T alpha, T beta,
+                                const T* __restrict__ x, typename lssp::Acc<T>::type alpha,
+                                typename lssp::Acc<T>::type beta,
                                 const T* __restrict__ z, T* __restrict__ y) {
+  using A = typename lssp::Acc<T>::type;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  T acc = T(0);
+  A acc = A(0);
   for (int d = 0; d < ndiag; ++d) {
     const int64_t j = i + __ldg(offsets + d);
-    if (j >= 0 && j < ncols) acc += data[static_cast<int64_t>(d) * n + i] * x[j];
+    if (j >= 0 && j < ncols)
+      acc += lssp::to_acc(data[static_cast<int64_t>(d) * n + i]) * lssp::to_acc(x[j]);
   }
-  T out = alpha * acc;
-  if (z != nullptr) out += beta * z[i];
-  y[i] = out;
+  A out = alpha * acc;
+  if (z != nullptr) out += beta * lssp::to_acc(z[i]);
+  y[i] = lssp::from_acc<T>(out);
 }
 
 template <typename T, int KT>
 __global__ void dia_spmm_kernel(const T* __restrict__ data,
                                 const int32_t* __restrict__ offsets, int ndiag,
                                 int64_t n, int64_t ncols, int64_t k,
-                                const T* __restrict__ X, T alpha, T beta,
+                                const T* __restrict__ X, typename lssp::Acc<T>::type alpha,
+                                typename lssp::Acc<T>::type beta,
                                 const T* __restrict__ Z, T* __restrict__ Y) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -82,7 +94,8 @@ __global__ void dia_spmm_kernel(const T* __restrict__ data,
   acc.zero();
   for (int d = 0; d < ndiag; ++d) {
     const int64_t j = i + __ldg(offsets + d);
-    if (j >= 0 && j < ncols) acc.axpy(data[static_cast<int64_t>(d) * n + i], X + j * k + c0);
+    if (j >= 0 && j < ncols)
+      acc.axpy(lssp::to_acc(data[static_cast<int64_t>(d) * n + i]), X + j * k + c0);
   }
   acc.axpby_store(alpha, beta, Z == nullptr ? nullptr : Z + i * k + c0, Y + i * k + c0);
 }
@@ -96,8 +109,8 @@ int launch(const void* data, const void* offsets, int ndiag, int64_t n,
   dia_spmv_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(data), static_cast<const int32_t*>(offsets), ndiag,
-      n, ncols, static_cast<const T*>(x), static_cast<T>(alpha),
-      static_cast<T>(beta), static_cast<const T*>(z), static_cast<T*>(y));
+      n, ncols, static_cast<const T*>(x), static_cast<typename lssp::Acc<T>::type>(alpha),
+      static_cast<typename lssp::Acc<T>::type>(beta), static_cast<const T*>(z), static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -109,8 +122,8 @@ int launch_tile(const void* data, const void* offsets, int ndiag, int64_t n,
                   static_cast<unsigned>(k / KT));
   dia_spmm_kernel<T, KT><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(data), static_cast<const int32_t*>(offsets), ndiag,
-      n, ncols, k, static_cast<const T*>(X), static_cast<T>(alpha),
-      static_cast<T>(beta), static_cast<const T*>(Z), static_cast<T*>(Y));
+      n, ncols, k, static_cast<const T*>(X), static_cast<typename lssp::Acc<T>::type>(alpha),
+      static_cast<typename lssp::Acc<T>::type>(beta), static_cast<const T*>(Z), static_cast<T*>(Y));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -147,6 +160,13 @@ int lssp_dia_spmv_f64(const void* data, const void* offsets, int ndiag,
   return launch<double>(data, offsets, ndiag, n, ncols, x, alpha, beta, z, y, stream);
 }
 
+int lssp_dia_spmv_bf16(const void* data, const void* offsets, int ndiag,
+                       int64_t n, int64_t ncols, const void* x, double alpha,
+                       double beta, const void* z, void* y, void* stream) {
+  return launch<__nv_bfloat16>(data, offsets, ndiag, n, ncols, x, alpha, beta, z, y,
+                               stream);
+}
+
 // K1k.  data: (ndiag, n) row-major; offsets: (ndiag,) int32; X: (ncols, k),
 // Z: (n, k) or null, Y: (n, k), all three row-major.  All on the device.
 // Returns cudaGetLastError().
@@ -164,6 +184,14 @@ int lssp_dia_spmm_f64(const void* data, const void* offsets, int ndiag,
                       void* stream) {
   return launch_spmm<double>(data, offsets, ndiag, n, ncols, k, X, alpha, beta, Z, Y,
                              stream);
+}
+
+int lssp_dia_spmm_bf16(const void* data, const void* offsets, int ndiag,
+                       int64_t n, int64_t ncols, int64_t k, const void* X,
+                       double alpha, double beta, const void* Z, void* Y,
+                       void* stream) {
+  return launch_spmm<__nv_bfloat16>(data, offsets, ndiag, n, ncols, k, X, alpha, beta, Z,
+                                    Y, stream);
 }
 
 }  // extern "C"

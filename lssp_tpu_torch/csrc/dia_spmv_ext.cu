@@ -42,11 +42,15 @@
 // the margin.  The sweep epilogue (-1, 1, z = r) serves the block-Jacobi
 // Neumann sweeps on blocks.
 //
+// bf16: as K1 (csrc/dia_spmv.cu): bf16 loads, float products, sum and
+// epilogue (lssp::Acc), one rounding at the store.
+//
 // Later work: read the neighbour's rows in place instead of the halo copy
 // the wrapper's caller makes, and a shared-memory x window.
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "krhs.cuh"
@@ -60,20 +64,22 @@ __global__ void dia_spmv_ext_kernel(const T* __restrict__ data,
                                     const int32_t* __restrict__ offsets,
                                     int ndiag, int64_t R, int64_t ldx,
                                     int64_t lo, const T* __restrict__ x_ext,
-                                    T alpha, T beta, const T* __restrict__ z,
+                                    typename lssp::Acc<T>::type alpha,
+                                    typename lssp::Acc<T>::type beta, const T* __restrict__ z,
                                     T* __restrict__ y) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= R) return;
   const int64_t p = blockIdx.y;
   const T* d_p = data + p * ndiag * R + i;
   const T* x_p = x_ext + p * ldx + lo + i;
-  T acc = T(0);
+  typename lssp::Acc<T>::type acc = 0;
   for (int d = 0; d < ndiag; ++d) {
-    acc += d_p[static_cast<int64_t>(d) * R] * x_p[__ldg(offsets + d)];
+    acc += lssp::to_acc(d_p[static_cast<int64_t>(d) * R]) *
+           lssp::to_acc(x_p[__ldg(offsets + d)]);
   }
-  T out = alpha * acc;
-  if (z != nullptr) out += beta * z[p * R + i];
-  y[p * R + i] = out;
+  typename lssp::Acc<T>::type out = alpha * acc;
+  if (z != nullptr) out += beta * lssp::to_acc(z[p * R + i]);
+  y[p * R + i] = lssp::from_acc<T>(out);
 }
 
 template <typename T, int KT>
@@ -81,7 +87,8 @@ __global__ void dia_spmm_ext_kernel(const T* __restrict__ data,
                                     const int32_t* __restrict__ offsets,
                                     int ndiag, int64_t R, int64_t ldx,
                                     int64_t lo, int64_t k,
-                                    const T* __restrict__ x_ext, T alpha, T beta,
+                                    const T* __restrict__ x_ext, typename lssp::Acc<T>::type alpha,
+                                    typename lssp::Acc<T>::type beta,
                                     const T* __restrict__ z, T* __restrict__ y) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= R) return;
@@ -92,7 +99,8 @@ __global__ void dia_spmm_ext_kernel(const T* __restrict__ data,
   lssp::Tile<T, KT> acc;
   acc.zero();
   for (int d = 0; d < ndiag; ++d)
-    acc.axpy(d_p[static_cast<int64_t>(d) * R], x_p + static_cast<int64_t>(__ldg(offsets + d)) * k);
+    acc.axpy(lssp::to_acc(d_p[static_cast<int64_t>(d) * R]),
+             x_p + static_cast<int64_t>(__ldg(offsets + d)) * k);
   const int64_t row = (p * R + i) * k + c0;
   acc.axpby_store(alpha, beta, z == nullptr ? nullptr : z + row, y + row);
 }
@@ -107,8 +115,8 @@ int launch(const void* data, const void* offsets, int ndiag, int64_t P,
                   static_cast<unsigned>(P));
   dia_spmv_ext_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(data), static_cast<const int32_t*>(offsets), ndiag,
-      R, ldx, lo, static_cast<const T*>(x_ext), static_cast<T>(alpha),
-      static_cast<T>(beta), static_cast<const T*>(z), static_cast<T*>(y));
+      R, ldx, lo, static_cast<const T*>(x_ext), static_cast<typename lssp::Acc<T>::type>(alpha),
+      static_cast<typename lssp::Acc<T>::type>(beta), static_cast<const T*>(z), static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -120,8 +128,8 @@ int launch_tile(const void* data, const void* offsets, int ndiag, int64_t P,
                   static_cast<unsigned>(P), static_cast<unsigned>(k / KT));
   dia_spmm_ext_kernel<T, KT><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(data), static_cast<const int32_t*>(offsets), ndiag,
-      R, ldx, lo, k, static_cast<const T*>(x_ext), static_cast<T>(alpha),
-      static_cast<T>(beta), static_cast<const T*>(z), static_cast<T*>(y));
+      R, ldx, lo, k, static_cast<const T*>(x_ext), static_cast<typename lssp::Acc<T>::type>(alpha),
+      static_cast<typename lssp::Acc<T>::type>(beta), static_cast<const T*>(z), static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -167,6 +175,14 @@ int lssp_dia_spmv_ext_f64(const void* data, const void* offsets, int ndiag,
                         z, y, stream);
 }
 
+int lssp_dia_spmv_ext_bf16(const void* data, const void* offsets, int ndiag,
+                           int64_t P, int64_t R, int64_t ldx, int64_t lo,
+                           const void* x_ext, double alpha, double beta,
+                           const void* z, void* y, void* stream) {
+  return launch<__nv_bfloat16>(data, offsets, ndiag, P, R, ldx, lo, x_ext, alpha, beta,
+                               z, y, stream);
+}
+
 // K4k.  data: (P, ndiag, R) row-major; offsets: (ndiag,) int32; x_ext:
 // (P, ldx, k); z: (P, R, k) or null; y: (P, R, k).  Returns
 // cudaGetLastError().
@@ -184,6 +200,14 @@ int lssp_dia_spmm_ext_f64(const void* data, const void* offsets, int ndiag,
                           const void* z, void* y, void* stream) {
   return launch_spmm<double>(data, offsets, ndiag, P, R, ldx, lo, k, x_ext, alpha,
                              beta, z, y, stream);
+}
+
+int lssp_dia_spmm_ext_bf16(const void* data, const void* offsets, int ndiag,
+                           int64_t P, int64_t R, int64_t ldx, int64_t lo, int64_t k,
+                           const void* x_ext, double alpha, double beta,
+                           const void* z, void* y, void* stream) {
+  return launch_spmm<__nv_bfloat16>(data, offsets, ndiag, P, R, ldx, lo, k, x_ext, alpha,
+                                    beta, z, y, stream);
 }
 
 }  // extern "C"

@@ -45,11 +45,15 @@
 // stays the one for kThreads-row blocks, and a thread block still holds
 // kThreads rows (grid.y walks the column tiles).
 //
+// bf16: as K1 (csrc/dia_spmv.cu): bf16 loads, float products, sum and
+// epilogue (lssp::Acc), one rounding at the store.
+//
 // Later work: a shared-memory x window with its halo, 16-byte vector
 // loads, warp-cooperative sums for heavy remainder rows.
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "krhs.cuh"
@@ -66,14 +70,17 @@ __global__ void hyb_spmv_kernel(const T* __restrict__ data,
                                 const int32_t* __restrict__ rem_cols,
                                 const T* __restrict__ rem_vals,
                                 const int32_t* __restrict__ rem_block_ptr,
-                                const T* __restrict__ x, T alpha, T beta,
+                                const T* __restrict__ x, typename lssp::Acc<T>::type alpha,
+                                typename lssp::Acc<T>::type beta,
                                 const T* __restrict__ z, T* __restrict__ y) {
+  using A = typename lssp::Acc<T>::type;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
-  T acc = T(0);
+  A acc = A(0);
   for (int d = 0; d < ndiag; ++d) {
     const int64_t j = i + __ldg(offsets + d);
-    if (j >= 0 && j < ncols) acc += data[static_cast<int64_t>(d) * n + i] * x[j];
+    if (j >= 0 && j < ncols)
+      acc += lssp::to_acc(data[static_cast<int64_t>(d) * n + i]) * lssp::to_acc(x[j]);
   }
   const int32_t end = __ldg(rem_block_ptr + blockIdx.x + 1);
   int32_t lo = __ldg(rem_block_ptr + blockIdx.x);
@@ -85,11 +92,11 @@ __global__ void hyb_spmv_kernel(const T* __restrict__ data,
       if (__ldg(rem_rows + mid) < row) lo = mid + 1; else hi = mid;
     }
     for (int32_t e = lo; e < end && __ldg(rem_rows + e) == row; ++e)
-      acc += __ldg(rem_vals + e) * x[__ldg(rem_cols + e)];
+      acc += lssp::to_acc(__ldg(rem_vals + e)) * lssp::to_acc(x[__ldg(rem_cols + e)]);
   }
-  T out = alpha * acc;
-  if (z != nullptr) out += beta * z[i];
-  y[i] = out;
+  A out = alpha * acc;
+  if (z != nullptr) out += beta * lssp::to_acc(z[i]);
+  y[i] = lssp::from_acc<T>(out);
 }
 
 template <typename T, int KT>
@@ -100,7 +107,8 @@ __global__ void hyb_spmm_kernel(const T* __restrict__ data,
                                 const int32_t* __restrict__ rem_cols,
                                 const T* __restrict__ rem_vals,
                                 const int32_t* __restrict__ rem_block_ptr,
-                                const T* __restrict__ X, T alpha, T beta,
+                                const T* __restrict__ X, typename lssp::Acc<T>::type alpha,
+                                typename lssp::Acc<T>::type beta,
                                 const T* __restrict__ Z, T* __restrict__ Y) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
@@ -109,7 +117,8 @@ __global__ void hyb_spmm_kernel(const T* __restrict__ data,
   acc.zero();
   for (int d = 0; d < ndiag; ++d) {
     const int64_t j = i + __ldg(offsets + d);
-    if (j >= 0 && j < ncols) acc.axpy(data[static_cast<int64_t>(d) * n + i], X + j * k + c0);
+    if (j >= 0 && j < ncols)
+      acc.axpy(lssp::to_acc(data[static_cast<int64_t>(d) * n + i]), X + j * k + c0);
   }
   const int32_t end = __ldg(rem_block_ptr + blockIdx.x + 1);
   int32_t lo = __ldg(rem_block_ptr + blockIdx.x);
@@ -121,7 +130,8 @@ __global__ void hyb_spmm_kernel(const T* __restrict__ data,
       if (__ldg(rem_rows + mid) < row) lo = mid + 1; else hi = mid;
     }
     for (int32_t e = lo; e < end && __ldg(rem_rows + e) == row; ++e)
-      acc.axpy(__ldg(rem_vals + e), X + static_cast<int64_t>(__ldg(rem_cols + e)) * k + c0);
+      acc.axpy(lssp::to_acc(__ldg(rem_vals + e)),
+               X + static_cast<int64_t>(__ldg(rem_cols + e)) * k + c0);
   }
   acc.axpby_store(alpha, beta, Z == nullptr ? nullptr : Z + i * k + c0, Y + i * k + c0);
 }
@@ -139,7 +149,8 @@ int launch(const void* data, const void* offsets, int ndiag, int64_t n,
       n, ncols, static_cast<const int32_t*>(rem_rows),
       static_cast<const int32_t*>(rem_cols), static_cast<const T*>(rem_vals),
       static_cast<const int32_t*>(rem_block_ptr), static_cast<const T*>(x),
-      static_cast<T>(alpha), static_cast<T>(beta), static_cast<const T*>(z),
+      static_cast<typename lssp::Acc<T>::type>(alpha),
+      static_cast<typename lssp::Acc<T>::type>(beta), static_cast<const T*>(z),
       static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
@@ -157,7 +168,8 @@ int launch_tile(const void* data, const void* offsets, int ndiag, int64_t n,
       n, ncols, k, static_cast<const int32_t*>(rem_rows),
       static_cast<const int32_t*>(rem_cols), static_cast<const T*>(rem_vals),
       static_cast<const int32_t*>(rem_block_ptr), static_cast<const T*>(X),
-      static_cast<T>(alpha), static_cast<T>(beta), static_cast<const T*>(Z),
+      static_cast<typename lssp::Acc<T>::type>(alpha),
+      static_cast<typename lssp::Acc<T>::type>(beta), static_cast<const T*>(Z),
       static_cast<T*>(Y));
   return static_cast<int>(cudaGetLastError());
 }
@@ -214,6 +226,16 @@ int lssp_hyb_spmv_f64(const void* data, const void* offsets, int ndiag,
                         y, stream);
 }
 
+int lssp_hyb_spmv_bf16(const void* data, const void* offsets, int ndiag,
+                       int64_t n, int64_t ncols, const void* rem_rows,
+                       const void* rem_cols, const void* rem_vals,
+                       const void* rem_block_ptr, const void* x,
+                       double alpha, double beta, const void* z, void* y,
+                       void* stream) {
+  return launch<__nv_bfloat16>(data, offsets, ndiag, n, ncols, rem_rows, rem_cols,
+                               rem_vals, rem_block_ptr, x, alpha, beta, z, y, stream);
+}
+
 // K3k.  As above, with X: (ncols, k), Z: (n, k) or null and Y: (n, k),
 // all three row-major.  Returns cudaGetLastError().
 int lssp_hyb_spmm_f32(const void* data, const void* offsets, int ndiag,
@@ -232,6 +254,16 @@ int lssp_hyb_spmm_f64(const void* data, const void* offsets, int ndiag,
                       double beta, const void* Z, void* Y, void* stream) {
   return launch_spmm<double>(data, offsets, ndiag, n, ncols, k, rem_rows, rem_cols,
                              rem_vals, rem_block_ptr, X, alpha, beta, Z, Y, stream);
+}
+
+int lssp_hyb_spmm_bf16(const void* data, const void* offsets, int ndiag,
+                       int64_t n, int64_t ncols, int64_t k, const void* rem_rows,
+                       const void* rem_cols, const void* rem_vals,
+                       const void* rem_block_ptr, const void* X, double alpha,
+                       double beta, const void* Z, void* Y, void* stream) {
+  return launch_spmm<__nv_bfloat16>(data, offsets, ndiag, n, ncols, k, rem_rows,
+                                    rem_cols, rem_vals, rem_block_ptr, X, alpha, beta, Z,
+                                    Y, stream);
 }
 
 }  // extern "C"

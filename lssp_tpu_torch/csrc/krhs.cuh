@@ -15,14 +15,33 @@
 // tile_width() picks KT: the largest of 8, 4, 2, 1 that divides k and keeps
 // every block pointer aligned for the vector loads; a misaligned or odd-k
 // block runs with KT = 1, scalar loads, never a copy.
+//
+// Acc<T> is the type a kernel sums in: T itself for float and double, float
+// for __nv_bfloat16.  A bf16 kernel loads bf16, converts each value to
+// float, accumulates and applies its alpha / beta epilogue in float, and
+// rounds once, at the store (round to nearest even).  The sums of a Tile
+// are Acc<T> values; load() converts and store() rounds.
 
 #pragma once
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace lssp {
+
+template <typename T> struct Acc { using type = T; };
+template <> struct Acc<__nv_bfloat16> { using type = float; };
+
+__device__ __forceinline__ float to_acc(float v) { return v; }
+__device__ __forceinline__ double to_acc(double v) { return v; }
+__device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_acc(typename Acc<T>::type v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_acc<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 template <typename T, int W>
 struct alignas(sizeof(T) * W) Pack {
@@ -41,20 +60,21 @@ template <> struct VecOf<double, 2> { using type = double2; };
 
 template <typename T, int KT>
 struct Tile {
+  using A = typename Acc<T>::type;
   // elements per vector load: 16 bytes, or the whole tile when smaller
   static constexpr int W = KT * sizeof(T) >= 16 ? 16 / static_cast<int>(sizeof(T)) : KT;
-  T v[KT];
+  A v[KT];
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int c = 0; c < KT; ++c) v[c] = T(0);
+    for (int c = 0; c < KT; ++c) v[c] = A(0);
   }
   __device__ __forceinline__ void load(const T* p) {
 #pragma unroll
     for (int q = 0; q < KT / W; ++q) {
       const Pack<T, W> pk = reinterpret_cast<const Pack<T, W>*>(p)[q];
 #pragma unroll
-      for (int w = 0; w < W; ++w) v[q * W + w] = pk.v[w];
+      for (int w = 0; w < W; ++w) v[q * W + w] = to_acc(pk.v[w]);
     }
   }
   // load() through the L2 only (ld.global.cg)
@@ -69,14 +89,14 @@ struct Tile {
     }
   }
   // v += a * p[0:KT]
-  __device__ __forceinline__ void axpy(T a, const T* p) {
+  __device__ __forceinline__ void axpy(A a, const T* p) {
     Tile t;
     t.load(p);
 #pragma unroll
     for (int c = 0; c < KT; ++c) v[c] += a * t.v[c];
   }
   // v += a * t, a tile loaded earlier
-  __device__ __forceinline__ void axpy(T a, const Tile& t) {
+  __device__ __forceinline__ void axpy(A a, const Tile& t) {
 #pragma unroll
     for (int c = 0; c < KT; ++c) v[c] += a * t.v[c];
   }
@@ -85,17 +105,18 @@ struct Tile {
     for (int q = 0; q < KT / W; ++q) {
       Pack<T, W> pk;
 #pragma unroll
-      for (int w = 0; w < W; ++w) pk.v[w] = v[q * W + w];
+      for (int w = 0; w < W; ++w) pk.v[w] = from_acc<T>(v[q * W + w]);
       reinterpret_cast<Pack<T, W>*>(p)[q] = pk;
     }
   }
-  // the K1/K3/K4 epilogue per column: y = alpha * acc (+ beta * z)
-  __device__ __forceinline__ void axpby_store(T alpha, T beta, const T* z, T* y) const {
+  // the K1/K3/K4 epilogue per column: y = alpha * acc (+ beta * z), in
+  // Acc<T>, rounded once by store()
+  __device__ __forceinline__ void axpby_store(A alpha, A beta, const T* z, T* y) const {
     Tile out;
     if (z != nullptr) out.load(z);
 #pragma unroll
     for (int c = 0; c < KT; ++c) {
-      T o = alpha * v[c];
+      A o = alpha * v[c];
       if (z != nullptr) o += beta * out.v[c];
       out.v[c] = o;
     }

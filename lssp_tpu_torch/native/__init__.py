@@ -102,6 +102,14 @@ def _declare_amg(lib) -> None:
         rp.argtypes = [ptr, ptr, _f64p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ptr, ctypes.c_long, ptr, ptr, _f64p, ctypes.c_long]
         rp.restype = ctypes.c_long
+        do = getattr(lib, "lssp_dia_offsets" + suf)
+        do.argtypes = [ptr, ptr, ctypes.c_int64, ctypes.c_int64, _i64p]
+        do.restype = ctypes.c_int64
+        for fsuf, fptr in (("_f32", np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")),
+                           ("_f64", _f64p)):
+            df = getattr(lib, "lssp_dia_fill" + fsuf + suf)
+            df.argtypes = [ptr, ptr, _f64p, ctypes.c_int64, _i64p, ctypes.c_int64, fptr]
+            df.restype = None
     lib.lssp_greedy_aggregate.argtypes = [
         _i64p, _i64p, _f64p, _i64p, _i64p, _f64p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_double, np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"), _i64p]
@@ -229,6 +237,31 @@ def _lumped_call(name, indptr, indices, data, n, *args):
     if out < 0:
         return None
     return oip, oix[:out], oax[:out]
+
+
+def dia_convert(indptr, indices, data, n: int, max_diags: int, out_dtype):
+    """The fused CSR→DIA of JAX's native library (oracle:
+    ``sparse/convert.py: csr_to_dia``): (offsets int64 (ndiag,), data
+    (ndiag, n) of ``out_dtype``, float32 or float64), or None when the
+    matrix has more than ``max_diags`` distinct diagonals."""
+    lib = load()
+    indptr = np.ascontiguousarray(indptr)
+    if indptr.dtype not in (np.int32, np.int64):
+        indptr = indptr.astype(np.int64)
+    indices = np.ascontiguousarray(indices, dtype=indptr.dtype)
+    suf = _isuf(indptr)
+    offs = np.empty(max_diags, dtype=np.int64)
+    ndiag = getattr(lib, "lssp_dia_offsets" + suf)(indptr, indices, n, max_diags, offs)
+    if ndiag < 0:
+        return None
+    offs = offs[:ndiag].copy()
+    out_dtype = np.dtype(out_dtype)
+    out = np.empty((ndiag, n), dtype=out_dtype)
+    fsuf = "_f32" if out_dtype == np.float32 else "_f64"
+    getattr(lib, "lssp_dia_fill" + fsuf + suf)(indptr, indices,
+                                                np.ascontiguousarray(data, np.float64), n,
+                                                offs, ndiag, out)
+    return offs, out
 
 
 def filter_lumped(indptr, indices, data, n: int, tol: float):

@@ -9,9 +9,8 @@
 //  - lssp_lump_pattern   == _lump_to_pattern + _subset_csr_lumped
 //    (keep the (2ry+1)×(2rx+1) grid stencil; dy = rint(d/gx) uses
 //    round-half-to-even, matching np.rint)
-// A copy of lssp_tpu/native/src/amgfilter.cpp without its dia_offsets /
-// dia_fill (the port's csr_to_dia builds the same arrays in numpy); only
-// this header and that omission differ.
+//  - lssp_dia_offsets / lssp_dia_fill == sparse/convert.py: csr_to_dia
+// A copy of lssp_tpu/native/src/amgfilter.cpp; only this line differs.
 // Index types: _i32/_i64 variants so scipy's native int32 arrays need no
 // widening copy (84M-entry matrices: each avoided copy is ~0.3 s).
 #include <cstdint>
@@ -95,6 +94,38 @@ int64_t lump_pattern(const I* ip, const I* ix, const double* ax, int64_t n,
     return nnz;
 }
 
+template <typename I>
+int64_t dia_offsets(const I* ip, const I* ix, int64_t n, int64_t max_diags,
+                    int64_t* offs_out) {
+    std::vector<uint8_t> occ(2 * n - 1, 0);
+    for (int64_t i = 0; i < n; ++i)
+        for (I k = ip[i]; k < ip[i + 1]; ++k)
+            occ[(int64_t)ix[k] - i + (n - 1)] = 1;
+    int64_t cnt = 0;
+    for (int64_t s = 0; s < 2 * n - 1; ++s)
+        if (occ[s]) {
+            if (cnt < max_diags) offs_out[cnt] = s - (n - 1);
+            ++cnt;
+        }
+    return cnt <= max_diags ? cnt : -1;
+}
+
+template <typename I, typename F>
+void dia_fill(const I* ip, const I* ix, const double* ax, int64_t n,
+              const int64_t* offs, int64_t ndiag, F* out) {
+    // offset → diagonal index lookup (int16: ndiag ≤ 32767 always holds —
+    // callers cap at max_diags ≈ 96)
+    std::vector<int16_t> which(2 * n - 1);
+    for (int64_t d = 0; d < ndiag; ++d)
+        which[offs[d] + (n - 1)] = (int16_t)d;
+    std::memset(out, 0, sizeof(F) * (size_t)ndiag * (size_t)n);
+    for (int64_t i = 0; i < n; ++i)
+        for (I k = ip[i]; k < ip[i + 1]; ++k) {
+            int16_t d = which[(int64_t)ix[k] - i + (n - 1)];
+            out[(int64_t)d * n + i] = (F)ax[k];
+        }
+}
+
 }  // namespace
 
 extern "C" {
@@ -120,6 +151,34 @@ int64_t lssp_lump_pattern_i64(const int64_t* ip, const int64_t* ix,
                               int64_t ry, int64_t rx,
                               int64_t* oip, int64_t* oix, double* oax) {
     return lump_pattern<int64_t>(ip, ix, ax, n, gx, ry, rx, oip, oix, oax);
+}
+int64_t lssp_dia_offsets_i32(const int32_t* ip, const int32_t* ix, int64_t n,
+                             int64_t max_diags, int64_t* offs_out) {
+    return dia_offsets<int32_t>(ip, ix, n, max_diags, offs_out);
+}
+int64_t lssp_dia_offsets_i64(const int64_t* ip, const int64_t* ix, int64_t n,
+                             int64_t max_diags, int64_t* offs_out) {
+    return dia_offsets<int64_t>(ip, ix, n, max_diags, offs_out);
+}
+void lssp_dia_fill_f32_i32(const int32_t* ip, const int32_t* ix,
+                           const double* ax, int64_t n, const int64_t* offs,
+                           int64_t ndiag, float* out) {
+    dia_fill<int32_t, float>(ip, ix, ax, n, offs, ndiag, out);
+}
+void lssp_dia_fill_f64_i32(const int32_t* ip, const int32_t* ix,
+                           const double* ax, int64_t n, const int64_t* offs,
+                           int64_t ndiag, double* out) {
+    dia_fill<int32_t, double>(ip, ix, ax, n, offs, ndiag, out);
+}
+void lssp_dia_fill_f32_i64(const int64_t* ip, const int64_t* ix,
+                           const double* ax, int64_t n, const int64_t* offs,
+                           int64_t ndiag, float* out) {
+    dia_fill<int64_t, float>(ip, ix, ax, n, offs, ndiag, out);
+}
+void lssp_dia_fill_f64_i64(const int64_t* ip, const int64_t* ix,
+                           const double* ax, int64_t n, const int64_t* offs,
+                           int64_t ndiag, double* out) {
+    dia_fill<int64_t, double>(ip, ix, ax, n, offs, ndiag, out);
 }
 
 }  // extern "C"

@@ -2,8 +2,8 @@
 and K1k, its k-rhs form.
 
 ``dia_spmv(A, x, alpha, beta, z)`` computes ``alpha·(A@x) + beta·z`` for a
-DIA matrix.  On a CUDA tensor it launches the kernel (float32 or float64;
-anything else raises); on a CPU tensor it runs ``dia_spmv_plain``, the same
+DIA matrix.  On a CUDA tensor it launches the kernel (float32, float64 or
+bfloat16; anything else raises); on a CPU tensor it runs ``dia_spmv_plain``, the same
 function in plain PyTorch.  There is no fallback from one to the other.
 Replaces ``lssp_tpu/ops/pallas_spmv.py: _dia_spmv_pallas``.
 
@@ -11,6 +11,11 @@ Replaces ``lssp_tpu/ops/pallas_spmv.py: _dia_spmv_pallas``.
 layout ``ops/spmv.py`` states) in one launch of K1k, the counterpart of the
 k-rhs ``custom_vmap`` rule of ``_vmap_safe_kernel``; ``dia_spmm_plain`` is
 its plain version.
+
+bfloat16 (the inner precision of ``solve_ir``): every form loads bf16,
+forms the products and the sum in float32, applies ``alpha`` / ``beta`` in
+float32 and rounds once at the end (``acc_dtype``), in the kernel and in
+its plain version alike, so the two agree to one bf16 ulp.
 """
 from __future__ import annotations
 
@@ -23,32 +28,48 @@ from lssp_tpu_torch import _kernels
 from lssp_tpu_torch.sparse.types import DIA
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a product of ``dtype`` operands sums in: float32 for
+    bfloat16, else the dtype itself (the kernels' ``lssp::Acc``)."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def shifted_sum(data: torch.Tensor, offsets, y: torch.Tensor) -> torch.Tensor:
     """Σ_d data[d, i]·y[i + off_d] with out-of-range reads as 0 — the DIA
     product in plain PyTorch (shared with the plain Neumann sweep).  ``y``
     is (m,) or an (m, k) block; a block's rows are shifted and each
-    diagonal is broadcast over its k columns."""
+    diagonal is broadcast over its k columns.  The sum is in
+    ``acc_dtype``: float32 for bfloat16 operands, left unrounded."""
     n = data.shape[1]
     lo = max(0, -min(offsets)) if offsets else 0
     hi = max(0, max(offsets) + n - y.shape[0]) if offsets else 0
     block = y.ndim == 2
+    acc_dt = acc_dtype(torch.promote_types(data.dtype, y.dtype))
+    data, y = data.to(acc_dt), y.to(acc_dt)
     yp = F.pad(y, (0, 0, lo, hi) if block else (lo, hi))
-    acc = torch.zeros((n,) + tuple(y.shape[1:]), dtype=torch.promote_types(data.dtype, y.dtype),
-                      device=y.device)
+    acc = torch.zeros((n,) + tuple(y.shape[1:]), dtype=acc_dt, device=y.device)
     for d, off in enumerate(offsets):
         acc = acc + (data[d, :, None] if block else data[d]) * yp[lo + off:lo + off + n]
     return acc
 
 
-def dia_spmv_plain(data: torch.Tensor, offsets, x: torch.Tensor, alpha: float = 1.0,
-                   beta: float = 0.0, z: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``alpha·(Σ_d data[d]·shift(x, off_d)) + beta·z`` in plain PyTorch."""
-    y = shifted_sum(data, offsets, x)
+def epilogue(y: torch.Tensor, alpha: float, beta: float, z: Optional[torch.Tensor],
+             dtype: torch.dtype) -> torch.Tensor:
+    """``alpha·y + beta·z`` on the sum y; for a bfloat16 product (``dtype``)
+    in float32, rounded once at the end: the plain versions' counterpart of
+    the kernels' store."""
     if alpha != 1.0:
         y = alpha * y
     if z is not None:
-        y = y + beta * z
-    return y
+        y = y + beta * (z.float() if z.dtype == torch.bfloat16 else z)
+    return y.to(dtype) if dtype == torch.bfloat16 else y
+
+
+def dia_spmv_plain(data: torch.Tensor, offsets, x: torch.Tensor, alpha: float = 1.0,
+                   beta: float = 0.0, z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``alpha·(Σ_d data[d]·shift(x, off_d)) + beta·z`` in plain PyTorch."""
+    return epilogue(shifted_sum(data, offsets, x), alpha, beta, z,
+                    torch.promote_types(data.dtype, x.dtype))
 
 
 def dia_spmv(A: DIA, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
@@ -72,6 +93,7 @@ def dia_spmv(A: DIA, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
                 _kernels.ptr(y), _kernels.stream_ptr(x.device))
     _kernels.check_status("dia_spmv", status)
     dia_spmv.launches += 1
+    _kernels.check_nan("dia_spmv", y)
     return y
 
 
@@ -110,6 +132,7 @@ def dia_spmm(A: DIA, X: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
                 _kernels.ptr(Y), _kernels.stream_ptr(X.device))
     _kernels.check_status("dia_spmm", status)
     dia_spmm.launches += 1
+    _kernels.check_nan("dia_spmm", Y)
     return Y
 
 

@@ -7,8 +7,8 @@ shard p of a (P, ndiag, R) band,
     y[p, i] = alpha·Σ_d data[p, d, i]·x_ext[p, lo + i + off_d] + beta·z[p, i]
 
 where ``x_ext`` (P, R + lo + hi) carries each shard's halos, so every read
-is in range.  On a CUDA tensor it launches the kernel (float32 or float64;
-anything else raises); on a CPU tensor it runs ``dia_spmv_ext_plain``, the
+is in range.  On a CUDA tensor it launches the kernel (float32, float64
+or bfloat16, summed in float32 as K1 does; anything else raises); on a CPU tensor it runs ``dia_spmv_ext_plain``, the
 same function in plain PyTorch.  There is no fallback from one to the
 other.  Replaces ``lssp_tpu/ops/pallas_spmv.py: _dia_spmv_pallas``
 (``prepadded=True``, entry ``dia_spmv_pallas_ext``).
@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from lssp_tpu_torch import _kernels
+from lssp_tpu_torch.ops.dia_spmv import acc_dtype, epilogue
 
 
 def _halos(offsets):
@@ -41,15 +42,13 @@ def dia_spmv_ext_plain(data: torch.Tensor, offsets, x_ext: torch.Tensor,
     P, _, R = data.shape
     lo, _ = _halos(offsets)
     block = x_ext.ndim == 3
-    y = torch.zeros((P, R) + tuple(x_ext.shape[2:]),
-                    dtype=torch.promote_types(data.dtype, x_ext.dtype), device=x_ext.device)
+    dtype = torch.promote_types(data.dtype, x_ext.dtype)
+    acc_dt = acc_dtype(dtype)
+    data, x_ext = data.to(acc_dt), x_ext.to(acc_dt)
+    y = torch.zeros((P, R) + tuple(x_ext.shape[2:]), dtype=acc_dt, device=x_ext.device)
     for d, off in enumerate(offsets):
         y = y + (data[:, d, :, None] if block else data[:, d]) * x_ext[:, lo + off:lo + off + R]
-    if alpha != 1.0:
-        y = alpha * y
-    if z is not None:
-        y = y + beta * z
-    return y
+    return epilogue(y, alpha, beta, z, dtype)
 
 
 def dia_spmv_ext(data: torch.Tensor, offsets, x_ext: torch.Tensor, alpha: float = 1.0,
@@ -84,6 +83,7 @@ def dia_spmv_ext(data: torch.Tensor, offsets, x_ext: torch.Tensor, alpha: float 
                 float(alpha), float(beta), p(z), p(y), _kernels.stream_ptr(x_ext.device))
     _kernels.check_status("dia_spmv_ext", status)
     dia_spmv_ext.launches += 1
+    _kernels.check_nan("dia_spmv_ext", y)
     return y
 
 
@@ -136,6 +136,7 @@ def dia_spmm_ext(data: torch.Tensor, offsets, x_ext: torch.Tensor, alpha: float 
                 float(alpha), float(beta), p(z), p(y), _kernels.stream_ptr(x_ext.device))
     _kernels.check_status("dia_spmm_ext", status)
     dia_spmm_ext.launches += 1
+    _kernels.check_nan("dia_spmm_ext", y)
     return y
 
 

@@ -3,7 +3,8 @@
 
 ``hyb_spmv(H, x, alpha, beta, z)`` computes ``alpha·(H@x) + beta·z`` for a
 HYB matrix in one launch.  On a CUDA tensor it launches the kernel
-(float32 or float64; anything else raises); on a CPU tensor it runs
+(float32, float64 or bfloat16, summed in float32 as K1 does; anything else
+raises); on a CPU tensor it runs
 ``hyb_spmv_plain``, the same function in plain PyTorch.  There is no
 fallback from one to the other.  Replaces both HYB kernels of
 ``lssp_tpu/ops/pallas_spmv.py`` (``_dia_spmv_hyb_tc_pallas`` and
@@ -22,7 +23,7 @@ from typing import Optional
 import torch
 
 from lssp_tpu_torch import _kernels
-from lssp_tpu_torch.ops.dia_spmv import shifted_sum
+from lssp_tpu_torch.ops.dia_spmv import epilogue, shifted_sum
 from lssp_tpu_torch.sparse.types import HYB
 
 
@@ -32,13 +33,9 @@ def hyb_spmv_plain(H: HYB, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.
     band sum, then ``rem_vals·x[rem_cols]`` added into ``rem_rows``.  ``x``
     may be an (n, k) block (``hyb_spmm_plain``)."""
     y = shifted_sum(H.dia.data, H.dia.offsets, x)
-    vals = H.rem_vals[:, None] if x.ndim == 2 else H.rem_vals
-    y = y.index_add(0, H.rem_rows.long(), vals * x[H.rem_cols.long()])
-    if alpha != 1.0:
-        y = alpha * y
-    if z is not None:
-        y = y + beta * z
-    return y
+    vals = (H.rem_vals[:, None] if x.ndim == 2 else H.rem_vals).to(y.dtype)
+    y = y.index_add(0, H.rem_rows.long(), vals * x[H.rem_cols.long()].to(y.dtype))
+    return epilogue(y, alpha, beta, z, torch.promote_types(H.dia.data.dtype, x.dtype))
 
 
 def _check(H: HYB, x: torch.Tensor, z, block: bool = False) -> None:
@@ -85,6 +82,7 @@ def hyb_spmv(H: HYB, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
                 _kernels.stream_ptr(x.device))
     _kernels.check_status("hyb_spmv", status)
     hyb_spmv.launches += 1
+    _kernels.check_nan("hyb_spmv", y)
     return y
 
 
@@ -119,6 +117,7 @@ def hyb_spmm(H: HYB, X: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
                 _kernels.stream_ptr(X.device))
     _kernels.check_status("hyb_spmm", status)
     hyb_spmm.launches += 1
+    _kernels.check_nan("hyb_spmm", Y)
     return Y
 
 

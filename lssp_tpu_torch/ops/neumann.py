@@ -17,7 +17,11 @@ The plan keeps the TPU plan's band/stray split (``split_band``: the up to
 48 most-occupied diagonals holding ≥ 2% of n entries each), so the factors
 are laid out as in ``lssp_tpu``; strays go in as row-sorted CSR.  The TPU
 kernel is fp32 only; this one runs in the plan's dtype (float32 or
-float64), and ``fused_neumann_apply`` requires ``r`` in that dtype.
+float64), and ``fused_neumann_apply`` requires ``r`` in that dtype, with
+one exception: a bfloat16 ``r`` (the inner precision of ``solve_ir``) on a
+float32 plan is cast to float32 for the apply and z cast back to bfloat16,
+as JAX's ``fused_neumann_apply`` does (``pallas_neumann.py: _apply_impl``).
+K2 itself takes no bfloat16.
 
 On an (n, k) block (the layout ``ops/spmv.py`` states)
 ``fused_neumann_apply`` runs ``neumann_block_apply``: the same launch as
@@ -438,7 +442,7 @@ def launch_schedule(plan: FusedNeumann, r: torch.Tensor, *outputs):
     """(the Wavefront, the tile width kt, the two factors' halos) of one
     launch on ``r`` (n,) or (n, k), a CUDA tensor, writing ``outputs``."""
     k = 1 if r.ndim == 1 else r.shape[1]
-    suf = _kernels.kernel_dtype("fused_neumann_apply r", r)
+    suf = _kernels.kernel_dtype("fused_neumann_apply r", r, _kernels.NEUMANN_DTYPES)
     lib = _kernels.load()
     kt = _tile_width(k, r.element_size(), r, *outputs)
     nd = max(len(plan.L.offsets), len(plan.U.offsets))
@@ -483,13 +487,23 @@ def _apply(plan: FusedNeumann, r: torch.Tensor, k: int, counter) -> torch.Tensor
         _kernels.stream_ptr(r.device))
     _kernels.check_status(f"lssp_neumann_apply_{suf}", status)
     counter.launches += 1
+    _kernels.check_nan(f"lssp_neumann_apply_{suf}", out)
     return out
+
+
+def _bf16_on_fp32(plan: FusedNeumann, r: torch.Tensor) -> bool:
+    """Whether ``r`` is a bfloat16 operand of a float32 plan, which the
+    apply takes in float32 and hands back in bfloat16."""
+    return r.dtype == torch.bfloat16 and plan.dtype == torch.float32
 
 
 def fused_neumann_apply(plan: FusedNeumann, r: torch.Tensor) -> torch.Tensor:
     """z ≈ U⁻¹L⁻¹r.  CUDA tensors run K2, one launch an apply (an (n, k)
     block goes to ``neumann_block_apply``, K2k); CPU tensors take
-    ``neumann_apply_plain``.  ``r`` must have the plan's dtype."""
+    ``neumann_apply_plain``.  ``r`` must have the plan's dtype, or be
+    bfloat16 on a float32 plan (cast in and out around the apply)."""
+    if _bf16_on_fp32(plan, r):
+        return fused_neumann_apply(plan, r.float()).to(torch.bfloat16)
     if r.dtype != plan.dtype:
         raise TypeError(f"fused_neumann_apply: r is {r.dtype}, the plan {plan.dtype}")
     if r.device.type == "cpu":
@@ -506,7 +520,9 @@ fused_neumann_apply.launches = 0
 def neumann_block_apply(plan: FusedNeumann, R: torch.Tensor) -> torch.Tensor:
     """Z ≈ U⁻¹L⁻¹R for an (n, k) block.  CUDA tensors run K2k, one launch
     an apply over all k columns; CPU tensors take ``neumann_apply_plain``.
-    ``R`` must have the plan's dtype."""
+    ``R`` must have the plan's dtype, or be bfloat16 on a float32 plan."""
+    if _bf16_on_fp32(plan, R):
+        return neumann_block_apply(plan, R.float()).to(torch.bfloat16)
     if R.dtype != plan.dtype:
         raise TypeError(f"neumann_block_apply: R is {R.dtype}, the plan {plan.dtype}")
     if R.device.type == "cpu":

@@ -27,11 +27,19 @@ A 1-column block gives the vector path's values.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from lssp_tpu_torch.ops.dia_spmv import dia_spmm, dia_spmv
 from lssp_tpu_torch.ops.hyb_spmv import hyb_spmm, hyb_spmv
 from lssp_tpu_torch.sparse.types import BDIA, BSR, CSR, DIA, ELL, HYB
+
+
+def csr_row_ids(A: CSR) -> np.ndarray:
+    """The row index of every stored entry of a host CSR, int32 (JAX's
+    host-precomputed row expansion of its CSR segment sum)."""
+    ip = np.asarray(A.indptr)
+    return np.repeat(np.arange(A.shape[0], dtype=np.int32), ip[1:] - ip[:-1])
 
 
 def _spmv_csr(A: CSR, x):

@@ -255,6 +255,26 @@ def _sweep_compact(sched: CompactSchedule, b: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def trisolve_lower_unit(sched, b: torch.Tensor) -> torch.Tensor:
+    """Solve L x = b for a unit-diagonal lower L's schedule (reference
+    forward solve, solver-tri.cxx:4-24)."""
+    return _sweep(sched, b)
+
+
+def trisolve_upper(sched, b: torch.Tensor) -> torch.Tensor:
+    """Solve U x = b for an upper U's schedule holding its diagonal
+    (reference backward solve, solver-tri.cxx:26-46)."""
+    return _sweep(sched, b)
+
+
+def make_ilu_apply(L: CSR, U: CSR, device="cpu"):
+    """Schedules of L (strict lower, unit diagonal) and U (with its
+    diagonal) on ``device``, and the closure ``apply(r) -> U⁻¹L⁻¹r``."""
+    sl = level_schedule(L, lower=True, device=device)
+    su = level_schedule(U, lower=False, device=device)
+    return lambda r: ilu_apply(sl, su, r)
+
+
 def ilu_apply(sched_l, sched_u, r: torch.Tensor):
     """z = U⁻¹ (L⁻¹ r), exact (reference lssp_pc_ilu_solve)."""
     return _sweep(sched_u, _sweep(sched_l, r))

@@ -55,16 +55,18 @@ from lssp_tpu_torch.parallel.dist_ops import (
     OpWithTranspose, _dia_local_spmv, make_dist_spmv, make_dist_spmv_t, make_psum_dot,
 )
 from lssp_tpu_torch.parallel.partition import DistDIA, partition_matrix
+from lssp_tpu_torch.pc.base import cast_state, round_factor, rounding_to
 from lssp_tpu_torch.pc.ilu_host import iluk_factor, ilut_factor
 from lssp_tpu_torch.solvers.base import SolveInfo, norm
 from lssp_tpu_torch.solvers.facade import (
-    _memo, needs_transpose_pc, reject_block_method, validate_block, validate_system,
+    needs_transpose_pc, reject_block_method, validate_block, validate_system,
 )
 from lssp_tpu_torch.solvers.refine import _inner_plan, _pc_options_key, refine_multi
 from lssp_tpu_torch.solvers.registry import get_batched_solver, get_block_solver, get_solver
 from lssp_tpu_torch.sparse.convert import coo_to_csr
-from lssp_tpu_torch.sparse.types import COO, CSR, numpy_dtype, torch_dtype
+from lssp_tpu_torch.sparse.types import COO, CSR, round_to, torch_dtype
 from lssp_tpu_torch.sparse.utils import diagonal, split_ldu
+from lssp_tpu_torch.utils.memo import fingerprint, memo_get, memo_put
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -314,9 +316,10 @@ def _build_dist_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, R: int, device,
     for p in range(Pn):
         blk = _extract_diag_block(A, p * R, (p + 1) * R)
         if pc_type == "ilut":
-            factors.append(ilut_factor(blk, tol=pc_opts.ilut_tol, p=pc_opts.ilut_p))
+            LU = ilut_factor(blk, tol=pc_opts.ilut_tol, p=pc_opts.ilut_p)
         else:
-            factors.append(iluk_factor(blk, level=0 if pc_type == "ilu0" else pc_opts.iluk_level))
+            LU = iluk_factor(blk, level=0 if pc_type == "ilu0" else pc_opts.iluk_level)
+        factors.append(tuple(round_factor(T) for T in LU))
     sweeps = pc_opts.ilu_sweeps
     if sweeps is None:
         sweeps = default_ilu_sweeps(device)
@@ -510,19 +513,19 @@ def _grow_identity(A: CSR, extra: int) -> CSR:
                                   format="csr"))
 
 
-def _dist_sizing(A: CSR, Pn: int, pc, pc_opts: PCOptions):
+def _dist_sizing(A: CSR, Pn: int, pc, pc_opts: PCOptions, fp):
     """(sa_grid, npad): the saamg grid dims and the identity rows to pad
     (``lssp_tpu/parallel/dist_solve.py: _dist_sizing``).  saamg on a grid
     whose gy divides by the shard count needs no padding, a flat plan pads
     to its P·gᴸ multiple (``planned_padded_size``); other PCs pad to a
-    multiple of the shard count.  Memoized on the container (the grid
-    detection is an O(nnz) host scan)."""
+    multiple of the shard count.  Memoized on the container against its
+    fingerprint ``fp`` (the grid detection is an O(nnz) host scan)."""
     n = A.shape[0]
     if pc != "saamg":
         return False, (-n) % Pn
-    cache = _memo(A)
     key = ("dist-sizing", Pn, _pc_options_key(pc_opts))
-    if key not in cache:
+    out = memo_get(A, "_prepared_cache", key, fp)
+    if out is None:
         from lssp_tpu_torch.amg.aggregate import planned_padded_size
         from lssp_tpu_torch.amg.sa import detect_grid
         g0 = pc_opts.saamg_grid
@@ -531,28 +534,27 @@ def _dist_sizing(A: CSR, Pn: int, pc, pc_opts: PCOptions):
         elif g0 is False or g0[0] * g0[1] != n:
             g0 = None
         if g0 is not None and n % Pn == 0 and g0[0] % Pn == 0:
-            cache[key] = (tuple(int(v) for v in g0), 0)
+            out = (tuple(int(v) for v in g0), 0)
         else:
-            cache[key] = (False, planned_padded_size(
+            out = (False, planned_padded_size(
                 n, Pn, g=pc_opts.saamg_aggregate, coarse_size=pc_opts.amg_coarse_size,
                 max_levels=pc_opts.amg_max_levels) - n)
-    return cache[key]
+        memo_put(A, "_prepared_cache", key, fp, out)
+    return out
 
 
-def _prepare_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, sizing):
+def _prepare_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, sizing, fp):
     """The rhs-independent half of a distributed solve (identity padding,
     per-shard preconditioner, partition in one or, for ``ir``, two
-    precisions, upload), memoized on the container against its content
-    fingerprint, LRU-bounded to 8 entries: each pins device copies of the
-    partitioned matrix and the preconditioner state."""
-    entries = _memo(A).setdefault("dist", {})
+    precisions, upload), memoized on the container in ``A._dist_cache``
+    against its content fingerprint ``fp`` (``utils.memo``), LRU-bounded
+    to 8 entries: each pins device copies of the partitioned matrix and
+    the preconditioner state."""
     key = (mesh, fmt, pc, _pc_options_key(pc_opts), ir, str(dtype), str(inner_dtype), sizing)
-    if key in entries:
-        entries[key] = entries.pop(key)         # LRU touch
-        return entries[key]
-    while len(entries) >= 8:
-        entries.pop(next(iter(entries)))
-    entries[key] = out = _build_dist(A, mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, *sizing)
+    out = memo_get(A, "_dist_cache", key, fp)
+    if out is None:
+        out = _build_dist(A, mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, *sizing)
+        memo_put(A, "_dist_cache", key, fp, out, bound=8)
     return out
 
 
@@ -561,17 +563,23 @@ def _build_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, sa
     Pn, device = mesh.size, mesh.device
     n = A.shape[0]
     R = n // Pn
-    # ir: the preconditioner and the inner operator live in the inner dtype
-    work = A.astype(numpy_dtype(inner_dtype if ir else dtype))
-    kind, pc_state = _build_dist_pc(work, pc, pc_opts, Pn, R, device, sa_grid)
+    # ir: the preconditioner and the inner operator live in the inner dtype;
+    # a bfloat16 one is built in float32 from A rounded to bf16, its factors
+    # rounded to bf16 (pc.base.rounding_to) and its state cast on the device
+    wdtype = inner_dtype if ir else dtype
+    work = round_to(A, wdtype)
+    with rounding_to(wdtype):
+        kind, pc_state = _build_dist_pc(work, pc, pc_opts, Pn, R, device, sa_grid)
     if kind == "saamg" and pc_state.n_top != n:
         # grid coarsening stalled and the hierarchy took the flat plan, which
         # pads itself: grow the system to the hierarchy's size
         A = _grow_identity(A, pc_state.n_top - n)
         n = A.shape[0]
         R = n // Pn
-        work = A.astype(numpy_dtype(inner_dtype if ir else dtype))
-    M = partition_matrix(work, Pn, fmt=fmt).to(device)
+        work = round_to(A, wdtype)
+    if wdtype == torch.bfloat16:
+        pc_state = cast_state(pc_state, wdtype)
+    M = partition_matrix(work, Pn, fmt=fmt).to(device, dtype=wdtype)
     M64 = partition_matrix(A.astype(np.float64), Pn, fmt=fmt).to(device) if ir else None
     return dict(n=n, R=R, M=M, M64=M64, kind=kind, pc_state=pc_state)
 
@@ -619,8 +627,9 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
         if x0.shape != b.shape:
             raise ValueError(f"x0 must match the rhs shape {tuple(b.shape)}, "
                              f"got {tuple(x0.shape)}")
+    fp = fingerprint(A)         # one content scan for both memo lookups
     prep = _prepare_dist(A, mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype,
-                         _dist_sizing(A, Pn, pc, pc_opts))
+                         _dist_sizing(A, Pn, pc, pc_opts, fp), fp)
     n, R = prep["n"], prep["R"]
     if n > n_orig:
         pad = (n - n_orig,) + tuple(b.shape[1:])

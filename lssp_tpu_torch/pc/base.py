@@ -8,6 +8,8 @@ device (reference lssp_pc_assemble, pc.cxx:81-239).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import Any, Callable
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch.config import Defaults, PCOptions, resolve_device
+from lssp_tpu_torch.sparse.types import round_to
 from lssp_tpu_torch.sparse.utils import diagonal
 
 
@@ -48,16 +51,70 @@ def register_pc(name):
     return deco
 
 
-def setup(A, pc_type: str = "none", opts: PCOptions = None, device=None) -> Preconditioner:
+_VALUE_DTYPE: contextvars.ContextVar = contextvars.ContextVar("pc_value_dtype", default=None)
+
+
+def value_dtype():
+    """The torch dtype the preconditioner being set up rounds its values
+    to, where that differs from its host matrix's (bfloat16), else None."""
+    return _VALUE_DTYPE.get()
+
+
+def round_factor(T):
+    """A host factor rounded to ``value_dtype()`` (unchanged when None):
+    the factors of a bfloat16 PC are computed in float64 and rounded once,
+    as JAX's bf16 factors are (``lssp_tpu/pc/ilu_host.py: ilu0_numeric``)."""
+    dt = value_dtype()
+    return T if dt is None else round_to(T, dt)
+
+
+def setup(A, pc_type: str = "none", opts: PCOptions = None, device=None,
+          dtype=None) -> Preconditioner:
     """Assemble a preconditioner for the host CSR matrix ``A`` with its
     state on ``device`` (``config.resolve_device``: the current CUDA device
-    unless one is named)."""
+    unless one is named).  ``dtype`` (torch) builds it in that precision
+    from A's values rounded to it (None: A's own dtype).  numpy has no
+    bfloat16, so a bfloat16 PC is built on the host in float32 from A
+    rounded to bf16 (``round_to``), its factors rounded to bf16 once
+    (``round_factor``), and its state cast to bf16 on the device, except
+    K2's Neumann plan, which stays float32 (K2 takes no bf16: the apply
+    casts r in and z out, as JAX's fp32-only kernel does)."""
     opts = (opts or PCOptions()).resolved()
     key = (pc_type or "none").lower()
     if key not in PC_REGISTRY:
         raise ValueError(f"unknown preconditioner {pc_type!r}; "
                          f"available: {sorted(PC_REGISTRY)}")
-    return PC_REGISTRY[key](A, opts, resolve_device(device))
+    device = resolve_device(device)
+    if dtype is None:
+        return PC_REGISTRY[key](A, opts, device)
+    A = round_to(A, dtype)
+    if dtype != torch.bfloat16:
+        return PC_REGISTRY[key](A, opts, device)
+    with rounding_to(dtype):
+        M = PC_REGISTRY[key](A, opts, device)
+    return dataclasses.replace(M, state=cast_state(M.state, dtype))
+
+
+@contextlib.contextmanager
+def rounding_to(dtype):
+    """Within the block, ``round_factor`` rounds to ``dtype`` when it is
+    bfloat16 (no rounding otherwise): the setup of a bf16 PC."""
+    token = _VALUE_DTYPE.set(dtype if dtype == torch.bfloat16 else None)
+    try:
+        yield
+    finally:
+        _VALUE_DTYPE.reset(token)
+
+
+def cast_state(state, dtype):
+    """A PC state with its floating tensors cast to ``dtype``; K2's
+    ``FusedNeumann`` plans are kept as they are (float32)."""
+    from lssp_tpu_torch.ops.neumann import FusedNeumann
+    from lssp_tpu_torch.utils.tree import map_tensors
+
+    def cast(t):
+        return t.to(dtype) if t.is_floating_point() else t
+    return map_tensors(cast, state, skip=(FusedNeumann,))
 
 
 def _identity_apply(state, r):

@@ -15,7 +15,7 @@ from lssp_tpu_torch.ops.trisolve import (
     default_ilu_sweeps, ilu_apply, ilu_apply_t, ilu_transpose_schedules,
     level_schedule, neumann_exact_depth,
 )
-from lssp_tpu_torch.pc.base import Preconditioner, register_pc
+from lssp_tpu_torch.pc.base import Preconditioner, register_pc, round_factor
 from lssp_tpu_torch.pc.ilu_host import iluk_factor, ilut_factor, ilutp_factor
 from lssp_tpu_torch.sparse.utils import split_ldu
 
@@ -49,7 +49,10 @@ def make_ilu_pc(L, U, name, sweeps=None, transpose=False, device="cpu"):
     more on the device, so it is built only when asked).
     sweeps=-1: exact through the complete Neumann series (the strict factors
     are nilpotent, so their dependency depth in sweeps is exact).
-    sweeps=None: 6 on CUDA, exact on the CPU."""
+    sweeps=None: 6 on CUDA, exact on the CPU.
+    A bfloat16 setup (``pc.base.value_dtype``) rounds L and U to bf16 here,
+    before the plan or the schedules are formed from them."""
+    L, U = round_factor(L), round_factor(U)
     if sweeps is None:
         sweeps = default_ilu_sweeps(device)
     if sweeps == -1:
@@ -119,7 +122,7 @@ def setup_ilutp(A, opts, device):
     the permutation undone by a gather."""
     L, U, perm = ilutp_factor(A, tol=opts.ilut_tol, p=opts.ilut_p, permtol=opts.ilutp_permtol)
     dtype = np.asarray(A.data).dtype
-    inner = make_ilu_pc(L.astype(dtype), U.astype(dtype), "ilutp-inner", opts.ilu_sweeps,
+    inner = make_ilu_pc(CSRcast(L, dtype), CSRcast(U, dtype), "ilutp-inner", opts.ilu_sweeps,
                         transpose=opts.transpose, device=device)
     state = (inner.state, torch.from_numpy(np.argsort(perm)).to(device),
              torch.from_numpy(np.asarray(perm, np.int64)).to(device))
@@ -127,3 +130,11 @@ def setup_ilutp(A, opts, device):
                           name=f"ilutp[{inner.name}]",
                           apply_t_fn=(functools.partial(_ilutp_apply_t, inner.apply_t_fn)
                                       if inner.apply_t_fn is not None else None))
+
+
+def CSRcast(T, dtype):
+    """``T`` with its values in the numpy ``dtype`` (``T`` itself when they
+    already are), JAX's helper of the same name."""
+    if np.asarray(T.data).dtype == dtype:
+        return T
+    return T.astype(dtype)

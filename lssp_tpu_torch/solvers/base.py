@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch.ops.spmv import spmv, spmv_t
+from lssp_tpu_torch.utils.log import log
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,12 +48,18 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     numpy's pairwise order, one contiguous row per column, so the result
     is bitwise the same for any ``torch.get_num_threads()``: the CPU BLAS
     behind ``torch.dot`` splits the sum by thread count, and counts of
-    the product-type methods move with that order."""
+    the product-type methods move with that order.  bfloat16 (a bf16 inner
+    solve): on CUDA cuBLAS sums in float32; on the CPU the bf16 products
+    are summed in float32 in the same pairwise order; either rounds the
+    sum once to bf16."""
     if a.device.type != "cpu":
         if a.dim() == 1:
             return torch.dot(a, b)
         return torch.stack([torch.dot(a[:, c], b[:, c]) for c in range(a.shape[1])])
-    rows = np.ascontiguousarray(np.moveaxis((a * b).numpy(), 0, -1))
+    prod = a * b
+    if prod.dtype == torch.bfloat16:
+        return dot(prod.float(), prod.new_ones((), dtype=torch.float32)).to(torch.bfloat16)
+    rows = np.ascontiguousarray(np.moveaxis(prod.numpy(), 0, -1))
     return torch.from_numpy(np.asarray(np.add.reduce(rows, axis=-1)))
 
 
@@ -66,6 +73,22 @@ def _dot_rows(V: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 dot.rows = _dot_rows
+
+
+# JAX's name for the one inner product (``lssp_tpu/solvers/base.vdot``, a
+# multiply and a sum there because an fp64 dot_general is lossy on a TPU)
+vdot = dot
+
+
+def basis_combine(ym, V: torch.Tensor) -> torch.Tensor:
+    """The correction Σ_i ym[i]·V[i] of a basis V (m, n) (JAX's
+    ``basis_combine``): one row at a time, as the GMRES family forms its
+    update; ``ym`` a tensor or a numpy vector of m coefficients."""
+    ym = torch.as_tensor(ym).to(device=V.device, dtype=V.dtype)
+    out = torch.zeros_like(V[0])
+    for i in range(ym.shape[0]):
+        out = out + ym[i] * V[i]
+    return out
 
 
 def dot_many(dot_fn, pairs):
@@ -214,12 +237,13 @@ def history_update(opts, hist, it: int, res: float, r0norm=None, bnorm=None) -> 
     """Record the trace and, at verbosity >= 1, print the reference's
     per-iteration line (reference solver-cg.cxx:108-112)."""
     if opts.verbosity >= 1:
+        # level 0: SolverOptions.verbosity already asked for the trace
         if r0norm is not None and bnorm is not None:
             tiny = np.finfo(np.float64).tiny
-            print(f"itr: {it:5d}, abs res: {res:.6e}, rel res: "
-                  f"{res / max(r0norm, tiny):.6e}, rbn: {res / max(bnorm, tiny):.6e}")
+            log(f"itr: {it:5d}, abs res: {res:.6e}, rel res: "
+                f"{res / max(r0norm, tiny):.6e}, rbn: {res / max(bnorm, tiny):.6e}", level=0)
         else:
-            print(f"itr: {it:5d}, abs res: {res:.6e}")
+            log(f"itr: {it:5d}, abs res: {res:.6e}", level=0)
     if hist is not None and it < len(hist):
         hist[it] = res
 
@@ -247,13 +271,44 @@ def history_update_block(opts, hist, it, res, r0norm=None, bnorm=None, cols=None
             return np.array2string(a, formatter={"float_kind": lambda v: f"{v:.6e}"})
         if r0norm is not None and bnorm is not None:
             tiny = np.finfo(np.float64).tiny
-            print(f"itr: {np.max(it):5d}, abs res: {fmt(res)}, rel res: "
-                  f"{fmt(res / np.maximum(r0norm, tiny))}, rbn: "
-                  f"{fmt(res / np.maximum(bnorm, tiny))}")
+            log(f"itr: {np.max(it):5d}, abs res: {fmt(res)}, rel res: "
+                f"{fmt(res / np.maximum(r0norm, tiny))}, rbn: "
+                f"{fmt(res / np.maximum(bnorm, tiny))}", level=0)
         else:
-            print(f"itr: {np.max(it):5d}, abs res: {fmt(res)}")
+            log(f"itr: {np.max(it):5d}, abs res: {fmt(res)}", level=0)
     if hist is None:
         return
     cols = np.ones(len(res), bool) if cols is None else np.asarray(cols)
     its = np.minimum(np.broadcast_to(it, res.shape), hist.shape[1] - 1)
     hist[cols, its[cols]] = res[cols]
+
+
+def history_print_host(info: SolveInfo) -> None:
+    """The recorded residual trace of a finished solve in the reference's
+    line format, through ``utils.log`` (JAX prints it after the solve on
+    backends without device prints; the port's solvers print each line as
+    they go, so this serves a trace recorded with ``record_history``)."""
+    if info.history is None:
+        return
+    h = np.asarray(info.history, dtype=np.float64)
+    if h.ndim != 1 or h.size < 2:
+        return
+    tiny = float(np.finfo(h.dtype).tiny)
+    r0 = max(float(info.r0norm), tiny)
+    bn = max(float(info.bnorm), tiny)
+    for it in range(1, min(int(info.nits), h.size - 1) + 1):
+        res = float(h[it])
+        if np.isnan(res):
+            continue
+        log(f"itr: {it:5d}, abs res: {res:.6e}, rel res: {res / r0:.6e}, "
+            f"rbn: {res / bn:.6e}", level=0)
+
+
+def history_print_host_multi(info: SolveInfo, k: int) -> None:
+    """``history_print_host`` for a multi-rhs SolveInfo: an ``rhs c:``
+    header and the column's trace, for each of the k columns."""
+    for c in range(k):
+        log(f"rhs {c}:", level=0)
+        history_print_host(SolveInfo(
+            *(np.asarray(getattr(info, f.name))[c] if getattr(info, f.name) is not None
+              else None for f in dataclasses.fields(info))))

@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import dataclasses
 import re
-import zlib
 from typing import Optional
 
 import numpy as np
@@ -27,8 +26,11 @@ from lssp_tpu_torch.sparse.convert import (
     to_device_format,
 )
 from lssp_tpu_torch.sparse.reorder import maybe_rcm, permute_symmetric
-from lssp_tpu_torch.sparse.types import BDIA, BSR, COO, CSR, DIA, ELL, HYB, numpy_dtype
+from lssp_tpu_torch.sparse.types import BDIA, BSR, COO, CSR, DIA, ELL, HYB
 from lssp_tpu_torch.sparse.utils import sort_columns
+from lssp_tpu_torch.utils.log import Timer, set_log
+from lssp_tpu_torch.utils.memo import fingerprint, memo_get, memo_put
+from lssp_tpu_torch.utils.profile import add_bytes, tree_device_bytes
 
 
 # the methods that apply M⁻ᵀ (and Aᵀ): every entry point builds their
@@ -109,40 +111,6 @@ def reject_block_method(method: str, entry: str) -> None:
                          "for (n, k) right-hand sides")
 
 
-def _fingerprint(A):
-    """crc32 over a host container's value and structure buffers, so any
-    in-place mutation invalidates what was prepared from it.  None for
-    containers without host buffers (never matches)."""
-    try:
-        parts = []
-        for name in ("data", "blocks", "indices", "indptr", "row", "col"):
-            buf = getattr(A, name, None)
-            if buf is not None:
-                a = np.ascontiguousarray(np.asarray(buf))
-                parts.append((a.shape, a.dtype.str, zlib.crc32(a)))
-        return tuple(parts)
-    except (TypeError, ValueError):
-        return None
-
-
-def _memo(A):
-    """The per-container cache dict ``A._prepared_cache``, validated against
-    A's current fingerprint (cleared when the content changed).  A fresh
-    throwaway dict for containers that take no attributes."""
-    fp = _fingerprint(A)
-    cache = getattr(A, "_prepared_cache", None)
-    if cache is None:
-        cache = {}
-        try:
-            object.__setattr__(A, "_prepared_cache", cache)
-        except (AttributeError, TypeError):
-            return {}
-    if fp is None or cache.get("fp") != fp:
-        cache.clear()
-        cache["fp"] = fp
-    return cache
-
-
 def saamg_keeps_ordering(pc, pc_options) -> bool:
     """Whether explicit saamg grid dims (``saamg_grid`` = (gy, gx)) pin the
     user's row ordering: reordering would scramble the boxes.
@@ -210,9 +178,11 @@ def _bsr_device_format(A: BSR, csr: CSR, device):
 
 def _prepare_matrix(A, reorder="auto", device="cpu"):
     """Host CSR (or COO) → (reordered) execution format on ``device``,
-    memoized on the container per (reorder, device).  Returns (host CSR or
-    None, device format, perm or None, the container's memo dict, validated
-    once per call).  ``perm`` is an int64 tensor on ``device``: the system
+    memoized on the container per (reorder, device) in
+    ``A._prepared_cache`` (``utils.memo``: each entry checked against the
+    container's content fingerprint).  Returns (host CSR or None, device
+    format, perm or None, the fingerprint taken once for this call, None
+    for a container without host buffers).  ``perm`` is an int64 tensor on ``device``: the system
     solved is P·A·Pᵀ with (P·v)[i] = v[perm[i]], and the host CSR is the
     permuted one.  Execution containers move to ``device``; callables pass
     through.
@@ -230,19 +200,22 @@ def _prepare_matrix(A, reorder="auto", device="cpu"):
     reorder = reorder or "auto"         # one memo entry for the two spellings
     device = torch.device(device)
     if isinstance(A, _EXEC_FORMATS):
-        return None, A.to(device), None, {}
+        return None, A.to(device), None, None
+    if not isinstance(A, (CSR, COO, BSR)):
+        return None, A, None, None
+    fp = fingerprint(A)
     if isinstance(A, BSR):
-        cache = _memo(A)
         key = ("prepared", "bsr", str(device))
-        if key not in cache:
+        out = memo_get(A, "_prepared_cache", key, fp)
+        if out is None:
             csr = bsr_to_csr(A)
-            cache[key] = (csr, _bsr_device_format(A, csr, device), None)
-        return cache[key] + (cache,)
-    if not isinstance(A, (CSR, COO)):
-        return None, A, None, {}
-    cache = _memo(A)
+            out = (csr, _bsr_device_format(A, csr, device), None)
+            add_bytes("upload", tree_device_bytes(out[1]))
+            memo_put(A, "_prepared_cache", key, fp, out)
+        return out + (fp,)
     key = ("prepared", reorder, str(device))
-    if key not in cache:
+    out = memo_get(A, "_prepared_cache", key, fp)
+    if out is None:
         host = sort_columns(coo_to_csr(A) if isinstance(A, COO) else A)
         perm = None
         permuted, p = None, None
@@ -253,8 +226,10 @@ def _prepare_matrix(A, reorder="auto", device="cpu"):
             permuted, p = _maybe_hierarchy(host, reorder)
         if p is not None:
             host, perm = permuted, torch.from_numpy(p).to(device)
-        cache[key] = (host, to_device_format(host, device=device), perm)
-    return cache[key] + (cache,)
+        out = (host, to_device_format(host, device=device), perm)
+        add_bytes("upload", tree_device_bytes(out[1]))
+        memo_put(A, "_prepared_cache", key, fp, out)
+    return out + (fp,)
 
 
 def _permute(v, perm):
@@ -284,9 +259,7 @@ def _setup_pc(A_host, pc, pc_options, dtype, device):
     if A_host is None:
         raise ValueError("preconditioner setup needs a host CSR matrix; "
                          "pass M= explicitly for operator inputs")
-    if A_host.dtype != numpy_dtype(dtype):
-        A_host = A_host.astype(numpy_dtype(dtype))
-    return pc_mod.setup(A_host, pc, pc_options, device=device)
+    return pc_mod.setup(A_host, pc, pc_options, device=device, dtype=dtype)
 
 
 def _as_system(A_dev, b, x0, dtype, device):
@@ -416,23 +389,48 @@ class Solver:
     def set_bgsl(self, v):    return self._set(bgsl=v)
     def set_idrs(self, v):    return self._set(idrs=v)
 
+    def set_log(self, f):
+        """Tee this solver's output to the file object ``f`` (reference
+        lssp_solver_set_log, lssp.cxx:530-535; the log is process-global
+        underneath, as in the reference and JAX: ``utils.log.set_log``)."""
+        set_log(f)
+        return self
+
+    def reset_type(self, method: str):
+        """Switch the Krylov method, keeping the assembled matrix (reference
+        lssp_solver_reset_type, lssp.cxx:426-433).  Switching to a transpose
+        method rebuilds the PC with its M⁻ᵀ apply, unless it was built with
+        ``PCOptions(transpose=True)``."""
+        self.method = method
+        if (self.assembled and self.M is not None and self.pc_type not in (None, "none")
+                and needs_transpose_pc(method)
+                and not (self.pc_options and self.pc_options.transpose)):
+            self.M = _setup_pc(self.A_host, self.pc_type,
+                               transpose_options(method, self.pc_options), self.dtype,
+                               self.device)
+        return self
+
     def assemble(self, A, b=None, x0=None, reorder: str = "auto"):
         """Reorder (``reorder="rcm"``) and convert the matrix and build the PC
-        (reference lssp_solver_assemble → lssp_pc_assemble).  ``b`` and
-        ``x0`` stay in the user's order; each solve permutes them in."""
+        (reference lssp_solver_assemble → lssp_pc_assemble), logging the two
+        phase times as the reference does (matrix at verbosity 2, PC at 1).
+        ``b`` and ``x0`` stay in the user's order; each solve permutes them
+        in."""
         self.device = resolve_device(self.device_request, b)
         b = validate_system(A, b, self.method)
         self.pc_type = direct_pc(self.method, self.pc_type)
         reorder = resolve_reorder(self.pc_type, self.pc_options, reorder)
-        self.A_host, self.A_dev, self.perm, _ = _prepare_matrix(A, reorder=reorder,
-                                                                device=self.device)
+        with Timer("solver: assemble (matrix conversion)", level=2):
+            self.A_host, self.A_dev, self.perm, _ = _prepare_matrix(A, reorder=reorder,
+                                                                    device=self.device)
         # the system dtype is fixed here: the matrix's, promoted with b's
         self.dtype = (_system_dtype(self.A_dev, b) if b is not None
                       else getattr(self.A_dev, "dtype", torch.float64))
         if self.pc_type not in (None, "none"):
-            self.M = _setup_pc(self.A_host, self.pc_type,
-                               transpose_options(self.method, self.pc_options),
-                               self.dtype, self.device)
+            with Timer(f"pc: assemble ({self.pc_type})", level=1):
+                self.M = _setup_pc(self.A_host, self.pc_type,
+                                   transpose_options(self.method, self.pc_options),
+                                   self.dtype, self.device)
         if b is not None:
             self.b = b
         if x0 is not None:

@@ -25,7 +25,7 @@ from lssp_tpu_torch.solvers.base import (
 )
 from lssp_tpu_torch.solvers.lanes import combine
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
-from lssp_tpu_torch.sparse.types import numpy_dtype
+from lssp_tpu_torch.sparse.types import host_dtype
 
 
 def _orthogonalize(dot, V, w, i, cgs2):
@@ -55,7 +55,7 @@ def _arnoldi_cycle(op, pc, v0, beta_p, m, maxit, itr, gstol, right, breakdown,
                    dot=base_dot, cgs2=False):
     """One restart cycle.  Returns (V, H, gg, kk, itr, gs_norm); ``kk`` is
     the number of usable columns (a broken-down column is dropped)."""
-    dt = numpy_dtype(v0.dtype).type
+    dt = host_dtype(v0.dtype).type
     V = v0.new_zeros((m, v0.shape[0]))
     V[0] = v0
     H = np.zeros((m + 1, m), dt)
@@ -70,7 +70,7 @@ def _arnoldi_cycle(op, pc, v0, beta_p, m, maxit, itr, gstol, right, breakdown,
         w = op(pc(V[i])) if right else pc(op(V[i]))
         w, h, hnorm = _orthogonalize(dot, V, w, i, cgs2)
         hcol = np.zeros(m + 1, dt)
-        hcol[:i + 2] = torch.cat([h, hnorm[None]]).cpu().numpy()
+        hcol[:i + 2] = torch.cat([h, hnorm[None]]).cpu().to(torch.float64).numpy()
         brk = abs(hcol[i + 1]) <= breakdown
         if not brk and i + 1 < m:
             V[i + 1] = w / hnorm
@@ -109,7 +109,7 @@ def _solve_ym(H, gg, kk, m):
 def _gmres(A, b, x0, M, opts, right, dot=base_dot, cgs2=False):
     m, maxit = opts.restart, opts.maxit
     op, pc, x, rg = init_state(A, b, x0, M)
-    dt = numpy_dtype(b.dtype).type
+    dt = host_dtype(b.dtype).type
     tiny = np.finfo(dt).tiny
     bnorm = norm(b, dot).item()
     beta0 = norm(rg, dot).item()
@@ -132,7 +132,7 @@ def _gmres(A, b, x0, M, opts, right, dot=base_dot, cgs2=False):
             op, pc, v0, bp, m, maxit, itr, tol if right else gstol, right,
             opts.breakdown, dot, cgs2)
         ym = _solve_ym(H, gg, kk, m)
-        vy = torch.from_numpy(ym[:kk]).to(V.device) @ V[:kk]
+        vy = torch.from_numpy(ym[:kk]).to(V.device, V.dtype) @ V[:kk]
         if right:
             x = x + pc(vy)
             beta = gs_norm                  # the Givens estimate is the residual
@@ -202,7 +202,7 @@ def _arnoldi_cycle_batched(op, pc, V0, beta_p, m, maxit, itr, gstol, right, brea
     recurrence on the host per column, and a column leaves the inner loop
     on its own breakdown or tolerance while the others go on.  Returns
     (V (m, n, k), H (k, m+1, m), gg (k, m+1), kk (k,), itr, gs_norm)."""
-    dt = numpy_dtype(V0.dtype).type
+    dt = host_dtype(V0.dtype).type
     n, k = V0.shape
     V = V0.new_zeros((m, n, k))
     V[0] = V0
@@ -222,7 +222,7 @@ def _arnoldi_cycle_batched(op, pc, V0, beta_p, m, maxit, itr, gstol, right, brea
         itr += inner
         w = op(pc(V[i])) if right else pc(op(V[i]))
         w, h, hnorm = _orthogonalize(dot, V, w, i, cgs2)        # per column
-        hcols = torch.cat([h, hnorm[None]]).cpu().numpy()       # (i+2, k)
+        hcols = torch.cat([h, hnorm[None]]).cpu().to(torch.float64).numpy()   # (i+2, k)
         if i + 1 < m:                       # a column that broke down never reads it
             V[i + 1] = w / nonzero(hnorm)
         for col in np.flatnonzero(inner):
@@ -247,7 +247,7 @@ def _gmres_batched(A, B, X0, M, opts, right, dot, cgs2=False):
     inner loop, and a finished column keeps its X."""
     m, maxit = opts.restart, opts.maxit
     op, pc, X, RG = init_state(A, B, X0, M)
-    dt = numpy_dtype(B.dtype).type
+    dt = host_dtype(B.dtype).type
     tiny = np.finfo(dt).tiny
     k = B.shape[1]
     bnorm, beta0 = to_host(norm(B, dot), norm(RG, dot))
@@ -268,7 +268,7 @@ def _gmres_batched(A, B, X0, M, opts, right, dot, cgs2=False):
             Z0 = pc(RG)
             bp_t = norm(Z0, dot)
             V0 = Z0 / nonzero(bp_t)
-        bp = bp_t.cpu().numpy().astype(dt)
+        bp = bp_t.cpu().to(torch.float64).numpy().astype(dt)
         if not right:                       # a column's first cycle seeds its gstol
             seed = live & (itr == 0)
             gstol[seed] = rtol[seed] * bp[seed] * dt(0.5)
@@ -277,7 +277,7 @@ def _gmres_batched(A, B, X0, M, opts, right, dot, cgs2=False):
             opts.breakdown, live, dot, cgs2)
         ym = np.stack([_solve_ym(H[c], gg[c], kk[c], m) if live[c] else np.zeros(m, dt)
                        for c in range(k)])
-        ym_t = torch.from_numpy(ym).to(V.device)
+        ym_t = torch.from_numpy(ym).to(V.device, V.dtype)
         vy = torch.zeros_like(X)
         for j in range(int(kk.max())):
             vy = vy + ym_t[:, j] * V[j]
@@ -289,7 +289,7 @@ def _gmres_batched(A, B, X0, M, opts, right, dot, cgs2=False):
         else:
             X = torch.where(live_t, X + vy, X)
             RG = B - op(X)
-            res = norm(RG, dot).cpu().numpy().astype(dt)    # true residual each restart
+            res = norm(RG, dot).cpu().to(torch.float64).numpy().astype(dt)    # true residual each restart
             beta = np.where(live, res, beta)
             safe = np.maximum(beta / np.maximum(beta0.astype(dt), tiny), tiny)
             gstol = np.where(live, rtol * gs_norm / safe * dt(0.5), gstol)

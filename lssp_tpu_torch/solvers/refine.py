@@ -14,7 +14,6 @@ round for the whole block, a block method by default.
 from __future__ import annotations
 
 import dataclasses
-import zlib
 from typing import Optional
 
 import numpy as np
@@ -29,7 +28,9 @@ from lssp_tpu_torch.solvers.facade import (
     resolve_reorder, transpose_options, validate_block, validate_system,
 )
 from lssp_tpu_torch.solvers.registry import get_batched_solver, get_block_solver, get_solver
-from lssp_tpu_torch.sparse.types import numpy_dtype
+from lssp_tpu_torch.utils import profile as _prof
+from lssp_tpu_torch.utils.log import log
+from lssp_tpu_torch.utils.memo import checksum, memo_get, memo_put
 
 
 def _pc_options_key(pc_options):
@@ -43,7 +44,7 @@ def _pc_options_key(pc_options):
         if (hasattr(v, "__array__") or isinstance(v, (list, tuple))) \
                 and not isinstance(v, str):
             a = np.asarray(v)
-            parts.append((f.name, a.shape, str(a.dtype), zlib.crc32(np.ascontiguousarray(a))))
+            parts.append((f.name, a.shape, str(a.dtype), checksum(a)))
         else:
             parts.append((f.name, repr(v)))
     return tuple(parts)
@@ -65,22 +66,27 @@ def prepare_ir(A, method: str = "gmres", pc: Optional[str] = "none",
     device = resolve_device(device)
     pc = direct_pc(method, pc)          # IR around a direct solve: an fp32 LU inner
     reorder = resolve_reorder(pc, pc_options, reorder)
-    A_host, A_dev, perm, cache = _prepare_matrix(A, reorder=reorder, device=device)
+    with _prof.phase("reorder_convert"):
+        A_host, A_dev, perm, fp = _prepare_matrix(A, reorder=reorder, device=device)
     if A_host is None:
         raise ValueError("solve_ir needs a host CSR or COO matrix")
     mat_key = ("ir-mat", reorder or "auto", str(inner_dtype), str(device))
-    if mat_key not in cache:
-        cache[mat_key] = (A_dev.to(dtype=torch.float64), A_dev.to(dtype=inner_dtype))
-    A64, A32 = cache[mat_key]
+    mats = memo_get(A, "_prepared_cache", mat_key, fp)
+    if mats is None:
+        with _prof.phase("upload"):
+            mats = (A_dev.to(dtype=torch.float64), A_dev.to(dtype=inner_dtype))
+        memo_put(A, "_prepared_cache", mat_key, fp, mats)
+    A64, A32 = mats
     transpose = needs_transpose_pc(method)
     pc_key = ("ir-pc", mat_key, pc, transpose, _pc_options_key(pc_options))
-    if pc_key not in cache:
-        M32 = None
-        if pc not in (None, "none"):
-            M32 = pc_mod.setup(A_host.astype(numpy_dtype(inner_dtype)), pc,
-                               transpose_options(method, pc_options), device=device)
-        cache[pc_key] = M32
-    return A_host, A64, A32, perm, cache[pc_key]
+    M32 = memo_get(A, "_prepared_cache", pc_key, fp)
+    if M32 is None and pc not in (None, "none"):
+        with _prof.phase("pc_build"):
+            M32 = pc_mod.setup(A_host, pc, transpose_options(method, pc_options),
+                               device=device, dtype=inner_dtype)
+            _prof.add_bytes("pc_build", _prof.tree_device_bytes(M32.state))
+        memo_put(A, "_prepared_cache", pc_key, fp, M32)
+    return A_host, A64, A32, perm, M32
 
 
 NORMAL_EQUATION_METHODS = ("cgnr", "cgn", "lsqr")
@@ -147,9 +153,10 @@ def refine_multi(op64, inner, B, X, opts, max_outer, inner_dtype, norms):
         (res,) = to_host(norms(R))
         total += np.asarray(info.nits)
         outer += 1
-        if opts.verbosity >= 1:
-            print(f"ir outer: {outer:3d}, inner its: {np.asarray(info.nits)}, true res: "
-                  f"{res}, rel res: {res / np.maximum(r0, np.finfo(np.float64).tiny)}")
+    if opts.verbosity >= 1:
+        for j in range(B.shape[1]):
+            log(f"ir rhs {j}: inner its {int(total[j]):4d}, true res {float(res[j]):.6e}",
+                level=0)
     return X, SolveInfo(nits=total, residual=res, converged=res <= tol, r0norm=r0,
                         bnorm=bnorm, history=None)
 
@@ -178,6 +185,16 @@ def solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
     tol = max(opts.rtol * bnorm, opts.atol)
     fn, inner_opts = _inner_plan(method, opts, inner_rtol)
 
+    x, info = _refine(A64, A32, M32, b, x, tol, fn, inner_opts, max_outer, inner_dtype,
+                      opts.verbosity)
+    return _unpermute(x, perm), dataclasses.replace(info, bnorm=bnorm)
+
+
+def _refine(A64, A32, M32, b, x, tol, fn, inner_opts, max_outer, inner_dtype, verbosity=0):
+    """The refinement rounds of ``solve_ir`` on prepared state: fp64
+    residual, the scaled inner solve in ``inner_dtype``, fp64 update, until
+    the true residual meets ``tol`` or ``max_outer`` rounds.  Returns (x,
+    SolveInfo; nits the total inner iterations, bnorm left None)."""
     r = b - spmv(A64, x)
     res = r0 = norm(r).item()
     total_inner = outer = 0
@@ -190,12 +207,56 @@ def solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
         res = norm(r).item()
         total_inner += info.nits
         outer += 1
-        if opts.verbosity >= 1:
-            print(f"ir outer: {outer:3d}, inner its: {info.nits:4d}, true res: "
-                  f"{res:.6e}, rel res: {res / max(r0, np.finfo(np.float64).tiny):.6e}")
-    return _unpermute(x, perm), SolveInfo(nits=total_inner, residual=res,
-                                          converged=res <= tol, r0norm=r0, bnorm=bnorm,
-                                          history=None)
+        if verbosity >= 1:
+            log(f"ir outer: {outer:3d}, inner its: {info.nits:4d}, true res: "
+                f"{res:.6e}, rel res: {res / max(r0, np.finfo(np.float64).tiny):.6e}",
+                level=0)
+    return x, SolveInfo(nits=total_inner, residual=res, converged=res <= tol, r0norm=r0,
+                        bnorm=None, history=None)
+
+
+def ir_device_time(A, b, method: str = "gmres", pc: Optional[str] = "none",
+                   options: Optional[SolverOptions] = None,
+                   pc_options: Optional[PCOptions] = None, inner_rtol: float = 1e-3,
+                   max_outer: int = 20, inner_dtype=torch.float32, reorder: str = "auto",
+                   repeats=(1, 4), reps: int = 3, device=None):
+    """Time of one whole ``solve_ir`` solve on prepared state, by JAX's
+    repeat-marginal (``lssp_tpu/solvers/refine.py: ir_device_time``): run
+    the solve back to back ``repeats[0]`` and ``repeats[1]`` times, each
+    batch from x = 0 and ending in ``torch.cuda.synchronize()`` on the
+    card, take the fastest of ``reps`` batches of each, and difference, so
+    the fixed costs of a batch cancel.  Setup (``prepare_ir``) is done
+    once, first.  Returns (seconds_per_solve, nits, residual) of the
+    solve."""
+    import time
+    opts = (options or SolverOptions()).resolved()
+    device = resolve_device(device, b)
+    b = validate_system(A, b, method)
+    _, A64, A32, perm, M32 = prepare_ir(A, method=method, pc=pc, pc_options=pc_options,
+                                        inner_dtype=inner_dtype, reorder=reorder,
+                                        device=device)
+    b = _permute(b.to(device=device, dtype=torch.float64), perm)
+    tol = max(opts.rtol * norm(b).item(), opts.atol)
+    fn, inner_opts = _inner_plan(method, opts, inner_rtol)
+
+    def batch(r):
+        t0 = time.perf_counter()
+        for _ in range(r):
+            x, info = _refine(A64, A32, M32, b, b.new_zeros(A64.shape[1]), tol, fn,
+                              inner_opts, max_outer, inner_dtype)
+        if b.device.type == "cuda":
+            torch.cuda.synchronize(b.device)
+        return time.perf_counter() - t0, info
+
+    r1, r2 = repeats
+    batch(r1)                                   # warm: kernels built and loaded
+    t1s, t2s = [], []
+    for _ in range(reps):
+        t, info = batch(r1)
+        t1s.append(t)
+        t2s.append(batch(r2)[0])
+    dt = (min(t2s) - min(t1s)) / (r2 - r1)
+    return max(dt, 0.0), info.nits, info.residual
 
 
 def solve_ir_multi(A, B, X0=None, method: str = "blockgmres", pc: Optional[str] = "none",

@@ -62,6 +62,13 @@ def coo_to_csr(A: COO, sum_duplicates: bool = True) -> CSR:
     return CSR(indptr.astype(np.int32), col.astype(np.int32), dat, (n, m))
 
 
+def csr_to_coo(A: CSR) -> COO:
+    """CSR → COO triplets in CSR order (copies of the indices and values)."""
+    ip = np.asarray(A.indptr)
+    row = np.repeat(np.arange(A.shape[0], dtype=np.int32), ip[1:] - ip[:-1])
+    return COO(row, np.asarray(A.indices).copy(), np.asarray(A.data).copy(), A.shape)
+
+
 def csr_to_bsr(A: CSR, blocksize: int) -> BSR:
     """CSR→uniform-block BSR (reference csr→bcsr, matrix-utils.cxx:62-162):
     every entry lands in its bs×bs block, blocks stored dense (explicit

@@ -27,6 +27,36 @@ def numpy_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty(0, dtype=dtype).numpy().dtype
 
 
+def host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype that holds values of the torch ``dtype`` on the host:
+    ``numpy_dtype``'s, and float32 for bfloat16, which numpy lacks (every
+    bfloat16 value is exact in float32)."""
+    return np.dtype(np.float32) if dtype == torch.bfloat16 else numpy_dtype(dtype)
+
+
+def round_values(a, dtype: torch.dtype) -> np.ndarray:
+    """The host array ``a`` rounded to the torch ``dtype``, held in
+    ``host_dtype(dtype)``.  bfloat16 is rounded by torch, to nearest even
+    through float32 (as ml_dtypes rounds a float64 array), on the way to
+    the device's bf16 copy; the other dtypes are a numpy cast."""
+    if dtype == torch.bfloat16:
+        a32 = np.ascontiguousarray(a, dtype=np.float32)
+        return torch.from_numpy(a32).to(torch.bfloat16).float().numpy()
+    return np.asarray(a).astype(numpy_dtype(dtype))
+
+
+def round_to(A, dtype: torch.dtype):
+    """A host CSR (or BSR) with its values rounded to the torch ``dtype``
+    (``round_values``): the host matrix a ``dtype`` preconditioner is built
+    from."""
+    vals = A.blocks if isinstance(A, BSR) else A.data
+    if dtype != torch.bfloat16 and np.asarray(vals).dtype == numpy_dtype(dtype):
+        return A                        # already in that precision: no copy
+    if isinstance(A, BSR):
+        return dataclasses.replace(A, blocks=round_values(A.blocks, dtype))
+    return dataclasses.replace(A, data=round_values(A.data, dtype))
+
+
 @dataclasses.dataclass(frozen=True)
 class COO:
     """Triplet format (reference lssp_mat_coo).  Duplicate (row, col)
@@ -36,6 +66,25 @@ class COO:
     col: Any            # (nnz,) int32
     data: Any           # (nnz,) float
     shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    def todense(self) -> np.ndarray:
+        """Dense array, duplicate entries summed."""
+        out = np.zeros(self.shape, dtype=self.dtype)
+        np.add.at(out, (np.asarray(self.row), np.asarray(self.col)), np.asarray(self.data))
+        return out
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+        return sp.coo_matrix((np.asarray(self.data), (np.asarray(self.row),
+                                                      np.asarray(self.col))), shape=self.shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +106,19 @@ class CSR:
     @property
     def dtype(self):
         return self.data.dtype
+
+    @property
+    def nrows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def ncols(self) -> int:
+        return self.shape[1]
+
+    def row_nnz(self) -> np.ndarray:
+        """Stored entries per row."""
+        ip = np.asarray(self.indptr)
+        return ip[1:] - ip[:-1]
 
     def todense(self) -> np.ndarray:
         return self.to_scipy().toarray()
@@ -93,6 +155,11 @@ class ELL:
     cols: Any
     data: Any
     shape: Tuple[int, int]
+
+    @property
+    def k(self) -> int:
+        """Slots per row."""
+        return int(self.data.shape[1])
 
     @property
     def dtype(self):

@@ -86,6 +86,28 @@ def adjust_zero_diag(A: CSR, tol: float = 1e-10) -> CSR:
                   A.shape)
 
 
+def block_diag_extract(A: CSR, num_blocks: int) -> CSR:
+    """The entries inside the block-diagonal partition of ``num_blocks``
+    uniform row blocks; a row whose diagonal block is empty gets a unit
+    diagonal (reference lssp_mat_get_block_diag, matrix-utils.cxx:589-698,
+    empty rows padded with identity at :680-685)."""
+    n = A.shape[0]
+    bs = n // num_blocks
+    if bs * num_blocks != n:
+        raise ValueError(f"n={n} not divisible into {num_blocks} blocks")
+    rows = _row_ids(A.indptr, n)
+    cols = np.asarray(A.indices).astype(np.int64)
+    keep = (rows // bs) == (cols // bs)
+    rows, cols = rows[keep], cols[keep]
+    dat = np.asarray(A.data)[keep]
+    empty = np.nonzero(np.bincount(rows, minlength=n) == 0)[0]
+    if len(empty):
+        rows = np.concatenate([rows, empty])
+        cols = np.concatenate([cols, empty])
+        dat = np.concatenate([dat, np.ones(len(empty), dtype=dat.dtype)])
+    return _build(n, rows, cols, dat, A.shape)
+
+
 def split_lu(F: CSR):
     """Split a combined LU factor into a strictly lower L (unit diagonal
     implied) and an upper U that holds the diagonal."""

@@ -66,8 +66,8 @@ def test_dia_spmv_matches_plain(cuda, gen, N, dtype):
 def test_dia_spmv_rejects_what_it_cannot_take(cuda):
     D = lt.sparse.csr_to_dia(lt.sparse.laplacian_2d(8), device=cuda)
     x = torch.ones(64, dtype=torch.float64, device=cuda)
-    with pytest.raises(TypeError, match="float32 or float64"):
-        dia_spmv(D.to(dtype=torch.bfloat16), x.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="got torch.float16"):
+        dia_spmv(D.to(dtype=torch.float16), x.to(torch.float16))
     with pytest.raises(TypeError, match="dtype"):
         dia_spmv(D, x.float())
     with pytest.raises(ValueError, match="contiguous"):
@@ -253,8 +253,8 @@ def test_hyb_spmv_is_deterministic(cuda):
 def test_hyb_spmv_rejects_what_it_cannot_take(cuda):
     H = _hyb_case("nearly_banded").to(device=cuda)
     x = torch.ones(H.shape[0], dtype=torch.float64, device=cuda)
-    with pytest.raises(TypeError, match="float32 or float64"):
-        hyb_spmv(H.to(dtype=torch.bfloat16), x.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="got torch.float16"):
+        hyb_spmv(H.to(dtype=torch.float16), x.to(torch.float16))
     with pytest.raises(TypeError, match="dtype"):
         hyb_spmv(H, x.float())
     with pytest.raises(ValueError, match="shape"):
@@ -314,8 +314,8 @@ def test_dia_spmv_ext_matches_plain(cuda, kind, dtype):
 def test_dia_spmv_ext_rejects_what_it_cannot_take(cuda):
     M = _ext_case("laplacian_2d_32", torch.float64, cuda)
     x_ext = torch.ones(4, 256 + 64, dtype=torch.float64, device=cuda)
-    with pytest.raises(TypeError, match="float32 or float64"):
-        dia_spmv_ext(M.data.to(torch.bfloat16), M.offsets, x_ext.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="got torch.float16"):
+        dia_spmv_ext(M.data.to(torch.float16), M.offsets, x_ext.to(torch.float16))
     with pytest.raises(TypeError, match="dtype"):
         dia_spmv_ext(M.data, M.offsets, x_ext.float())
     with pytest.raises(ValueError, match="shape"):
@@ -752,3 +752,46 @@ def test_dist_transpose_on_cuda_launches_only_k4(cuda):
                                options=lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0))
     assert info.converged and dia_spmv_ext.launches >= 25 * info.nits
     assert dia_spmv.launches == fused_neumann_apply.launches == hyb_spmv.launches == 0
+
+
+def _one_ulp(y, ref):
+    """bf16 y within one bf16 ulp (2⁻⁷ relative) of its plain version, over
+    the entries with |ref| ≥ 1e-3·max|ref|."""
+    y, ref = y.double(), ref.double()
+    keep = ref.abs() >= 1e-3 * ref.abs().max()
+    return bool(((y - ref).abs()[keep] <= 2**-7 * ref.abs()[keep]).all())
+
+
+@pytest.mark.parametrize("k", [None, 8])
+def test_bf16_kernels_match_plain(cuda, k):
+    """K1 / K3 / K4 (k = None) and K1k / K3k / K4k (k = 8) in bfloat16: bf16
+    loads, float32 sums and epilogue, one rounding; within one bf16 ulp of
+    the plain versions, which round the same float32 sum once."""
+    bf = torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(11)
+
+    def rnd(*shape):
+        return torch.rand(*shape, generator=g, dtype=torch.float32).to(cuda, bf)
+    shape = () if k is None else (k,)
+    D = lt.sparse.csr_to_dia(lt.sparse.laplacian_3d(11), device=cuda).to(dtype=bf)
+    H = _hyb_case("nearly_banded").to(device=cuda, dtype=bf)
+    M = _ext_case("laplacian_2d_32", torch.float32, cuda)
+    Md = M.data.to(bf)
+    P, R = M.nshards, M.rows_per_shard
+    for alpha, beta, with_z in ((1.0, 0.0, False), (0.25, 0.0, False), (-1.0, 1.0, True)):
+        x, z = rnd(D.shape[0], *shape), rnd(D.shape[0], *shape)
+        zz = z if with_z else None
+        fn, plain = (dia_spmv, dia_spmv_plain) if k is None else (dia_spmm, dia_spmm_plain)
+        y = fn(D, x, alpha, beta, zz)
+        assert y.dtype == bf and _one_ulp(y, plain(D.data, D.offsets, x, alpha, beta, zz))
+        x, z = rnd(H.shape[0], *shape), rnd(H.shape[0], *shape)
+        zz = z if with_z else None
+        fn, plain = (hyb_spmv, hyb_spmv_plain) if k is None else (hyb_spmm, hyb_spmm_plain)
+        y = fn(H, x, alpha, beta, zz)
+        assert y.dtype == bf and _one_ulp(y, plain(H, x, alpha, beta, zz))
+        x_ext, z = rnd(P, R + M.lo + M.hi, *shape), rnd(P, R, *shape)
+        zz = z if with_z else None
+        fn, plain = ((dia_spmv_ext, dia_spmv_ext_plain) if k is None
+                     else (dia_spmm_ext, dia_spmm_ext_plain))
+        y = fn(Md, M.offsets, x_ext, alpha, beta, zz)
+        assert y.dtype == bf and _one_ulp(y, plain(Md, M.offsets, x_ext, alpha, beta, zz))

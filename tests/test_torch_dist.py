@@ -386,14 +386,14 @@ def test_prepared_state_is_memoized():
     b = torch.ones(256, dtype=torch.float64)
     mesh = cpu_mesh()
     x1, i1 = T.dist_solve(At, b, pc="bjilu", mesh=mesh)
-    entries = At._prepared_cache["dist"]
+    entries = At._dist_cache
     assert len(entries) == 1
     first = next(iter(entries.values()))
     T.dist_solve(At, 2 * b, pc="bjilu", mesh=mesh)
     assert next(iter(entries.values())) is first
     for p in (1, 2, 4, 16, 32, 64, 128, 256):               # 8 more meshes: LRU bound 8
         T.dist_solve(At, b, mesh=cpu_mesh(p))
-    assert len(At._prepared_cache["dist"]) == 8
+    assert len(At._dist_cache) == 8
     At.data[:] *= 2.0                                        # content change: rebuilt
     x2, i2 = T.dist_solve(At, b, pc="bjilu", mesh=mesh)
     assert i2.nits == i1.nits
