@@ -19,7 +19,7 @@ non-zero without the final result line):
 5. the same solve on 128³, and one more warm solve under torch.profiler:
    launches per inner iteration, device busy, K2's share of device time;
 6. the reference example (GMRES(60) + ILU(1), 2-D Laplacian N=100) through
-   the Solver lifecycle in fp64;
+   the Solver lifecycle in fp64 (``lssp_tpu_torch.examples.exam``);
 7. K3 (HYB SpMV) against its plain PyTorch version: the HYB matrix of
    ``bench.py`` (2-D Laplacian 2048² plus n//200 strays of 0.01), the
    vendored coupled3d_25, and a 1021² case whose n is not a multiple of
@@ -186,6 +186,35 @@ time printed):
    dist_solve_ir pipecg + bjilu on 128³ over 8 shards: only K4, one
    reduction over the shards an inner iteration (counted), K4 on its
    partition; per column, solve_multi fp64 48³, k = 4, pipecg and cagmres.
+The bf16 inner precision, utils/ and the examples (every kernel launch
+counter, and its count by dtype, reset just before each solve):
+32. the bf16 forms of K1, K3, K4, K1k, K3k and K4k alone, at phase 2 / 7 /
+   11 / 14's shapes, each within one bf16 ulp (7.9e-3 relative, over the
+   entries with |y| ≥ 1e-3·max|y|) of its plain version, with device µs,
+   GB/s and share of the bound (the fp32 bytes at 2 bytes an element) and
+   the bf16 ``torch.sparse_csr_tensor`` product's time where torch takes
+   it; then solve_ir cg + ILU(0), bf16 inner, inner_rtol 3e-2, max_outer
+   60, 6 sweeps: 64³ ≤ JAX's CPU count + 15 % (``JAX_CPU_BF16``), 128³
+   beside the fp32 solve's count and warm wall, only K1 in bf16 and K2 on
+   its fp32 plan; GMRES(30) + ILU(0) on phase 8's strayed 128³ (K3 in
+   bf16), and BiCGSTAB + ILU(0) there reported, not held (JAX's own bf16
+   BiCGSTAB diverges on that recipe at 64³, ``JAX_CPU_BF16_HYB``);
+   dist_solve_ir cg + bjilu over 8 shards of 128³ (only K4, in
+   bf16); per-column solve_ir_multi cg (K1k) and gmres(30) on a strayed
+   64³ (K3k) and dist_solve_ir_multi cg + bjilu (K4k), k = 4; every held cell
+   true relres ≤ 1e-8, each kernel checked on its solve's own bf16 matrix;
+33. utils/: checkpointed_solve cg + ILU(0) 128³ fp64 every 50, interrupted
+   after 2 rounds and resumed, x bitwise equal to an uninterrupted run's;
+   a checkpoint of x and the PC (MB, save and load seconds), the restored
+   PC applying bitwise; set_log's tee; the profile ledger of the run;
+   device_memory_mb; the fingerprint's ms on the 128³ CSR (crc32 beside
+   adler32); nan_guard raising on a solve and on a kernel;
+34. ``python -m lssp_tpu_torch.examples.tour`` and ``.distributed`` at full
+   size, each section within 2 of JAX's CPU count (``JAX_CPU_TOUR``, from
+   ``scripts/jax_krylov_reference.py tour``, the ILU PCs at the card's 6
+   sweeps), the fp32 / bf16 inner sections held to their residual.
+Phase 6 runs ``lssp_tpu_torch.examples.exam``'s ``main``.  ``python3
+chip_smoke.py --only 32,33,34`` runs phases 32-34 alone.
 JAX cannot run phase 30's direct cells (its padded level schedules would
 need 1e9-1e12 slots; ROADMAP C property 14): they are held to scipy, and
 ``scripts/jax_krylov_reference.py 30`` gives JAX's host factors'
@@ -210,7 +239,9 @@ path's shapes is bound by that host cost.
 The line before the last is a JSON object with one entry per kernel: its
 launches on its path (K1 and K2 from phase 4, K3 from phase 8, K4 from
 phase 12, K1k and K2k from phase 15, K3k from phase 17, K4k from phase
-18) and its times, library time and bound at one shape whose inputs do
+18; the bf16 forms, ``*_bf16``, from phase 32's path cells, timed at
+phase 32's shapes) and its times, library time and bound at one shape
+whose inputs do
 not fit the 50 MB L2, so that back-to-back calls read HBM as the bound
 assumes (K1 on the 2-D Laplacian 2048² from phase 2, K2 on ILU(0) 128³
 from phase 3, K3 from phase 8, K4 from phase 12, the k-rhs forms from
@@ -528,20 +559,18 @@ def phase_128(lt, np, torch, dev):
 
 
 def phase_exam(lt, np, torch, dev):
-    A = lt.sparse.laplacian_2d(100)
-    b = torch.ones(A.shape[0], dtype=torch.float64)
-    s = lt.Solver("gmres", "iluk", pc_options=lt.PCOptions(ilu_sweeps=0), device=dev)
-    s.set_restart(60).set_maxit(3000)
+    """The reference example through ``python -m lssp_tpu_torch.examples.exam``'s
+    ``main``: GMRES(60) + ILU(1) on the 2-D Laplacian N = 100, fp64 Solver."""
+    from lssp_tpu_torch.examples import exam
     t0 = time.perf_counter()
-    s.assemble(A, b)
-    x = s.solve()
-    torch.cuda.synchronize()
+    out = exam.main(["100", "--device", str(dev)])
     secs = time.perf_counter() - t0
-    ver = float(np.linalg.norm(np.ones(A.shape[0]) - A.to_scipy() @ x.cpu().numpy()))
-    print(f"exam gmres(60)+iluk N=100 fp64: nits {s.nits}, residual {s.residual:.8e}, "
-          f"verification {ver:.8e}, {secs:.3f} s")
-    check(abs(s.nits - 49) <= 1, f"exam: {s.nits} iterations, expected 49 +- 1")
-    check(ver <= 2 * 8.18e-6, f"exam: verification residual {ver:.3e} > {2 * 8.18e-6:.3e}")
+    print(f"exam gmres(60)+iluk N=100 fp64 (lssp_tpu_torch.examples.exam): nits {out['nits']}, "
+          f"residual {out['residual']:.8e}, verification {out['verification']:.8e}, "
+          f"{secs:.3f} s")
+    check(abs(out["nits"] - 49) <= 1, f"exam: {out['nits']} iterations, expected 49 +- 1")
+    check(out["verification"] <= 2 * 8.18e-6,
+          f"exam: verification residual {out['verification']:.3e} > {2 * 8.18e-6:.3e}")
 
 
 def strayed_grid(lt, np, N, grid, dtype, seed=5):
@@ -3012,6 +3041,508 @@ def phase_library(lt, np, torch, dev, card):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phases 32-34: the bf16 inner precision, utils/, the examples
+# ---------------------------------------------------------------------------
+
+# JAX's CPU counts for phase 32's held cell (scripts/jax_krylov_reference.py
+# 32): solve_ir cg + ILU(0) with 6 Neumann sweeps, bf16 inner, inner_rtol
+# 3e-2, max_outer 60, rtol 1e-8 on the 3-D Laplacian 64³
+JAX_CPU_BF16 = {"cg+ilu0 64^3": 202}
+# and on phase 8's stray recipe at 64³ (inner its, true relres): JAX's bf16
+# BiCGSTAB diverges there, its GMRES and CG converge
+JAX_CPU_BF16_HYB = {"bicgstab": (2122, 2.6e7), "gmres": (398, 2.0e-9), "cg": (172, 8.2e-9)}
+BF16_ULP = 7.9e-3           # one bf16 ulp, relative (2⁻⁷ and a margin)
+
+
+def bf16_err(torch, y, ref):
+    """(max relative difference over the entries with |ref| ≥ 1e-3·max|ref|,
+    max abs difference) of a bf16 kernel's output against its plain
+    version."""
+    y, ref = y.double(), ref.double()
+    keep = ref.abs() >= 1e-3 * ref.abs().max()
+    return (((y - ref).abs()[keep] / ref.abs()[keep]).max().item(),
+            (y - ref).abs().max().item())
+
+
+def check_bf16(torch, name, kernel, plain):
+    """A bf16 kernel within one bf16 ulp of its plain version (both round
+    the same float32 sum once).  Returns the max abs difference."""
+    y, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    check(y.dtype == torch.bfloat16, f"{name}: output {y.dtype}, not bfloat16")
+    check(bool(torch.isfinite(y).all()), f"{name}: non-finite output")
+    rel, abs_err = bf16_err(torch, y, ref)
+    check(rel <= BF16_ULP, f"{name}: {rel:.3e} from its plain version, more than one bf16 ulp")
+    print(f"{name}: against its plain version max_rel_err {rel:.3e} max_abs_err {abs_err:.3e}")
+    return abs_err
+
+
+def bf16_library(np, torch, S, dev, x):
+    """The cuSPARSE product of a bf16 ``torch.sparse_csr_tensor``, timed as
+    ``library_ms``; None (and why) where torch refuses bf16 there."""
+    try:
+        C = csr_tensor(np, torch, S, dev, torch.bfloat16)
+        y = C @ x
+        torch.cuda.synchronize()
+        return library_ms(torch, lambda: C @ x), y
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"library: torch refuses a bf16 sparse CSR product here: "
+              f"{str(e).splitlines()[0][:160]}")
+        return None, None
+
+
+def bf16_kernel(np, torch, card, name, kernel, plain, nbytes, flops, S, dev, x):
+    """One bf16 kernel alone: its agreement with its plain version, device
+    and host times, GB/s and share of the bound (its bytes at 2 bytes an
+    element), and the bf16 cuSPARSE call's time beside it."""
+    err = check_bf16(torch, name, kernel, plain)
+    t = timings(kernel, plain)
+    lib, y_lib = bf16_library(np, torch, S, dev, x)
+    if y_lib is not None:
+        # cuSPARSE rounds the bf16 sums its own way: held normwise, to the
+        # product's own rounding (nd·2⁻⁸ for a sum of nd bf16 terms)
+        y = kernel().double()
+        rel = ((y_lib.reshape(y.shape).double() - y).norm() / y.norm()).item()
+        print(f"library {name}: normwise {rel:.2e} from the kernel")
+        check(rel <= 0.1, f"library {name}: {rel:.3e} from the kernel, not the same function")
+    b = bound(nbytes, flops, FP32_PEAK)
+    print(f"{name} [{card}]: device {t['ms'] * 1e3:.2f} us "
+          f"({nbytes / (t['ms'] * 1e-3) / 1e9:.1f} GB/s, {b['bound_ms'] / t['ms']:.1%} of the "
+          f"{b['bound_ms'] * 1e3:.2f} us bound), plain {t['plain_ms'] * 1e3:.2f} us, library "
+          f"{'refused' if lib is None else f'{lib * 1e3:.2f} us'}; issued from Python "
+          f"{t['host_ms'] * 1e3:.2f} us")
+    return dict(max_abs_err=err, library_ms=lib, **t, **b)
+
+
+def reset(counters):
+    for fn in counters:
+        fn.launches = 0
+        fn.by_dtype = {}
+
+
+def bf16_launches(counters):
+    return {fn.__name__: dict(fn.by_dtype) for fn in counters if fn.launches}
+
+
+def phase_bf16(lt, np, torch, dev, counters, card):
+    """Phase 32: the bf16 inner precision.  The six bf16 kernels alone at
+    phase 2 / 7 / 11 / 14's shapes, then the bf16 paths: solve_ir cg +
+    ILU(0) at 64³ (held to JAX's CPU count + 15 %) and 128³ (beside the
+    fp32 solve), the strayed 128³ HYB with BiCGSTAB + ILU(0),
+    dist_solve_ir cg + bjilu over 8 shards, and the k-rhs forms through
+    solve_ir_multi / dist_solve_ir_multi per column (JAX's blockcg cannot
+    carry bf16).  Counters reset before each path cell; each kernel
+    checked on its solve's own bf16 matrix.  Returns the bf16 entries of
+    the kernels line."""
+    from lssp_tpu_torch.ops.dia_spmv import dia_spmm, dia_spmm_plain, dia_spmv, dia_spmv_plain
+    from lssp_tpu_torch.ops.dia_spmv_ext import (dia_spmm_ext, dia_spmm_ext_plain,
+                                                 dia_spmv_ext, dia_spmv_ext_plain)
+    from lssp_tpu_torch.ops.hyb_spmv import hyb_spmm, hyb_spmm_plain, hyb_spmv, hyb_spmv_plain
+    from lssp_tpu_torch.ops.neumann import fused_neumann_apply, neumann_apply_plain
+    from lssp_tpu_torch.parallel import halo_exchange, partition_csr_dia
+    bf = torch.bfloat16
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(32)
+
+    def vec(*shape):
+        return torch.from_numpy(rng.uniform(-1, 1, shape)).to(device=dev, dtype=bf)
+
+    entries = {}
+    # K1 at phase 2's JSON shape, the 2-D Laplacian 2048²
+    A = lt.sparse.laplacian_2d(2048)
+    D = lt.sparse.csr_to_dia(A, device=dev).to(dtype=bf)
+    n, nd = A.shape[0], len(D.offsets)
+    x, z = vec(n), vec(n)
+    for alpha, beta, zz in ((0.25, 0.0, None), (-1.0, 1.0, z)):
+        check_bf16(torch, f"K1 bf16 laplacian_2d(2048) ({alpha}, {beta})",
+                   lambda: dia_spmv(D, x, alpha, beta, zz),
+                   lambda: dia_spmv_plain(D.data, D.offsets, x, alpha, beta, zz))
+    entries["dia_spmv_bf16"] = bf16_kernel(
+        np, torch, card, "K1 bf16 laplacian_2d(2048)", lambda: dia_spmv(D, x),
+        lambda: dia_spmv_plain(D.data, D.offsets, x), (nd * n + 2 * n) * 2, 2 * A.nnz,
+        A.to_scipy(), dev, x)
+    del D, x, z
+    # K3 at phase 7's first shape, the bench HYB matrix (2048² + strays)
+    A = strayed_grid(lt, np, 2048, "2d", np.float64)
+    H = lt.sparse.csr_to_hyb(A, device=dev).to(dtype=bf)
+    n, nd = A.shape[0], len(H.dia.offsets)
+    x, z = vec(n), vec(n)
+    check_bf16(torch, "K3 bf16 bench 2048^2+strays (-1, 1, z)",
+               lambda: hyb_spmv(H, x, -1.0, 1.0, z), lambda: hyb_spmv_plain(H, x, -1.0, 1.0, z))
+    hyb_bytes = (nd * n + 2 * n) * 2 + H.nnz_rem * 10 + H.rem_block_ptr.numel() * 4
+    entries["hyb_spmv_bf16"] = bf16_kernel(
+        np, torch, card, "K3 bf16 bench 2048^2+strays", lambda: hyb_spmv(H, x),
+        lambda: hyb_spmv_plain(H, x), hyb_bytes, 2 * A.nnz, A.to_scipy(), dev, x)
+    del H, x, z
+    # K4 at phase 11's 128³ over 8 shards, and the k-rhs forms at phase 14's
+    # shapes (128³, k = 8; K3k on phase 8's strayed 128³)
+    A4 = lt.sparse.laplacian_3d(128)
+    M = partition_csr_dia(A4, 8).to(device=dev, dtype=bf)
+    P, R = M.nshards, M.rows_per_shard
+    x4, z4 = vec(P * R), vec(P, R)
+    xe = halo_exchange(x4.view(P, R), M.lo, M.hi)
+    check_bf16(torch, "K4 bf16 128^3 P=8 sweep (-1, 1, z)",
+               lambda: dia_spmv_ext(M.data, M.offsets, xe, -1.0, 1.0, z4, offsets_t=M.offsets_t),
+               lambda: dia_spmv_ext_plain(M.data, M.offsets, xe, -1.0, 1.0, z4))
+    ext_bytes = lambda k: P * (len(M.offsets) * R + k * (R + M.lo + M.hi) + k * R) * 2
+    entries["dist_spmv_ext_bf16"] = bf16_kernel(
+        np, torch, card, "K4 bf16 128^3 P=8",
+        lambda: dia_spmv_ext(M.data, M.offsets, xe, offsets_t=M.offsets_t),
+        lambda: dia_spmv_ext_plain(M.data, M.offsets, xe), ext_bytes(1), 2 * A4.nnz,
+        A4.to_scipy(), dev, x4)
+    X4 = vec(P * R, 8)
+    Xe = halo_exchange(X4.view(P, R, 8), M.lo, M.hi)
+    entries["dist_spmm_ext_bf16"] = bf16_kernel(
+        np, torch, card, "K4k bf16 128^3 P=8 k=8",
+        lambda: dia_spmm_ext(M.data, M.offsets, Xe, offsets_t=M.offsets_t),
+        lambda: dia_spmm_ext_plain(M.data, M.offsets, Xe), ext_bytes(8), 2 * 8 * A4.nnz,
+        A4.to_scipy(), dev, X4)
+    D4 = lt.sparse.csr_to_dia(A4, device=dev).to(dtype=bf)
+    nd4, n4 = len(D4.offsets), A4.shape[0]
+    entries["dia_spmm_bf16"] = bf16_kernel(
+        np, torch, card, "K1k bf16 128^3 k=8", lambda: dia_spmm(D4, X4),
+        lambda: dia_spmm_plain(D4.data, D4.offsets, X4), (nd4 * n4 + 2 * 8 * n4) * 2,
+        2 * 8 * A4.nnz, A4.to_scipy(), dev, X4)
+    del M, xe, Xe, D4
+    A3 = strayed_grid(lt, np, 128, "3d", np.float64)
+    H3 = lt.sparse.csr_to_hyb(A3, device=dev).to(dtype=bf)
+    n3, nd3 = A3.shape[0], len(H3.dia.offsets)
+    X3 = vec(n3, 8)
+    entries["hyb_spmm_bf16"] = bf16_kernel(
+        np, torch, card, "K3k bf16 128^3+strays k=8", lambda: hyb_spmm(H3, X3),
+        lambda: hyb_spmm_plain(H3, X3),
+        (nd3 * n3 + 2 * 8 * n3) * 2 + H3.nnz_rem * 10 + H3.rem_block_ptr.numel() * 4,
+        2 * 8 * A3.nnz, A3.to_scipy(), dev, X3)
+    del H3, X3, X4
+    print(f"phase 32 kernels alone: {time.perf_counter() - t_phase:.1f} s")
+
+    # the bf16 paths: cg + ILU(0) at 64³ (held) and 128³
+    kw = dict(inner_dtype=bf, inner_rtol=3e-2, max_outer=60,
+              options=lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0),
+              pc_options=lt.PCOptions(ilu_sweeps=6))
+    launches = {}
+    for N in (64, 128):
+        A = lt.sparse.laplacian_3d(N)
+        b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+        t0 = time.perf_counter()
+        prep = lt.prepare_ir(A, "cg", "ilu0", pc_options=kw["pc_options"], inner_dtype=bf,
+                             device=dev)
+        setup_s = time.perf_counter() - t0
+        reset(counters)
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, info = lt.solve_ir(A, b, method="cg", pc="ilu0", **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        by = bf16_launches(counters)
+        rr = true_relres(A, x, np)
+        for _ in range(2):                          # the second is the warm fp32 solve
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, i32 = lt.solve_ir(A, b, method="cg", pc="ilu0", pc_options=kw["pc_options"],
+                                 options=kw["options"])
+            torch.cuda.synchronize()
+            w32 = time.perf_counter() - t0
+        print(f"bf16 solve_ir cg+ilu0 {N}^3 [{card}]: inner its {info.nits} (fp32 inner "
+              f"{i32.nits}), true relres {rr:.3e}, setup {setup_s:.3f} s, solve cold "
+              f"{walls[0]:.3f} s, warm {walls[1]:.3f} s (fp32 warm {w32:.3f} s), launches {by}")
+        check(rr <= 1e-8, f"bf16 {N}^3: true relres {rr:.3e} > 1e-8")
+        check(set(by) == {"dia_spmv", "fused_neumann_apply"} and by["dia_spmv"].get("bf16", 0) > 0
+              and set(by["fused_neumann_apply"]) == {"f32"},
+              f"bf16 {N}^3: launches {by}: K1 in bf16 and K2 on its fp32 plan expected")
+        if N == 64:
+            launches["dia_spmv_bf16"] = by["dia_spmv"]["bf16"]
+            ref = JAX_CPU_BF16["cg+ilu0 64^3"]
+            check(info.nits <= count_limit(ref),
+                  f"bf16 64^3: {info.nits} inner its > {count_limit(ref)} (JAX CPU {ref} + 15 %)")
+            _, _, A32, _, M32 = prep
+            check(A32.dtype == bf, f"bf16 64^3: the inner matrix is {A32.dtype}")
+            v = vec(A32.shape[0])
+            entries["dia_spmv_bf16"]["max_abs_err"] = max(
+                entries["dia_spmv_bf16"]["max_abs_err"],
+                check_bf16(torch, "K1 bf16 on the 64^3 solve's own matrix",
+                           lambda: dia_spmv(A32, v), lambda: dia_spmv_plain(A32.data, A32.offsets, v)))
+            z = fused_neumann_apply(M32.state, v)
+            ref_z = neumann_apply_plain(M32.state, v.float()).to(bf)
+            rel, _ = bf16_err(torch, z, ref_z)
+            check(z.dtype == bf and rel <= BF16_ULP,
+                  f"bf16 64^3: K2 on its fp32 plan with a bf16 r: {rel:.3e} from its plain version")
+            print(f"bf16 64^3: K2 on the solve's fp32 plan, r and z in bf16: max_rel_err {rel:.3e}")
+
+    # the HYB cells on phase 8's strayed 128³: GMRES(30) + ILU(0), held; and
+    # BiCGSTAB + ILU(0), reported: JAX's own bf16 BiCGSTAB diverges on the
+    # same recipe at 64³ (JAX_CPU_BF16_HYB), so the port is not held to it
+    b3 = torch.ones(n3, dtype=torch.float64, device=dev)
+    for method in ("gmres", "bicgstab"):
+        reset(counters)
+        t0 = time.perf_counter()
+        x, info = lt.solve_ir(A3, b3, method=method, pc="ilu0",
+                              **dict(kw, options=dataclasses.replace(kw["options"], restart=30)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by = bf16_launches(counters)
+        rr = true_relres(A3, x, np)
+        print(f"bf16 solve_ir {method}+ilu0 128^3+strays (HYB) [{card}]: inner its {info.nits}, "
+              f"true relres {rr:.3e}, {wall:.3f} s with setup, launches {by}")
+        check(by.get("hyb_spmv", {}).get("bf16", 0) > 0 and "dia_spmv" not in by,
+              f"bf16 hyb {method}: launches {by}: K3 in bf16 expected")
+        if method == "gmres":
+            check(rr <= 1e-8, f"bf16 hyb gmres: true relres {rr:.3e} > 1e-8")
+            launches["hyb_spmv_bf16"] = by["hyb_spmv"]["bf16"]
+        else:
+            print(f"bf16 hyb bicgstab: {'converged' if rr <= 1e-8 else 'not converged'}; "
+                  f"JAX's CPU on the strayed 64^3: {JAX_CPU_BF16_HYB['bicgstab']}")
+    _, _, A32, _, _ = lt.prepare_ir(A3, "bicgstab", "ilu0", pc_options=kw["pc_options"],
+                                    inner_dtype=bf, device=dev)
+    v = vec(n3)
+    entries["hyb_spmv_bf16"]["max_abs_err"] = max(
+        entries["hyb_spmv_bf16"]["max_abs_err"],
+        check_bf16(torch, "K3 bf16 on the hyb solve's own matrix", lambda: hyb_spmv(A32, v),
+                   lambda: hyb_spmv_plain(A32, v)))
+
+    # the distributed cell: cg + bjilu over 8 shards of 128³
+    mesh = lt.make_mesh(8, devices=[dev] * 8)
+    b4 = torch.ones(n4, dtype=torch.float64, device=dev)
+    reset(counters)
+    t0 = time.perf_counter()
+    x, info = lt.dist_solve_ir(A4, b4, method="cg", pc="bjilu", mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by = bf16_launches(counters)
+    rr = true_relres(A4, x, np)
+    print(f"bf16 dist_solve_ir cg+bjilu 128^3 P=8 [{card}]: inner its {info.nits}, true relres "
+          f"{rr:.3e}, {wall:.3f} s with setup, launches {by}")
+    check(rr <= 1e-8, f"bf16 dist: true relres {rr:.3e} > 1e-8")
+    check(set(by) == {"dia_spmv_ext"} and by["dia_spmv_ext"].get("bf16", 0) > 0,
+          f"bf16 dist: launches {by}: only K4, in bf16, expected")
+    launches["dist_spmv_ext_bf16"] = by["dia_spmv_ext"]["bf16"]
+    (prep,) = [e for k, e in A4._dist_cache.items() if k[6] == str(bf)]
+    Md = prep["M"]
+    check(Md.data.dtype == bf, f"bf16 dist: the inner partition is {Md.data.dtype}")
+    v = vec(Md.nshards, Md.rows_per_shard)
+    ve = halo_exchange(v, Md.lo, Md.hi)
+    entries["dist_spmv_ext_bf16"]["max_abs_err"] = max(
+        entries["dist_spmv_ext_bf16"]["max_abs_err"],
+        check_bf16(torch, "K4 bf16 on the dist solve's own partition",
+                   lambda: dia_spmv_ext(Md.data, Md.offsets, ve, offsets_t=Md.offsets_t),
+                   lambda: dia_spmv_ext_plain(Md.data, Md.offsets, ve)))
+
+    # the k-rhs forms: per-column cg (DIA, K1k), bicgstab (HYB, K3k) and the
+    # distributed cg (K4k), 64³, k = 4
+    A = lt.sparse.laplacian_3d(64)
+    AH = strayed_grid(lt, np, 64, "3d", np.float64)
+    B = torch.from_numpy(np.random.default_rng(0).standard_normal((A.shape[0], 4))).to(dev)
+    cells = (("dia_spmm", "solve_ir_multi cg+ilu0 64^3", A,
+              lambda: lt.solve_ir_multi(A, B, method="cg", pc="ilu0", **kw)),
+             ("hyb_spmm", "solve_ir_multi gmres(30)+ilu0 64^3+strays (HYB)", AH,
+              lambda: lt.solve_ir_multi(AH, B, method="gmres", pc="ilu0", **dict(
+                  kw, options=dataclasses.replace(kw["options"], restart=30)))),
+             ("dia_spmm_ext", "dist_solve_ir_multi cg+bjilu 64^3 P=8", A,
+              lambda: lt.dist_solve_ir_multi(A, B, method="cg", pc="bjilu", mesh=mesh, **kw)))
+    for kname, name, M_, run in cells:
+        reset(counters)
+        t0 = time.perf_counter()
+        X, info = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by = bf16_launches(counters)
+        rr = block_relres(M_, X, B, np)
+        print(f"bf16 {name} k=4 [{card}]: inner its {[int(v) for v in info.nits]}, true relres "
+              f"{[f'{v:.2e}' for v in rr]}, {wall:.3f} s with setup, launches {by}")
+        check(max(rr) <= 1e-8, f"bf16 {name}: true relres {max(rr):.3e} > 1e-8")
+        check(by.get(kname, {}).get("bf16", 0) > 0, f"bf16 {name}: {kname} never launched in bf16")
+        launches[f"{kname.replace('dia_spmm_ext', 'dist_spmm_ext')}_bf16"] = by[kname]["bf16"]
+        if kname == "dia_spmm":
+            _, _, A32, _, _ = lt.prepare_ir(A, "cg", "ilu0", pc_options=kw["pc_options"],
+                                            inner_dtype=bf, device=dev)
+            V = vec(A32.shape[0], 4)
+            entries["dia_spmm_bf16"]["max_abs_err"] = max(
+                entries["dia_spmm_bf16"]["max_abs_err"],
+                check_bf16(torch, "K1k bf16 on the multi solve's own matrix",
+                           lambda: dia_spmm(A32, V), lambda: dia_spmm_plain(A32.data, A32.offsets, V)))
+        if kname == "hyb_spmm":
+            _, _, A32, _, _ = lt.prepare_ir(AH, "gmres", "ilu0", pc_options=kw["pc_options"],
+                                            inner_dtype=bf, device=dev)
+            check(isinstance(A32, lt.HYB), f"bf16 {name}: the format is {type(A32).__name__}")
+            V = vec(A32.shape[0], 4)
+            entries["hyb_spmm_bf16"]["max_abs_err"] = max(
+                entries["hyb_spmm_bf16"]["max_abs_err"],
+                check_bf16(torch, "K3k bf16 on the multi solve's own matrix",
+                           lambda: hyb_spmm(A32, V), lambda: hyb_spmm_plain(A32, V)))
+    for key, count in launches.items():
+        entries[key]["launches"] = count
+    check(all("launches" in e for e in entries.values()),
+          f"phase 32: no path launched {[k for k, e in entries.items() if 'launches' not in e]}")
+    print(f"phase 32 (bf16): {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+def phase_utils(lt, np, torch, dev, counters, card):
+    """Phase 33: utils/.  checkpointed_solve (cg + ILU(0), 128³, fp64,
+    every 50) interrupted after 2 rounds and resumed, x bitwise equal to an
+    uninterrupted run's, a restored PC applying bitwise as the saved one;
+    set_log's tee; the profile ledger of the run so far; the peak device
+    memory; the fingerprint's time on the 128³ CSR; nan_guard."""
+    import contextlib
+    import io
+    import tempfile
+    import zlib
+    from lssp_tpu_torch.ops.dia_spmv import dia_spmv
+    from lssp_tpu_torch.utils import (checkpointed_solve, device_memory_mb, load_checkpoint,
+                                      nan_guard, profile, save_checkpoint, set_log)
+    from lssp_tpu_torch.utils.memo import fingerprint
+    t_phase = time.perf_counter()
+    A = lt.sparse.laplacian_3d(128)
+    n = A.shape[0]
+    b = torch.ones(n, dtype=torch.float64, device=dev)
+    tmp = tempfile.mkdtemp(prefix="lssp_ckpt_")
+    kw = dict(every=50, method="cg", pc="ilu0", device=dev)
+    _, i1 = checkpointed_solve(A, b, os.path.join(tmp, "run.ckpt"), max_rounds=2, **kw)
+    check(not i1.converged and i1.nits == 100,
+          f"checkpoint: the interrupted run took {i1.nits} its, converged {i1.converged}")
+    x2, i2 = checkpointed_solve(A, b, os.path.join(tmp, "run.ckpt"), **kw)
+    x3, i3 = checkpointed_solve(A, b, os.path.join(tmp, "whole.ckpt"), **kw)
+    rr = true_relres(A, x2, np)
+    print(f"checkpointed_solve cg+ilu0 128^3 fp64 every 50 [{card}]: interrupted at "
+          f"{i1.nits}, resumed to {i2.nits} (uninterrupted {i3.nits}), true relres {rr:.3e}, "
+          f"resumed x bitwise equal: {bool(torch.equal(x2, x3))}")
+    check(i2.converged and i2.nits == i3.nits and torch.equal(x2, x3),
+          "checkpoint: the resumed x is not the uninterrupted one bitwise")
+    M = lt.pc.setup(A, "ilu0", device=dev)
+    path = os.path.join(tmp, "m.ckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(path, x=x2, M=M, info=i2)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck = load_checkpoint(path, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    r = torch.from_numpy(np.random.default_rng(33).uniform(-1, 1, n)).to(dev)
+    check(torch.equal(ck["M"](r), M(r)) and torch.equal(ck["x"], x2),
+          "checkpoint: the restored PC does not apply bitwise as the saved one")
+    print(f"checkpoint file {os.path.getsize(path) / 2**20:.1f} MB (x, ILU(0) 128^3 plan, info): "
+          f"save {save_s:.3f} s, load to the card {load_s:.3f} s; restored M applies bitwise")
+    # set_log tees a Solver run
+    buf = io.StringIO()
+    s = lt.Solver("cg", "jacobi", options=lt.SolverOptions(verbosity=1), device=dev)
+    s.set_log(buf)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):       # the tee alone is kept
+            s.assemble(lt.sparse.laplacian_2d(64), torch.ones(4096, dtype=torch.float64))
+            s.solve()
+    finally:
+        set_log(None)
+    lines = buf.getvalue().splitlines()
+    check(sum(l.startswith("itr:") for l in lines) == s.nits
+          and any(l.startswith("pc: assemble (jacobi)") for l in lines),
+          f"set_log: the tee holds {len(lines)} lines for {s.nits} iterations")
+    print(f"set_log: {len(lines)} lines tee'd for a {s.nits}-iteration Solver run")
+    lt.prepare_ir(A, "cg", "ilu0", device=dev)      # the ledger holds a prepare_ir at least
+    times, nbytes = profile.phase_times(), profile.phase_bytes()
+    print("profile phase_times (s): " + json.dumps({k: round(v, 3) for k, v in times.items()}))
+    print("profile phase_bytes (MB): " + json.dumps({k: round(v / 2**20, 1)
+                                                    for k, v in nbytes.items()}))
+    check("pc_build" in times and "upload" in nbytes, "profile: the ledger is empty")
+    print(f"device_memory_mb: {json.dumps(device_memory_mb())}")
+    reps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fingerprint(A)
+        reps.append(time.perf_counter() - t0)
+    bufs = [np.ascontiguousarray(a) for a in (A.data, A.indices, A.indptr)]
+    mb = sum(a.nbytes for a in bufs) / 1e6
+    sums = {}
+    for fn in (zlib.crc32, zlib.adler32):
+        t0 = time.perf_counter()
+        for a in bufs:
+            fn(a)
+        sums[fn.__name__] = time.perf_counter() - t0
+    print(f"fingerprint of the 128^3 CSR ({mb:.0f} MB) on the card's host: median "
+          f"{sorted(reps)[2] * 1e3:.1f} ms; crc32 {sums['crc32'] * 1e3:.1f} ms, adler32 "
+          f"{sums['adler32'] * 1e3:.1f} ms")
+    bn = torch.ones(4096, dtype=torch.float64, device=dev)
+    bn[7] = float("nan")
+    try:
+        with nan_guard():
+            lt.solve(lt.sparse.laplacian_2d(64), bn, method="cg", pc="ilu0")
+        raise RuntimeError("nan_guard: a solve with a NaN in b did not raise")
+    except FloatingPointError as e:
+        print(f"nan_guard: {e}")
+    D = lt.sparse.csr_to_dia(lt.sparse.laplacian_2d(64), device=dev)
+    try:
+        with nan_guard():
+            dia_spmv(D, bn)
+        raise RuntimeError("nan_guard: K1 on a NaN did not raise")
+    except FloatingPointError as e:
+        print(f"nan_guard on a kernel: {e}")
+    print(f"phase 33 (utils): {time.perf_counter() - t_phase:.1f} s")
+
+
+# JAX's CPU values for phase 34 (scripts/jax_krylov_reference.py tour: the
+# sections of examples/tour.py and examples/distributed.py with the ILU
+# PCs at 6 Neumann sweeps, the card's route): (count, true residual);
+# lsq: the two relative errors
+JAX_CPU_TOUR = {
+    "direct": (1, 1.54e-12), "cg+arms": (5, 4.98e-07), "cg+amg": (7, 6.11e-06),
+    "cg+rsamg": (7, 2.54e-07), "cg+iluk": (35, 3.02e-06), "bicg": (27, 4.64e-06),
+    "qmr": (27, 3.26e-06), "cgnr": (58, 3.72e-06), "lsqr": (58, 3.72e-06), "ir": (10, 7.06e-09),
+    "lsq": (3.85e-10, 553.8), "hyb": (181, None), "bf16": (130, 1.18e-07),
+    "multi": ([35, 41], [3.02e-06, 5.46e-06]), "blockcg": ([32, 32], [3.45e-06, 4.54e-06]),
+    "ir_multi": ([80, 50], [1.43e-11, 3.34e-09]), "ckpt_interrupted": (20, False),
+    "ckpt": (37, 5.77e-06), "dist cg+bjilu": (49, 4.76e-06), "dist cg+saamg": (6, 4.12e-06),
+    "dist bicgstab+bjilu": (31, 4.96e-06)}
+# sections whose count is a rounding class (fp32 / bf16 inner solves,
+# ROADMAP C 8-10): held to their residual bound instead of JAX's count
+TOUR_ROUNDING = {"ir": 1e-7 * 64, "ir_multi": None, "bf16": 1e-8 * 64}
+
+
+def phase_examples(lt, np, torch, dev, counters, card):
+    """Phase 34: ``python -m lssp_tpu_torch.examples.tour`` and
+    ``.distributed`` at their full sizes on the card, each section held to
+    JAX's CPU count ± 2 (``JAX_CPU_TOUR``), or to its residual where the
+    count is a rounding class."""
+    import contextlib
+    import io
+    from lssp_tpu_torch.examples import distributed, tour
+    t_phase = time.perf_counter()
+    got = {}
+    for mod in (tour, distributed):
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = mod.main(["--device", str(dev)])
+        print(out.getvalue().rstrip())
+        print(f"examples.{mod.__name__.rsplit('.', 1)[1]} [{card}]: "
+              f"{time.perf_counter() - t0:.1f} s")
+        got.update(res if mod is tour else {f"dist {k}": v[:2] for k, v in res.items()})
+    ns = 64
+    Bn = np.linalg.norm(np.stack([np.ones(ns * ns),
+                                  np.random.default_rng(0).standard_normal(ns * ns)]), axis=1)
+    for cell, ref in JAX_CPU_TOUR.items():
+        val = got[cell]
+        if cell == "lsq":
+            check(val[0] <= 1e-6, f"tour lsq: qr error {val[0]:.2e} > 1e-6")
+        elif cell in TOUR_ROUNDING:
+            if cell == "ir_multi":
+                ok = all(r <= 1e-10 * bn * 1.1 for r, bn in zip(val[1], Bn))
+            else:
+                ok = val[1] <= TOUR_ROUNDING[cell]
+            check(ok, f"tour {cell}: residual {val[1]} past its bound")
+        elif isinstance(ref[0], list):
+            check(all(abs(a - r) <= 2 for a, r in zip(val[0], ref[0])),
+                  f"tour {cell}: counts {val[0]}, JAX CPU {ref[0]} ± 2")
+        else:
+            check(abs(val[0] - ref[0]) <= 2, f"tour {cell}: count {val[0]}, JAX CPU {ref[0]} ± 2")
+    print("phase 34 examples against JAX's CPU: " + json.dumps(
+        {c: [got[c][0], JAX_CPU_TOUR[c][0]] for c in JAX_CPU_TOUR if c != "lsq"}))
+    print(f"phase 34 (examples): {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3041,7 +3572,8 @@ def main():
         counters = (dia_spmv, fused_neumann_apply, hyb_spmv, dia_spmv_ext, dia_spmm,
                     neumann_block_apply, hyb_spmm, dia_spmm_ext)
         for phase, fn in (("28", phase_transpose), ("29", phase_relax), ("30", phase_direct),
-                          ("31", phase_ilutp_arms_ca)):
+                          ("31", phase_ilutp_arms_ca), ("32", phase_bf16), ("33", phase_utils),
+                          ("34", phase_examples)):
             if phase in only:
                 print(json.dumps({f"phase {phase} max_abs_err": fn(lt, np, torch, dev, counters,
                                                                     card)}))
@@ -3087,6 +3619,9 @@ def main():
     relax_errs = phase_relax(lt, np, torch, dev, counters, card)
     direct_errs = phase_direct(lt, np, torch, dev, counters, card)
     ca_errs = phase_ilutp_arms_ca(lt, np, torch, dev, counters, card)
+    bf16 = phase_bf16(lt, np, torch, dev, counters, card)
+    phase_utils(lt, np, torch, dev, counters, card)
+    phase_examples(lt, np, torch, dev, counters, card)
     library = phase_library(lt, np, torch, dev, card)
     # each kernel's error is the worst over its own phase and the later
     # phases' checks on their own data
@@ -3136,6 +3671,12 @@ def main():
     ]
     for entry in kernels:
         entry.update(library[entry["name"]])
+    # the bf16 forms (phase 32): times, library and bound at their own shapes
+    for entry in list(kernels):
+        e = bf16.get(entry["name"] + "_bf16")
+        if e is not None:
+            kernels.append(dict(entry, name=entry["name"] + "_bf16",
+                                replaces=entry["replaces"] + " (bf16)", **e))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -207,6 +207,14 @@ def check_status(name: str, status: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
 
 
+def launched(counter, suf: str) -> None:
+    """Count one launch on the wrapper ``counter``: ``counter.launches``,
+    and ``counter.by_dtype[suf]`` by entry suffix (f32, f64, bf16), so a run
+    can show which precision's kernel its path took."""
+    counter.launches += 1
+    counter.by_dtype[suf] = counter.by_dtype.get(suf, 0) + 1
+
+
 # set by utils.debug.nan_guard: the ctypes launches are invisible to its
 # TorchDispatchMode, so while it is on each wrapper checks its output here
 nan_check = False

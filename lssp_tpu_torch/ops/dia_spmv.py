@@ -92,12 +92,13 @@ def dia_spmv(A: DIA, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
                 _kernels.ptr(x), float(alpha), float(beta), _kernels.ptr(z),
                 _kernels.ptr(y), _kernels.stream_ptr(x.device))
     _kernels.check_status("dia_spmv", status)
-    dia_spmv.launches += 1
+    _kernels.launched(dia_spmv, suf)
     _kernels.check_nan("dia_spmv", y)
     return y
 
 
 dia_spmv.launches = 0
+dia_spmv.by_dtype = {}
 
 
 def dia_spmm_plain(data: torch.Tensor, offsets, X: torch.Tensor, alpha: float = 1.0,
@@ -131,9 +132,10 @@ def dia_spmm(A: DIA, X: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
                 _kernels.ptr(X), float(alpha), float(beta), _kernels.ptr(Z),
                 _kernels.ptr(Y), _kernels.stream_ptr(X.device))
     _kernels.check_status("dia_spmm", status)
-    dia_spmm.launches += 1
+    _kernels.launched(dia_spmm, suf)
     _kernels.check_nan("dia_spmm", Y)
     return Y
 
 
 dia_spmm.launches = 0
+dia_spmm.by_dtype = {}

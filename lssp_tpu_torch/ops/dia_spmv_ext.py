@@ -82,12 +82,13 @@ def dia_spmv_ext(data: torch.Tensor, offsets, x_ext: torch.Tensor, alpha: float 
     status = fn(p(data), p(offsets_t), ndiag, P, R, R + lo + hi, lo, p(x_ext),
                 float(alpha), float(beta), p(z), p(y), _kernels.stream_ptr(x_ext.device))
     _kernels.check_status("dia_spmv_ext", status)
-    dia_spmv_ext.launches += 1
+    _kernels.launched(dia_spmv_ext, suf)
     _kernels.check_nan("dia_spmv_ext", y)
     return y
 
 
 dia_spmv_ext.launches = 0
+dia_spmv_ext.by_dtype = {}
 
 
 def dia_spmm_ext_plain(data: torch.Tensor, offsets, x_ext: torch.Tensor,
@@ -135,9 +136,10 @@ def dia_spmm_ext(data: torch.Tensor, offsets, x_ext: torch.Tensor, alpha: float 
     status = fn(p(data), p(offsets_t), ndiag, P, R, R + lo + hi, lo, k, p(x_ext),
                 float(alpha), float(beta), p(z), p(y), _kernels.stream_ptr(x_ext.device))
     _kernels.check_status("dia_spmm_ext", status)
-    dia_spmm_ext.launches += 1
+    _kernels.launched(dia_spmm_ext, suf)
     _kernels.check_nan("dia_spmm_ext", y)
     return y
 
 
 dia_spmm_ext.launches = 0
+dia_spmm_ext.by_dtype = {}

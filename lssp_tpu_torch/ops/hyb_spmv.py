@@ -81,12 +81,13 @@ def hyb_spmv(H: HYB, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
                 p(x), float(alpha), float(beta), p(z), p(y),
                 _kernels.stream_ptr(x.device))
     _kernels.check_status("hyb_spmv", status)
-    hyb_spmv.launches += 1
+    _kernels.launched(hyb_spmv, suf)
     _kernels.check_nan("hyb_spmv", y)
     return y
 
 
 hyb_spmv.launches = 0
+hyb_spmv.by_dtype = {}
 
 
 def hyb_spmm_plain(H: HYB, X: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
@@ -116,9 +117,10 @@ def hyb_spmm(H: HYB, X: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
                 p(X), float(alpha), float(beta), p(Z), p(Y),
                 _kernels.stream_ptr(X.device))
     _kernels.check_status("hyb_spmm", status)
-    hyb_spmm.launches += 1
+    _kernels.launched(hyb_spmm, suf)
     _kernels.check_nan("hyb_spmm", Y)
     return Y
 
 
 hyb_spmm.launches = 0
+hyb_spmm.by_dtype = {}

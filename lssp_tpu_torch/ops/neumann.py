@@ -486,7 +486,7 @@ def _apply(plan: FusedNeumann, r: torch.Tensor, k: int, counter) -> torch.Tensor
         (ctypes.c_int * len(waits))(*waits), *halos, kt, sched.grid,
         _kernels.stream_ptr(r.device))
     _kernels.check_status(f"lssp_neumann_apply_{suf}", status)
-    counter.launches += 1
+    _kernels.launched(counter, suf)
     _kernels.check_nan(f"lssp_neumann_apply_{suf}", out)
     return out
 
@@ -515,6 +515,7 @@ def fused_neumann_apply(plan: FusedNeumann, r: torch.Tensor) -> torch.Tensor:
 
 
 fused_neumann_apply.launches = 0
+fused_neumann_apply.by_dtype = {}
 
 
 def neumann_block_apply(plan: FusedNeumann, R: torch.Tensor) -> torch.Tensor:
@@ -534,3 +535,4 @@ def neumann_block_apply(plan: FusedNeumann, R: torch.Tensor) -> torch.Tensor:
 
 
 neumann_block_apply.launches = 0
+neumann_block_apply.by_dtype = {}

@@ -18,12 +18,21 @@ def _first_nan(out):
     return False
 
 
+# ops whose output is uninitialized memory, which may hold any bit pattern
+_UNINITIALIZED = frozenset(("empty", "empty_like", "empty_strided", "new_empty",
+                            "new_empty_strided", "resize_"))
+
+
 class _NanMode(TorchDispatchMode):
     """Sees every aten op, in-place ones included, and raises at the first
-    whose output holds a NaN."""
+    whose output holds a NaN.  Views are not checked (they produce no
+    value, and may show a buffer not yet written), nor are allocations of
+    uninitialized memory."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
+        if func.is_view or func.overloadpacket.__name__ in _UNINITIALIZED:
+            return out
         if _first_nan(out):
             raise FloatingPointError(f"nan_guard: {func} produced a NaN")
         return out

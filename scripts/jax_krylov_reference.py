@@ -10,6 +10,8 @@ the card are held to, and with ``--port`` the port's own.
                                                               [cell ...]
     JAX_PLATFORMS=cpu python3 scripts/jax_krylov_reference.py [--port [--device D]] [--ulp32]
                                                               30|31 [cell ...]
+    JAX_PLATFORMS=cpu python3 scripts/jax_krylov_reference.py [--port [--device D]] 32 [method ...]
+    JAX_PLATFORMS=cpu python3 scripts/jax_krylov_reference.py [--port [--device D]] [--exact] tour
     JAX_PLATFORMS=cpu python3 scripts/jax_krylov_reference.py --shadow
     JAX_PLATFORMS=cpu python3 scripts/jax_krylov_reference.py --ratchet-ulp [--part i/k] [key ...]
 
@@ -86,6 +88,16 @@ The direct-solver cells (``chip_smoke.py`` phases 30-31), one JSON line each:
   (6 sweeps) on 128³ with cg, pipecg, gmres(30) and cagmres(30); and
   ``dist_solve_ir`` pipecg + bjilu on 128³ over 8 shards.
 
+``32``: ``solve_ir`` with the bf16 inner solve (``run_bf16``): cg + ILU(0)
+on 64³, and bicgstab / gmres / cg + ILU(0) on the strayed 64³; ~5 s to
+~3 min a cell for JAX.
+
+``tour``: every section of ``examples/tour.py`` and
+``examples/distributed.py`` (``tour_cells``; the sizes of
+``lssp_tpu_torch/examples/tour.py``), one JSON line each, with the
+ILU-family PCs at 6 Neumann sweeps, the card's route (``--exact``: the
+CPU default, the exact solve); about 1 min for JAX.
+
 ``--ratchet-ulp`` goes through the ``tests/golden/ratchet.json`` keys the
 port holds (N = 32 and N = 100 on the 2-D Laplacian, b = 1, restart 60,
 maxit 2000 / 3000, ILU exact, ``biluk`` with ``num_blocks`` = n/4, as
@@ -112,11 +124,13 @@ import importlib
 import json
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
+import scipy.sparse as sp  # noqa: E402
 import torch  # noqa: E402
 
 import lssp_tpu_torch as T  # noqa: E402
@@ -129,7 +143,7 @@ METHODS = ["cgs", "cr", "crs", "bicrstab", "bicgsafe", "bicrsafe", "gpbicg", "gp
 
 
 def jax_package():
-    if ("28dist" in sys.argv or "31" in sys.argv) and "xla_force_host_platform_device_count" not in \
+    if ("28dist" in sys.argv or "31" in sys.argv or "tour" in sys.argv) and "xla_force_host_platform_device_count" not in \
             os.environ.get("XLA_FLAGS", ""):
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                    + " --xla_force_host_platform_device_count=8").strip()
@@ -546,6 +560,153 @@ def run_direct(M, kw, phases, only, bump, ulp):
             print(json.dumps(line), flush=True)
 
 
+def tour_cells(M, kw, scale=1.0, sweeps=None, dist=True):
+    """The sections of ``examples/tour.py`` and ``examples/distributed.py``
+    for the package ``M`` (``lssp_tpu``, or the port with ``kw`` its
+    device), as ``lssp_tpu_torch/examples/tour.py`` sizes them at
+    ``scale``: {section: (count, true residual)} (``lsq``: the two relative
+    errors; the multi-rhs sections: per-column lists).  ``sweeps``: the
+    ILU-family PCs' ``ilu_sweeps`` (None: the package default, exact on
+    the CPU; 6 is the card's and the TPU's default)."""
+    from lssp_tpu_torch.examples.tour import sizes
+    port = M is T
+    dev = kw.get("device", "cpu")
+    z = sizes(scale)
+    pco = M.PCOptions(ilu_sweeps=sweeps)
+
+    def vec(v):
+        return torch.as_tensor(np.asarray(v, np.float64), device=dev) if port else \
+            np.asarray(v, np.float64)
+
+    def host(x):
+        return x.cpu().double().numpy() if port else np.asarray(x, np.float64)
+
+    def res(A, x, b):
+        return float(np.linalg.norm(np.asarray(b, np.float64) - A.to_scipy() @ host(x)))
+
+    out = {}
+    A = M.sparse.convection_diffusion_2d(z["nc"], beta=15.0)
+    S = M.sparse.laplacian_2d(z["ns"])
+    b, bs = np.ones(A.shape[0]), np.ones(S.shape[0])
+    x, info = M.solve(A, vec(b), method="direct")
+    out["direct"] = (int(info.nits), res(A, x, b))
+    for pc in ("arms", "amg", "rsamg", "iluk"):
+        x, info = M.solve(S, vec(bs), method="cg", pc=pc, pc_options=pco)
+        out[f"cg+{pc}"] = (int(info.nits), res(S, x, bs))
+    for m in ("bicg", "qmr", "cgnr", "lsqr"):
+        x, info = M.solve(A, vec(b), method=m, pc="ilut", pc_options=pco)
+        out[m] = (int(info.nits), res(A, x, b))
+    x, info = M.solve_ir(S, vec(bs), method="cg", pc="amg", **kw)
+    out["ir"] = (int(info.nits), res(S, x, bs))
+    rng = np.random.default_rng(0)
+    m, k = z["m"], z["k"]
+    T0 = sp.random(m, k, density=0.03, random_state=1, format="csr")
+    T0 = (T0 + sp.vstack([sp.eye(k), sp.csr_matrix((m - k, k))])).tocsr()
+    Tm = M.sparse.CSR.from_scipy(T0 @ sp.diags(np.logspace(0, -8, k)))
+    xt = rng.standard_normal(k)
+    bt = Tm.to_scipy() @ xt
+    xq, _ = M.solve_lsq(Tm, bt, **kw)
+    xn, _ = M.solve_lsq(Tm, bt, method="normal", **kw)
+    out["lsq"] = tuple(float(np.linalg.norm(host(v) - xt) / np.linalg.norm(xt)) for v in (xq, xn))
+    nh = z["nh"]
+    Sh = M.sparse.laplacian_2d(nh).to_scipy().tolil()
+    for i, j in zip(rng.integers(0, nh * nh, z["strays"]), rng.integers(0, nh * nh, z["strays"])):
+        Sh[i, j] += 0.02
+    Ah = M.sparse.CSR.from_scipy(Sh.tocsr())
+    _, ih = M.solve(Ah, vec(np.ones(nh * nh)), method="gmres")
+    out["hyb"] = (int(ih.nits), None)
+    bf16 = torch.bfloat16 if port else importlib.import_module("jax.numpy").bfloat16
+    x, info = M.solve_ir(S, vec(bs), method="cg", pc="ilu0", inner_dtype=bf16, inner_rtol=3e-2,
+                         options=M.SolverOptions(rtol=1e-8, atol=0.0, rbtol=0.0), max_outer=60,
+                         pc_options=pco, **kw)
+    out["bf16"] = (int(info.nits), res(S, x, bs))
+    Bm = np.stack([bs, rng.standard_normal(S.shape[0])], axis=1)
+
+    def cols(X):
+        return [float(np.linalg.norm(Bm[:, j] - S.to_scipy() @ host(X)[:, j])) for j in range(2)]
+    X, im = M.solve_multi(S, vec(Bm), method="cg", pc="iluk", pc_options=pco)
+    out["multi"] = ([int(v) for v in np.asarray(im.nits)], cols(X))
+    X, ib = M.solve_multi(S, vec(Bm), method="blockcg", pc="iluk", pc_options=pco)
+    out["blockcg"] = ([int(v) for v in np.asarray(ib.nits)], cols(X))
+    X, ir_ = M.solve_ir_multi(S, vec(Bm), method="blockcg", pc="iluk", pc_options=pco,
+                              options=M.SolverOptions(rtol=1e-10, atol=0.0), **kw)
+    out["ir_multi"] = ([int(v) for v in np.asarray(ir_.nits)], cols(X))
+    ck = importlib.import_module(("lssp_tpu_torch" if port else "lssp_tpu")
+                                 + ".utils.checkpoint").checkpointed_solve
+    path = os.path.join(tempfile.mkdtemp(prefix="lssp_tour_ref_"), "run.ckpt")
+    ckw = dict(every=20, method="cg", pc="iluk", pc_options=pco, **kw)
+    _, info = ck(S, vec(bs), path, max_rounds=1, **ckw)
+    out["ckpt_interrupted"] = (int(info.nits), bool(info.converged))
+    x, info = ck(S, vec(bs), path, **ckw)
+    out["ckpt"] = (int(info.nits), res(S, x, bs))
+    if dist:
+        L = M.sparse.laplacian_2d(z["ns"])
+        if port:
+            mesh = T.make_mesh(8, devices=[dev] * 8)
+            dsolve = T.dist_solve
+        else:
+            from lssp_tpu.parallel.dist_solve import dist_solve as dsolve, make_mesh
+            mesh = make_mesh(8)
+        bl = np.ones(L.shape[0])
+        for method, pc in (("cg", "bjilu"), ("cg", "saamg"), ("bicgstab", "bjilu")):
+            x, info = dsolve(L, vec(bl), method=method, pc=pc, mesh=mesh,
+                             options=M.SolverOptions(maxit=500), pc_options=pco)
+            out[f"dist {method}+{pc}"] = (int(info.nits), res(L, x, bl))
+    return out
+
+
+def strayed_3d(M, N, seed=5):
+    """``chip_smoke.py: strayed_grid``'s 3-D recipe: the Laplacian N³ plus
+    max(n // 200, 8) entries of 0.01 from default_rng(seed)."""
+    S = M.sparse.laplacian_3d(N).to_scipy().tocoo()
+    n = S.shape[0]
+    rng = np.random.default_rng(seed)
+    k = max(n // 200, 8)
+    r, c = rng.integers(0, n, k), rng.integers(0, n, k)
+    return M.sparse.CSR.from_scipy((S + sp.coo_matrix((np.full(k, 0.01), (r, c)),
+                                                      shape=S.shape)).tocsr())
+
+
+def run_bf16(M, kw, only):
+    """``32``: ``solve_ir`` with a bf16 inner solve (inner_rtol 3e-2,
+    max_outer 60, rtol 1e-8, ILU(0) at 6 sweeps), b = 1: cg on the 3-D
+    Laplacian 64³ (the cell ``chip_smoke.py`` phase 32 holds), and
+    bicgstab, gmres and cg on the strayed 64³ (phase 8's recipe at 64³)."""
+    bf16 = torch.bfloat16 if M is T else importlib.import_module("jax.numpy").bfloat16
+    cells = [("cg", "laplacian_3d(64)", lambda: M.sparse.laplacian_3d(64))] + [
+        (m, "laplacian_3d(64)+strays", lambda: strayed_3d(M, 64))
+        for m in ("bicgstab", "gmres", "cg")]
+    for method, name, make in cells:
+        if only and method not in only:
+            continue
+        A = make()
+        n = A.shape[0]
+        b = torch.ones(n, dtype=torch.float64, device=DEVICE) if M is T else np.ones(n)
+        t0 = time.perf_counter()
+        x, info = M.solve_ir(A, b, method=method, pc="ilu0", inner_dtype=bf16, inner_rtol=3e-2,
+                             max_outer=60, options=M.SolverOptions(rtol=1e-8, atol=0.0, rbtol=0.0),
+                             pc_options=M.PCOptions(ilu_sweeps=6), **kw)
+        x = x.cpu().numpy() if M is T else np.asarray(x)
+        rr = float(np.linalg.norm(1.0 - A.to_scipy() @ x) / np.sqrt(n))
+        print(json.dumps(dict(package=M.__name__, device=kw.get("device", "cpu"), phase=32,
+                              matrix=name, method=method, nits=int(info.nits),
+                              converged=bool(info.converged), relres=rr,
+                              seconds=round(time.perf_counter() - t0, 1))), flush=True)
+
+
+def run_tour(M, kw):
+    """``tour``: every section of the two examples at full size, with the
+    card's 6 Neumann sweeps (``--exact``: the CPU default), one JSON line
+    each."""
+    sweeps = None if "--exact" in sys.argv else 6
+    t0 = time.perf_counter()
+    for cell, val in tour_cells(M, kw, sweeps=sweeps).items():
+        print(json.dumps(dict(package=M.__name__, device=kw.get("device", "cpu"), phase="tour",
+                              sweeps=sweeps, cell=cell, value=val)), flush=True)
+    print(json.dumps(dict(package=M.__name__, phase="tour",
+                          seconds=round(time.perf_counter() - t0, 1))))
+
+
 def main():
     if "--shadow" in sys.argv:
         return shadow()
@@ -564,7 +725,12 @@ def main():
     bump = float(np.nextafter(np.float32(1), np.float32(2))) if "--ulp32" in sys.argv \
         else np.nextafter(1.0, 2.0)
     args = [a for a in sys.argv[1:] if a not in ("--port", "--ulp", "--ulp32", "--device",
-                                                 DEVICE, "--jax-shadow", "--jax-cap")]
+                                                 DEVICE, "--jax-shadow", "--jax-cap",
+                                                 "--exact")]
+    if "tour" in args:
+        return run_tour(M, kw)
+    if "32" in args:
+        return run_bf16(M, kw, [a for a in args if a != "32"])
     direct = [a for a in args if a in DIRECT_PHASES]
     if direct:
         return run_direct(M, kw, direct, [a for a in args if a not in direct], bump, ulp)
