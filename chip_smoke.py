@@ -3675,8 +3675,9 @@ def main():
     for entry in list(kernels):
         e = bf16.get(entry["name"] + "_bf16")
         if e is not None:
-            kernels.append(dict(entry, name=entry["name"] + "_bf16",
-                                replaces=entry["replaces"] + " (bf16)", **e))
+            kernels.append(dict(name=entry["name"] + "_bf16", route=entry["route"],
+                                source=entry["source"], replaces=entry["replaces"] + " (bf16)",
+                                **e))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""The reference's example program (/root/reference/example/exam.cxx:
+"""The reference's example program (reference example/exam.cxx:
 61-127), as ``examples/exam.py`` runs it off the TPU: 2-D 5-point
 Laplacian at N = 100, GMRES(60) + ILU(1) through the ``Solver``
 lifecycle in fp64, maxit 3000, b = 1, x0 = 0, then the independent

@@ -1,5 +1,5 @@
 """BLAS-1 vector operations (``lssp_tpu/ops/blas1.py``; reference
-/root/reference/src/vector.cxx:31-146), for API parity.  ``dot`` and
+reference src/vector.cxx:31-146), for API parity.  ``dot`` and
 ``norm2`` go through ``solvers/base.dot``, the port's one reduction order
 (fixed pairwise on the CPU for any thread count, cuBLAS on the card)."""
 from __future__ import annotations

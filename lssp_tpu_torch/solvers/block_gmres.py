@@ -33,7 +33,7 @@ from lssp_tpu_torch.solvers.base import (
     SolveInfo, chunked_gram as gram, gram_norms, history_init_block, history_update_block,
     init_state, ridge, to_host,
 )
-from lssp_tpu_torch.sparse.types import host_dtype
+from lssp_tpu_torch.sparse.types import numpy_dtype
 
 
 def _cholqr2(W, floor):
@@ -83,7 +83,7 @@ def block_gmres(A, B, X0=None, M=None, opts=None):
     n, k = B.shape
     m = max(1, min(int(opts.restart), int(opts.maxit)))
     dtype = B.dtype
-    dt = host_dtype(dtype).type
+    dt = numpy_dtype(dtype).type
     eps = float(np.finfo(dt).eps)
     floor = float(np.sqrt(np.finfo(dt).tiny))       # stays normal after ·eps
     bnorm, r0norm = to_host(gram_norms(B), gram_norms(R))

@@ -15,7 +15,7 @@ from lssp_tpu_torch.solvers.base import dot as base_dot, init_state, norm
 from lssp_tpu_torch.solvers.lanes import Lanes, combine
 from lssp_tpu_torch.solvers.lgmres import arnoldi, solve_ym
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
-from lssp_tpu_torch.sparse.types import host_dtype
+from lssp_tpu_torch.sparse.types import numpy_dtype
 
 
 @register_batched("fgmres")
@@ -24,7 +24,7 @@ def fgmres(A, b, x0=None, M=None, opts=None, dot=base_dot):
     m = opts.restart
     op, pc, x, rg = init_state(A, b, x0, M)
     L = Lanes(b, rg, opts, dot=dot)
-    dt = host_dtype(b.dtype).type
+    dt = numpy_dtype(b.dtype).type
     tol = L.tol.astype(dt)
     tiny = torch.finfo(b.dtype).tiny
     while L.active.any():

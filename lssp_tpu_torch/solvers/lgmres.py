@@ -24,7 +24,7 @@ from lssp_tpu_torch.solvers.base import dot as base_dot, init_state, nonzero, no
 from lssp_tpu_torch.solvers.gmres import _givens_step, _solve_ym
 from lssp_tpu_torch.solvers.lanes import Lanes, combine
 from lssp_tpu_torch.solvers.registry import register_batched, register_solver
-from lssp_tpu_torch.sparse.types import host_dtype
+from lssp_tpu_torch.sparse.types import numpy_dtype
 
 
 def arnoldi(column, v0, beta_p, m, itr, maxit, tol, breakdown, live, check_maxit, discard,
@@ -40,7 +40,7 @@ def arnoldi(column, v0, beta_p, m, itr, maxit, tol, breakdown, live, check_maxit
     kept on a stop).  ``dot``: the solve's inner product.  Returns (V,
     H (K, m+1, m), g (K, m+1), kk (K,), itr, |g[kk]| (K,)) with K lanes;
     ``itr`` and the estimates in the lane shape."""
-    dt = host_dtype(v0.dtype).type
+    dt = numpy_dtype(v0.dtype).type
     shape = np.shape(live)
     K = int(np.prod(shape))
     V = v0.new_zeros((m,) + tuple(v0.shape))
@@ -101,7 +101,7 @@ def _lgmres(A, b, x0, M, opts, right, dot):
     m_max = mk + auk
     op, pc, x, rg = init_state(A, b, x0, M)
     L = Lanes(b, rg, opts, dot=dot)
-    dt = host_dtype(b.dtype).type
+    dt = numpy_dtype(b.dtype).type
     tiny = np.finfo(dt).tiny
     tol = L.tol.astype(dt)
     rtol = tol / np.maximum(L.r0norm.astype(dt), tiny)

@@ -1,7 +1,7 @@
 """Checkpoint and resume (``lssp_tpu/utils/checkpoint.py``).
 
 The reference has none; its solvers warm-restart from x (r0 = b − A·x,
-/root/reference/src/solver-cg.cxx:59) and cache factorizations behind
+reference src/solver-cg.cxx:59) and cache factorizations behind
 ``factored`` flags.  A checkpoint makes both durable: the iterate x, the
 preconditioner (factors, level schedules, plans, hierarchies), the
 ``SolveInfo`` and any extras.

@@ -1,5 +1,5 @@
 """Logging and wall-clock timers (``lssp_tpu/utils/log.py``; the reference's
-lssp_printf tee, /root/reference/src/utils.cxx:93-112, global verbosity
+lssp_printf tee, reference src/utils.cxx:93-112, global verbosity
 :20, timer :40-46).
 
 Every line the port prints goes through ``log``: the solvers'
@@ -44,7 +44,7 @@ def log(msg: str, level: int = 1) -> None:
 
 def warning(msg: str) -> None:
     """Non-fatal warning on stderr, tee'd like ``log`` (reference
-    lssp_warning, /root/reference/src/utils.cxx:137-157: prints, does not
+    lssp_warning, reference src/utils.cxx:137-157: prints, does not
     exit)."""
     line = f"warning: {msg}"
     if _verbosity >= 1:

@@ -1,5 +1,5 @@
 """Memory observability (``lssp_tpu/utils/memory.py``; the reference's
-lssp_mem_cur / peak via getrusage RSS, /root/reference/src/utils.cxx:
+lssp_mem_cur / peak via getrusage RSS, reference src/utils.cxx:
 68-91): host RSS, and the CUDA caching allocator's view of each card."""
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 traces and ranges, derived SpMV throughput, and the setup-phase ledger.
 
 The reference times assemble and PC assemble separately
-(/root/reference/src/lssp.cxx:162-184, pc.cxx:83-236); ``prepare_ir``,
+(reference src/lssp.cxx:162-184, pc.cxx:83-236); ``prepare_ir``,
 the facade and the AMG setups fill the same ledger under JAX's phase
 names, so a harness can itemize setup: ``reorder_convert``, ``upload``,
 ``pc_build`` (``solvers/refine.prepare_ir``), ``saamg_host_levels``,

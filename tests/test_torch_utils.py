@@ -3,6 +3,7 @@
 import io
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,6 +36,8 @@ def test_solver_trace_equals_jax(capsys):
     verbosity 2): the port prints JAX's stdout line for line, the phase
     times masked, the residuals to 1e-6 (the last, at round-off, to 1e-12
     absolute); set_log tees every line, the trace included."""
+    jax.effects_barrier()                   # nothing pending from an earlier test
+    capsys.readouterr()
     Aj, At = J.sparse.laplacian_2d(8), T.sparse.laplacian_2d(8)
     jbuf, tbuf = io.StringIO(), io.StringIO()
     sj = J.Solver(method="cg", pc="jacobi", options=J.SolverOptions(verbosity=2))
@@ -42,6 +45,7 @@ def test_solver_trace_equals_jax(capsys):
     try:
         sj.assemble(Aj, jnp.ones(64))
         sj.solve()
+        jax.effects_barrier()               # JAX's debug prints arrive asynchronously
     finally:
         j_set_log(None)
     jout = capsys.readouterr().out
@@ -186,3 +190,23 @@ def test_nan_guard_and_check_finite():
     bad[[7, 3]] = [np.inf, np.nan]
     with pytest.raises(FloatingPointError, match=r"y contains 2 non-finite entries \(first at index 3\)"):
         check_finite(torch.from_numpy(bad), "y")
+
+
+def test_dist_trace_equals_jax(capsys):
+    """The distributed launcher's trace: JAX prints each iteration's line
+    once per shard (a debug print inside shard_map); the port prints it
+    once, with the same values."""
+    from lssp_tpu.parallel.dist_solve import dist_solve as j_dist_solve, make_mesh as j_mesh
+    jax.effects_barrier()                   # nothing pending from an earlier test
+    capsys.readouterr()
+    Aj, At = J.sparse.laplacian_2d(16), T.sparse.laplacian_2d(16)
+    j_dist_solve(Aj, jnp.ones(256), method="cg", pc="jacobi", mesh=j_mesh(8),
+                 options=J.SolverOptions(verbosity=1))
+    jax.effects_barrier()                   # JAX's debug prints arrive asynchronously
+    jl, jv = _masked(capsys.readouterr().out)
+    T.dist_solve(At, torch.ones(256, dtype=torch.float64), method="cg", pc="jacobi",
+                 mesh=T.make_mesh(8, devices=["cpu"] * 8), options=T.SolverOptions(verbosity=1))
+    tl, tv = _masked(capsys.readouterr().out)
+    assert len(jl) == 8 * len(tl) and jl[::8] == tl
+    for a, b in zip(jv[::8], tv):
+        np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-12)
