@@ -191,10 +191,15 @@ counter, and its count by dtype, reset just before each solve):
 32. the bf16 forms of K1, K3, K4, K1k, K3k and K4k alone, at phase 2 / 7 /
    11 / 14's shapes, each within one bf16 ulp (7.9e-3 relative, over the
    entries with |y| ≥ 1e-3·max|y|) of its plain version, with device µs,
-   GB/s and share of the bound (the fp32 bytes at 2 bytes an element) and
-   the bf16 ``torch.sparse_csr_tensor`` product's time where torch takes
-   it; then solve_ir cg + ILU(0), bf16 inner, inner_rtol 3e-2, max_outer
-   60, 6 sweeps: 64³ ≤ JAX's CPU count + 15 % (``JAX_CPU_BF16``), 128³
+   GB/s and share of the bound (K3's indices at 4 bytes: nnz_rem·10 +
+   ptr·4) and the bf16 ``torch.sparse_csr_tensor`` product's time where
+   torch takes it; K1 and K3 run on the band ring (``csrc/band_ring.cuh``),
+   held bitwise to the rowwise kernel there and on the 128³ band and
+   strayed HYB, timed in turns with it (rowwise, ring, ring, rowwise), and
+   over every tile and stage count T × S that fits; every bf16 K1 / K3
+   launch of the solve cells below must take the ring; then solve_ir cg +
+   ILU(0), bf16 inner, inner_rtol 3e-2, max_outer 60, 6 sweeps: 64³ ≤
+   JAX's CPU count + 15 % (``JAX_CPU_BF16``), 128³
    beside the fp32 solve's count and warm wall, only K1 in bf16 and K2 on
    its fp32 plan; GMRES(30) + ILU(0) on phase 8's strayed 128³ (K3 in
    bf16), and BiCGSTAB + ILU(0) there reported, not held (JAX's own bf16
@@ -338,6 +343,13 @@ def stack(kernels):
     print(card)
     print(f"stack: torch {torch.__version__}, torch.version.cuda {torch.version.cuda}, "
           f"{nvcc}, kernel build {kernels.build_seconds} s (load {load_s:.3f} s)")
+    # the band ring's kernels (K1 / K3 in bf16): registers, shared memory, spills
+    lines = [l for l in kernels.ptxas_lines("band_ring")
+             if "Compiling entry" in l or "Used" in l or "spill" in l]
+    for line in lines:
+        print(f"ptxas -v {line}")
+    if not lines:
+        print("ptxas -v: the kernel library was built by an earlier process; no report")
     return card
 
 
@@ -3120,10 +3132,81 @@ def reset(counters):
     for fn in counters:
         fn.launches = 0
         fn.by_dtype = {}
+        if hasattr(fn, "by_route"):
+            fn.by_route = {}
 
 
 def bf16_launches(counters):
     return {fn.__name__: dict(fn.by_dtype) for fn in counters if fn.launches}
+
+
+def check_ring_routes(counters, name):
+    """Every bf16 launch of K1 / K3 (the wrappers that count by route) took
+    the band ring.  Returns the routes, for the cell's line."""
+    routes = {}
+    for fn in counters:
+        if hasattr(fn, "by_route") and fn.launches:
+            bf, ring = fn.by_dtype.get("bf16", 0), fn.by_route.get("ring", 0)
+            check(ring == bf, f"{name}: {fn.__name__} {bf} bf16 launches, {ring} on the ring "
+                              f"(routes {fn.by_route})")
+            routes[fn.__name__] = dict(fn.by_route)
+    return routes
+
+
+def check_ring_bitwise(torch, name, ring, rowwise):
+    """The band ring's y against the rowwise kernel's on the same inputs:
+    equal bit for bit (the same fused multiply-adds in the same order, one
+    rounding)."""
+    y, ref = ring(), rowwise()
+    torch.cuda.synchronize()
+    diff = (y.float() - ref.float()).abs().max().item()
+    same = torch.equal(y.view(torch.int16), ref.view(torch.int16))
+    print(f"{name}: ring against rowwise {'bitwise equal' if same else 'DIFFERS'} "
+          f"(max difference {diff:.3e})")
+    check(same, f"{name}: the ring's y differs from the rowwise kernel's by up to {diff:.3e}")
+
+
+def ring_in_turns(card, name, ring, rowwise, bound_ms=None):
+    """Device ms of the rowwise and ring kernels on the same inputs, taken
+    in turns in one call (rowwise, ring, ring, rowwise); returns the means.
+    The share of ``bound_ms`` is printed where the inputs pass the L2."""
+    turns = [graph_ms(f) for f in (rowwise, ring, ring, rowwise)]
+    row, ring_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+
+    def share(t):
+        return "" if bound_ms is None else f" ({bound_ms / t:.1%} of the bound)"
+    print(f"{name} [{card}]: in turns rowwise / ring / ring / rowwise "
+          f"{' / '.join(f'{t * 1e3:.2f}' for t in turns)} us; ring {ring_ms * 1e3:.2f} us"
+          f"{share(ring_ms)}, rowwise {row * 1e3:.2f} us{share(row)}")
+    return ring_ms, row
+
+
+# the ring shapes timed beside the plan's own (T rows a tile, S stages)
+RING_VARIANTS = [(T, S) for T in (512, 1024, 2048) for S in (2, 3, 4)]
+
+
+def ring_variants(torch, card, name, shape, offsets, rem, run, rowwise, bound_ms):
+    """Every (T, S) of ``RING_VARIANTS`` that fits, each held bitwise to the
+    rowwise kernel and timed; the plan's own choice is marked."""
+    from lssp_tpu_torch.ops.dia_spmv import band_tile_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    own = band_tile_plan(shape[0], shape[1], tuple(offsets), 2, False, rem, num_sms=sms)
+    ref = rowwise()
+    out = []
+    for T, S in RING_VARIANTS:
+        plan = band_tile_plan(shape[0], shape[1], tuple(offsets), 2, False, rem, T=T, S=S,
+                              num_sms=sms)
+        if plan.route != "ring":
+            out.append(f"T{T} S{S} {plan.reason}")
+            continue
+        y = run(plan)
+        torch.cuda.synchronize()
+        check(torch.equal(y.view(torch.int16), ref.view(torch.int16)),
+              f"{name} T{T} S{S}: the ring's y differs from the rowwise kernel's")
+        t = graph_ms(lambda: run(plan))
+        mark = " (the plan's)" if (T, S) == (own.T, own.S) else ""
+        out.append(f"T{T} S{S} grid {plan.grid}: {t * 1e3:.2f} us ({bound_ms / t:.1%}){mark}")
+    print(f"{name} ring variants [{card}], each bitwise the rowwise kernel's: " + "; ".join(out))
 
 
 def phase_bf16(lt, np, torch, dev, counters, card):
@@ -3136,7 +3219,8 @@ def phase_bf16(lt, np, torch, dev, counters, card):
     carry bf16).  Counters reset before each path cell; each kernel
     checked on its solve's own bf16 matrix.  Returns the bf16 entries of
     the kernels line."""
-    from lssp_tpu_torch.ops.dia_spmv import dia_spmm, dia_spmm_plain, dia_spmv, dia_spmv_plain
+    from lssp_tpu_torch.ops.dia_spmv import (ROWWISE, dia_spmm, dia_spmm_plain, dia_spmv,
+                                             dia_spmv_plain)
     from lssp_tpu_torch.ops.dia_spmv_ext import (dia_spmm_ext, dia_spmm_ext_plain,
                                                  dia_spmv_ext, dia_spmv_ext_plain)
     from lssp_tpu_torch.ops.hyb_spmv import hyb_spmm, hyb_spmm_plain, hyb_spmv, hyb_spmv_plain
@@ -3155,26 +3239,58 @@ def phase_bf16(lt, np, torch, dev, counters, card):
     D = lt.sparse.csr_to_dia(A, device=dev).to(dtype=bf)
     n, nd = A.shape[0], len(D.offsets)
     x, z = vec(n), vec(n)
-    for alpha, beta, zz in ((0.25, 0.0, None), (-1.0, 1.0, z)):
+    for alpha, beta, zz in ((1.0, 0.0, None), (0.25, 0.0, None), (-1.0, 1.0, z)):
+        reset(counters)
         check_bf16(torch, f"K1 bf16 laplacian_2d(2048) ({alpha}, {beta})",
                    lambda: dia_spmv(D, x, alpha, beta, zz),
                    lambda: dia_spmv_plain(D.data, D.offsets, x, alpha, beta, zz))
+        check(dia_spmv.by_route == {"ring": 1}, f"K1 bf16 2048^2: routes {dia_spmv.by_route}")
+        check_ring_bitwise(
+            torch, f"K1 bf16 laplacian_2d(2048) ({alpha}, {beta})",
+            lambda: dia_spmv(D, x, alpha, beta, zz),
+            lambda: dia_spmv(D, x, alpha, beta, zz, plan=ROWWISE))
     entries["dia_spmv_bf16"] = bf16_kernel(
         np, torch, card, "K1 bf16 laplacian_2d(2048)", lambda: dia_spmv(D, x),
         lambda: dia_spmv_plain(D.data, D.offsets, x), (nd * n + 2 * n) * 2, 2 * A.nnz,
         A.to_scipy(), dev, x)
+    e = entries["dia_spmv_bf16"]
+    e["ms"], e["rowwise_ms"] = ring_in_turns(card, "K1 bf16 laplacian_2d(2048)",
+                                             lambda: dia_spmv(D, x),
+                                             lambda: dia_spmv(D, x, plan=ROWWISE), e["bound_ms"])
+    e.update(kernel_route="ring", source="lssp_tpu_torch/csrc/band_ring.cuh")
+    ring_variants(torch, card, "K1 bf16 laplacian_2d(2048)", A.shape, D.offsets, False,
+                  lambda plan: dia_spmv(D, x, plan=plan), lambda: dia_spmv(D, x, plan=ROWWISE),
+                  e["bound_ms"])
     del D, x, z
     # K3 at phase 7's first shape, the bench HYB matrix (2048² + strays)
     A = strayed_grid(lt, np, 2048, "2d", np.float64)
     H = lt.sparse.csr_to_hyb(A, device=dev).to(dtype=bf)
     n, nd = A.shape[0], len(H.dia.offsets)
     x, z = vec(n), vec(n)
-    check_bf16(torch, "K3 bf16 bench 2048^2+strays (-1, 1, z)",
-               lambda: hyb_spmv(H, x, -1.0, 1.0, z), lambda: hyb_spmv_plain(H, x, -1.0, 1.0, z))
+    for alpha, beta, zz in ((1.0, 0.0, None), (-1.0, 1.0, z)):
+        reset(counters)
+        check_bf16(torch, f"K3 bf16 bench 2048^2+strays ({alpha}, {beta})",
+                   lambda: hyb_spmv(H, x, alpha, beta, zz),
+                   lambda: hyb_spmv_plain(H, x, alpha, beta, zz))
+        check(hyb_spmv.by_route == {"ring": 1}, f"K3 bf16 2048^2: routes {hyb_spmv.by_route}")
+        check_ring_bitwise(
+            torch, f"K3 bf16 bench 2048^2+strays ({alpha}, {beta})",
+            lambda: hyb_spmv(H, x, alpha, beta, zz),
+            lambda: hyb_spmv(H, x, alpha, beta, zz, plan=ROWWISE))
     hyb_bytes = (nd * n + 2 * n) * 2 + H.nnz_rem * 10 + H.rem_block_ptr.numel() * 4
     entries["hyb_spmv_bf16"] = bf16_kernel(
         np, torch, card, "K3 bf16 bench 2048^2+strays", lambda: hyb_spmv(H, x),
         lambda: hyb_spmv_plain(H, x), hyb_bytes, 2 * A.nnz, A.to_scipy(), dev, x)
+    e = entries["hyb_spmv_bf16"]
+    e["ms"], e["rowwise_ms"] = ring_in_turns(card, "K3 bf16 bench 2048^2+strays",
+                                             lambda: hyb_spmv(H, x),
+                                             lambda: hyb_spmv(H, x, plan=ROWWISE), e["bound_ms"])
+    e.update(kernel_route="ring", source="lssp_tpu_torch/csrc/band_ring.cuh")
+    ring_variants(torch, card, "K3 bf16 bench 2048^2+strays", A.shape, H.dia.offsets, True,
+                  lambda plan: hyb_spmv(H, x, plan=plan), lambda: hyb_spmv(H, x, plan=ROWWISE),
+                  e["bound_ms"])
+    k1_ms = entries["dia_spmv_bf16"]["ms"]
+    print(f"K3 bf16 over K1 bf16 at the same band (ring): {e['ms'] / k1_ms - 1:+.1%}")
     del H, x, z
     # K4 at phase 11's 128³ over 8 shards, and the k-rhs forms at phase 14's
     # shapes (128³, k = 8; K3k on phase 8's strayed 128³)
@@ -3201,6 +3317,21 @@ def phase_bf16(lt, np, torch, dev, counters, card):
         A4.to_scipy(), dev, X4)
     D4 = lt.sparse.csr_to_dia(A4, device=dev).to(dtype=bf)
     nd4, n4 = len(D4.offsets), A4.shape[0]
+    # the 7-diagonal 128³ band (offsets ±16,384) on the ring: bitwise the
+    # rowwise kernel's; no share of the bound (its 37.7 MB sit in the L2)
+    v4, w4 = vec(n4), vec(n4)
+    for alpha, beta, zz in ((1.0, 0.0, None), (0.25, 0.0, None), (-1.0, 1.0, w4)):
+        reset(counters)
+        check_bf16(torch, f"K1 bf16 laplacian_3d(128) ({alpha}, {beta})",
+                   lambda: dia_spmv(D4, v4, alpha, beta, zz),
+                   lambda: dia_spmv_plain(D4.data, D4.offsets, v4, alpha, beta, zz))
+        check(dia_spmv.by_route == {"ring": 1}, f"K1 bf16 128^3: routes {dia_spmv.by_route}")
+        check_ring_bitwise(
+            torch, f"K1 bf16 laplacian_3d(128) ({alpha}, {beta})",
+            lambda: dia_spmv(D4, v4, alpha, beta, zz),
+            lambda: dia_spmv(D4, v4, alpha, beta, zz, plan=ROWWISE))
+    ring_in_turns(card, "K1 bf16 laplacian_3d(128) (L2-resident)", lambda: dia_spmv(D4, v4),
+                  lambda: dia_spmv(D4, v4, plan=ROWWISE))
     entries["dia_spmm_bf16"] = bf16_kernel(
         np, torch, card, "K1k bf16 128^3 k=8", lambda: dia_spmm(D4, X4),
         lambda: dia_spmm_plain(D4.data, D4.offsets, X4), (nd4 * n4 + 2 * 8 * n4) * 2,
@@ -3209,6 +3340,20 @@ def phase_bf16(lt, np, torch, dev, counters, card):
     A3 = strayed_grid(lt, np, 128, "3d", np.float64)
     H3 = lt.sparse.csr_to_hyb(A3, device=dev).to(dtype=bf)
     n3, nd3 = A3.shape[0], len(H3.dia.offsets)
+    # phase 8's strayed 128³ HYB on the ring, as the 128³ band above
+    for alpha, beta, zz in ((1.0, 0.0, None), (-1.0, 1.0, w4)):
+        reset(counters)
+        check_bf16(torch, f"K3 bf16 128^3+strays ({alpha}, {beta})",
+                   lambda: hyb_spmv(H3, v4, alpha, beta, zz),
+                   lambda: hyb_spmv_plain(H3, v4, alpha, beta, zz))
+        check(hyb_spmv.by_route == {"ring": 1}, f"K3 bf16 128^3: routes {hyb_spmv.by_route}")
+        check_ring_bitwise(
+            torch, f"K3 bf16 128^3+strays ({alpha}, {beta})",
+            lambda: hyb_spmv(H3, v4, alpha, beta, zz),
+            lambda: hyb_spmv(H3, v4, alpha, beta, zz, plan=ROWWISE))
+    ring_in_turns(card, "K3 bf16 128^3+strays (L2-resident)", lambda: hyb_spmv(H3, v4),
+                  lambda: hyb_spmv(H3, v4, plan=ROWWISE))
+    del v4, w4
     X3 = vec(n3, 8)
     entries["hyb_spmm_bf16"] = bf16_kernel(
         np, torch, card, "K3k bf16 128^3+strays k=8", lambda: hyb_spmm(H3, X3),
@@ -3239,6 +3384,7 @@ def phase_bf16(lt, np, torch, dev, counters, card):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         by = bf16_launches(counters)
+        routes = check_ring_routes(counters, f"bf16 {N}^3")
         rr = true_relres(A, x, np)
         for _ in range(2):                          # the second is the warm fp32 solve
             torch.cuda.synchronize()
@@ -3249,7 +3395,8 @@ def phase_bf16(lt, np, torch, dev, counters, card):
             w32 = time.perf_counter() - t0
         print(f"bf16 solve_ir cg+ilu0 {N}^3 [{card}]: inner its {info.nits} (fp32 inner "
               f"{i32.nits}), true relres {rr:.3e}, setup {setup_s:.3f} s, solve cold "
-              f"{walls[0]:.3f} s, warm {walls[1]:.3f} s (fp32 warm {w32:.3f} s), launches {by}")
+              f"{walls[0]:.3f} s, warm {walls[1]:.3f} s (fp32 warm {w32:.3f} s), launches {by}, "
+              f"routes {routes}")
         check(rr <= 1e-8, f"bf16 {N}^3: true relres {rr:.3e} > 1e-8")
         check(set(by) == {"dia_spmv", "fused_neumann_apply"} and by["dia_spmv"].get("bf16", 0) > 0
               and set(by["fused_neumann_apply"]) == {"f32"},
@@ -3285,9 +3432,10 @@ def phase_bf16(lt, np, torch, dev, counters, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         by = bf16_launches(counters)
+        routes = check_ring_routes(counters, f"bf16 hyb {method}")
         rr = true_relres(A3, x, np)
         print(f"bf16 solve_ir {method}+ilu0 128^3+strays (HYB) [{card}]: inner its {info.nits}, "
-              f"true relres {rr:.3e}, {wall:.3f} s with setup, launches {by}")
+              f"true relres {rr:.3e}, {wall:.3f} s with setup, launches {by}, routes {routes}")
         check(by.get("hyb_spmv", {}).get("bf16", 0) > 0 and "dia_spmv" not in by,
               f"bf16 hyb {method}: launches {by}: K3 in bf16 expected")
         if method == "gmres":
@@ -3313,6 +3461,7 @@ def phase_bf16(lt, np, torch, dev, counters, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     by = bf16_launches(counters)
+    check_ring_routes(counters, "bf16 dist")
     rr = true_relres(A4, x, np)
     print(f"bf16 dist_solve_ir cg+bjilu 128^3 P=8 [{card}]: inner its {info.nits}, true relres "
           f"{rr:.3e}, {wall:.3f} s with setup, launches {by}")
@@ -3350,9 +3499,11 @@ def phase_bf16(lt, np, torch, dev, counters, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         by = bf16_launches(counters)
+        routes = check_ring_routes(counters, f"bf16 {name}")
         rr = block_relres(M_, X, B, np)
         print(f"bf16 {name} k=4 [{card}]: inner its {[int(v) for v in info.nits]}, true relres "
-              f"{[f'{v:.2e}' for v in rr]}, {wall:.3f} s with setup, launches {by}")
+              f"{[f'{v:.2e}' for v in rr]}, {wall:.3f} s with setup, launches {by}, "
+              f"routes {routes}")
         check(max(rr) <= 1e-8, f"bf16 {name}: true relres {max(rr):.3e} > 1e-8")
         check(by.get(kname, {}).get("bf16", 0) > 0, f"bf16 {name}: {kname} never launched in bf16")
         launches[f"{kname.replace('dia_spmm_ext', 'dist_spmm_ext')}_bf16"] = by[kname]["bf16"]
@@ -3675,9 +3826,9 @@ def main():
     for entry in list(kernels):
         e = bf16.get(entry["name"] + "_bf16")
         if e is not None:
-            kernels.append(dict(name=entry["name"] + "_bf16", route=entry["route"],
-                                source=entry["source"], replaces=entry["replaces"] + " (bf16)",
-                                **e))
+            kernels.append({**dict(name=entry["name"] + "_bf16", route=entry["route"],
+                                   source=entry["source"],
+                                   replaces=entry["replaces"] + " (bf16)"), **e})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

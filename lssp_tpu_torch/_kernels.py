@@ -27,6 +27,9 @@ _LIB_PATH = os.path.join(_BUILD_DIR, "libkernels.so")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+# ptxas's report (registers, shared memory, spills) of each compile, kept
+# in ``ptxas_log`` by source name when this process built the library
+PTXAS_FLAGS = ["-Xptxas", "-v"]
 
 # rows per thread block of K3 (csrc/hyb_spmv.cu: kThreads); HYB's
 # remainder index is built for it on the host and checked at launch
@@ -35,6 +38,7 @@ HYB_BLOCK_ROWS = 256
 _lock = threading.Lock()
 _lib = None
 build_seconds = None     # wall seconds of this process's build, None if cached
+ptxas_log = {}           # source basename -> nvcc's stderr, when built here
 
 
 def _sources():
@@ -53,15 +57,16 @@ def nvcc_path() -> str:
                        "cannot be built")
 
 
-def _run_all(cmds) -> None:
+def _run_all(cmds) -> list:
     """Run the commands at once; raise if any fails or runs past 900 s,
-    after ending those still running."""
+    after ending those still running.  Returns each command's stderr."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                     text=True)) for cmd in cmds]
-    failed = []
+    failed, errs = [], []
     try:
         for cmd, proc in procs:
             out, err = proc.communicate(timeout=900)
+            errs.append(err)
             if proc.returncode != 0:
                 failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
     finally:
@@ -71,6 +76,7 @@ def _run_all(cmds) -> None:
                 proc.wait()
     if failed:
         raise RuntimeError("\n".join(failed))
+    return errs
 
 
 def _build() -> None:
@@ -82,9 +88,10 @@ def _build() -> None:
     objs = [os.path.join(_BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in _sources()]
     t0 = time.perf_counter()
     try:
-        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
-        _run_all([[nvcc_path(), *compile_flags, "-c", "-o", o, s]
-                  for s, o in zip(_sources(), objs)])
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"] + PTXAS_FLAGS
+        errs = _run_all([[nvcc_path(), *compile_flags, "-c", "-o", o, s]
+                         for s, o in zip(_sources(), objs)])
+        ptxas_log.update({os.path.basename(s): e for s, e in zip(_sources(), errs)})
         _run_all([[nvcc_path(), *NVCC_FLAGS, "-o", tmp, *objs]])
     finally:
         for o in objs:
@@ -150,8 +157,43 @@ def load():
             fn = getattr(lib, f"lssp_dia_spmm_ext_{suf}")
             fn.argtypes = [p, p, i32, i64, i64, i64, i64, i64, p, f64, f64, p, p, p]
             fn.restype = ctypes.c_int
+        # K1 / K3 bf16 through the band ring (csrc/band_ring.cuh): the
+        # plain arguments, then threads, stages, grid, shared bytes, t_lo,
+        # t_hi (ops/dia_spmv.py: TilePlan), stream
+        ring = [i32, i32, i32, i32, i64, i64, p]
+        lib.lssp_dia_spmv_ring_bf16.argtypes = [p, p, i32, i64, i64, p, f64, f64, p, p] + ring
+        lib.lssp_dia_spmv_ring_bf16.restype = ctypes.c_int
+        lib.lssp_hyb_spmv_ring_bf16.argtypes = ([p, p, i32, i64, i64, p, p, p, p, p, f64, f64,
+                                                 p, p] + ring)
+        lib.lssp_hyb_spmv_ring_bf16.restype = ctypes.c_int
         _lib = lib
         return _lib
+
+
+def ptxas_lines(pattern: str) -> list:
+    """ptxas's lines (registers, shared memory, spills) for the kernels whose
+    mangled name holds ``pattern``, from this process's build; [] when the
+    library was cached."""
+    lines = []
+    for src, err in sorted(ptxas_log.items()):
+        keep = False
+        for line in err.splitlines():
+            if "Compiling entry function" in line or "Function properties for" in line:
+                keep = pattern in line
+            if keep:
+                lines.append(f"{src}: {line.strip()}")
+    return lines
+
+
+_sms = {}
+
+
+def num_sms(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device (memoized)."""
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    if key not in _sms:
+        _sms[key] = torch.cuda.get_device_properties(key).multi_processor_count
+    return _sms[key]
 
 
 SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
@@ -207,12 +249,15 @@ def check_status(name: str, status: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
 
 
-def launched(counter, suf: str) -> None:
+def launched(counter, suf: str, route: str | None = None) -> None:
     """Count one launch on the wrapper ``counter``: ``counter.launches``,
     and ``counter.by_dtype[suf]`` by entry suffix (f32, f64, bf16), so a run
-    can show which precision's kernel its path took."""
+    can show which precision's kernel its path took; with ``route`` (K1 and
+    K3: "ring" or "rowwise") also ``counter.by_route[route]``."""
     counter.launches += 1
     counter.by_dtype[suf] = counter.by_dtype.get(suf, 0) + 1
+    if route is not None:
+        counter.by_route[route] = counter.by_route.get(route, 0) + 1
 
 
 # set by utils.debug.nan_guard: the ctypes launches are invisible to its

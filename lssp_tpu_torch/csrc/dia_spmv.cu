@@ -45,14 +45,25 @@
 // sums in the tile's dtype, rounding every step, so this is the more
 // accurate of the two (ROADMAP C property 16).
 //
-// Later work: a shared-memory x window with its halo, 16-byte vector
-// loads in K1.
+// K1 in bf16, the band ring (csrc/band_ring.cuh; the counterpart of B1
+// with bf16 operands, lssp_tpu/ops/spmv.py:45-50).  Bound: bytes,
+// (ndiag * n + 2n) * 2 (+ 2n with z), about 1 flop a byte.  The
+// one-row-a-thread kernel above moves 2 bytes a load in bf16 and reached
+// 48 % of that bound; the ring streams 1024-row tiles of the band and one
+// x window a diagonal into shared memory with bulk copies that a producer
+// warp keeps up to three tiles ahead, and a thread sums 8 rows from
+// 16-byte shared loads.  y is the
+// rowwise kernel's bit for bit.  The host plan (ops/dia_spmv.py:
+// band_tile_plan) sends a shape to lssp_dia_spmv_ring_bf16 or, when n or
+// ncols is not a multiple of 8, a pointer is not 16-byte aligned or the
+// diagonals do not fit the ring, to the rowwise lssp_dia_spmv_bf16.
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "band_ring.cuh"
 #include "krhs.cuh"
 
 namespace {
@@ -165,6 +176,31 @@ int lssp_dia_spmv_bf16(const void* data, const void* offsets, int ndiag,
                        double beta, const void* z, void* y, void* stream) {
   return launch<__nv_bfloat16>(data, offsets, ndiag, n, ncols, x, alpha, beta, z, y,
                                stream);
+}
+
+// K1 bf16 through the band ring, as the host plan says: threads a block
+// (tile = 8 * threads rows), stages, grid, dynamic shared bytes, interior
+// tiles [t_lo, t_hi).  n and ncols multiples of 8, data / x / z / y 16-byte
+// aligned (else cudaErrorInvalidValue / cudaErrorMisalignedAddress).
+int lssp_dia_spmv_ring_bf16(const void* data, const void* offsets, int ndiag,
+                            int64_t n, int64_t ncols, const void* x, double alpha,
+                            double beta, const void* z, void* y, int threads, int stages,
+                            int grid, int smem, int64_t t_lo, int64_t t_hi, void* stream) {
+  lssp::ring::Params p{};
+  p.data = static_cast<const __nv_bfloat16*>(data);
+  p.offsets = static_cast<const int32_t*>(offsets);
+  p.ndiag = ndiag;
+  p.n = n;
+  p.ncols = ncols;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.alpha = static_cast<float>(alpha);
+  p.beta = static_cast<float>(beta);
+  p.z = static_cast<const __nv_bfloat16*>(z);
+  p.y = static_cast<__nv_bfloat16*>(y);
+  p.stages = stages;
+  p.t_lo = t_lo;
+  p.t_hi = t_hi;
+  return lssp::ring::launch_plan<false>(p, threads, grid, smem, stream);
 }
 
 // K1k.  data: (ndiag, n) row-major; offsets: (ndiag,) int32; X: (ncols, k),

@@ -48,14 +48,28 @@
 // bf16: as K1 (csrc/dia_spmv.cu): bf16 loads, float products, sum and
 // epilogue (lssp::Acc), one rounding at the store.
 //
-// Later work: a shared-memory x window with its halo, 16-byte vector
-// loads, warp-cooperative sums for heavy remainder rows.
+// K3 in bf16, the band ring (csrc/band_ring.cuh; the counterpart of B4
+// with bf16 operands, lssp_tpu/ops/spmv.py:157).  Bound: bytes,
+// (ndiag * n + 2n) * 2 + nnz_rem * 10 + (nblocks + 1) * 4.  The rowwise
+// kernel above reached 36 % of it: on top of K1's 2-byte loads, every
+// thread of a block with remainder entries ran a binary search of global
+// rem_rows, one dependent load after another, before its store.  The ring
+// runs K1's band tiles and stages each tile's remainder slice in shared
+// memory: the slice's rows, columns and values are loaded coalesced a tile
+// ahead, x[col] gathered while the band is summed, and each thread adds its
+// rows' entries from shared memory in CSR order, so y is the rowwise
+// kernel's bit for bit.  The host plan (ops/dia_spmv.py: band_tile_plan,
+// rem=True) picks the ring or the rowwise entry as for K1.
+//
+// Later work: warp-cooperative sums for heavy remainder rows; the ring's
+// remainder pass for fp32 K3.
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "band_ring.cuh"
 #include "krhs.cuh"
 
 namespace {
@@ -234,6 +248,36 @@ int lssp_hyb_spmv_bf16(const void* data, const void* offsets, int ndiag,
                        void* stream) {
   return launch<__nv_bfloat16>(data, offsets, ndiag, n, ncols, rem_rows, rem_cols,
                                rem_vals, rem_block_ptr, x, alpha, beta, z, y, stream);
+}
+
+// K3 bf16 through the band ring, as the host plan says (lssp_dia_spmv_ring_bf16's
+// arguments, with the remainder after the sizes).
+int lssp_hyb_spmv_ring_bf16(const void* data, const void* offsets, int ndiag,
+                            int64_t n, int64_t ncols, const void* rem_rows,
+                            const void* rem_cols, const void* rem_vals,
+                            const void* rem_block_ptr, const void* x, double alpha,
+                            double beta, const void* z, void* y, int threads, int stages,
+                            int grid, int smem, int64_t t_lo, int64_t t_hi, void* stream) {
+  lssp::ring::Params p{};
+  p.data = static_cast<const __nv_bfloat16*>(data);
+  p.offsets = static_cast<const int32_t*>(offsets);
+  p.ndiag = ndiag;
+  p.n = n;
+  p.ncols = ncols;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.alpha = static_cast<float>(alpha);
+  p.beta = static_cast<float>(beta);
+  p.z = static_cast<const __nv_bfloat16*>(z);
+  p.y = static_cast<__nv_bfloat16*>(y);
+  p.stages = stages;
+  p.t_lo = t_lo;
+  p.t_hi = t_hi;
+  p.rem_rows = static_cast<const int32_t*>(rem_rows);
+  p.rem_cols = static_cast<const int32_t*>(rem_cols);
+  p.rem_vals = static_cast<const __nv_bfloat16*>(rem_vals);
+  p.rem_block_ptr = static_cast<const int32_t*>(rem_block_ptr);
+  p.nblocks = (n + kThreads - 1) / kThreads;
+  return lssp::ring::launch_plan<true>(p, threads, grid, smem, stream);
 }
 
 // K3k.  As above, with X: (ncols, k), Z: (n, k) or null and Y: (n, k),

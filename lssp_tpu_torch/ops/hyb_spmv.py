@@ -11,6 +11,9 @@ fallback from one to the other.  Replaces both HYB kernels of
 ``_dia_spmv_hyb_pallas``) and the XLA remainder scatter around them
 (``lssp_tpu/ops/spmv.py: _spmv_hyb``).
 
+In bfloat16 K3 takes the band ring (``csrc/band_ring.cuh``) or the
+rowwise kernel, chosen and counted as K1's (``ops/dia_spmv.py``).
+
 ``hyb_spmm(H, X, alpha, beta, Z)`` is the same on an (n, k) block (the
 layout ``ops/spmv.py`` states) in one launch of K3k, the counterpart of
 the k-rhs ``custom_vmap`` rules of both HYB kernels; ``hyb_spmm_plain`` is
@@ -23,7 +26,7 @@ from typing import Optional
 import torch
 
 from lssp_tpu_torch import _kernels
-from lssp_tpu_torch.ops.dia_spmv import epilogue, shifted_sum
+from lssp_tpu_torch.ops.dia_spmv import TilePlan, epilogue, plan_launch, shifted_sum
 from lssp_tpu_torch.sparse.types import HYB
 
 
@@ -65,29 +68,36 @@ def _check(H: HYB, x: torch.Tensor, z, block: bool = False) -> None:
 
 
 def hyb_spmv(H: HYB, x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,
-             z: Optional[torch.Tensor] = None) -> torch.Tensor:
+             z: Optional[torch.Tensor] = None, plan: Optional[TilePlan] = None) -> torch.Tensor:
     """``y = alpha·(H@x) + beta·z`` (``z`` optional).  CUDA tensors launch
-    K3; CPU tensors take ``hyb_spmv_plain``."""
+    K3; CPU tensors take ``hyb_spmv_plain``.  A bf16 launch takes the ring
+    or the rowwise kernel as for K1 (``ops/dia_spmv.py``: ``plan_launch``,
+    ``rem=True``), or as ``plan`` pins it."""
     if x.device.type == "cpu":
         return hyb_spmv_plain(H, x, alpha, beta, z)
     suf = _kernels.kernel_dtype("hyb_spmv x", x)
     _check(H, x, z)
     n, m = H.shape
     y = torch.empty(n, dtype=x.dtype, device=x.device)
-    p = _kernels.ptr
-    fn = getattr(_kernels.load(), f"lssp_hyb_spmv_{suf}")
-    status = fn(p(H.dia.data), p(H.dia.offsets_t), len(H.dia.offsets), n, m,
-                p(H.rem_rows), p(H.rem_cols), p(H.rem_vals), p(H.rem_block_ptr),
-                p(x), float(alpha), float(beta), p(z), p(y),
-                _kernels.stream_ptr(x.device))
+    if plan is None:
+        plan = plan_launch(H.shape, H.dia.offsets, H.dia.data, x, z, y, rem=True)
+    lib, p = _kernels.load(), _kernels.ptr
+    args = (p(H.dia.data), p(H.dia.offsets_t), len(H.dia.offsets), n, m,
+            p(H.rem_rows), p(H.rem_cols), p(H.rem_vals), p(H.rem_block_ptr),
+            p(x), float(alpha), float(beta), p(z), p(y))
+    if plan.route == "ring":
+        status = lib.lssp_hyb_spmv_ring_bf16(*args, *plan.args, _kernels.stream_ptr(x.device))
+    else:
+        status = getattr(lib, f"lssp_hyb_spmv_{suf}")(*args, _kernels.stream_ptr(x.device))
     _kernels.check_status("hyb_spmv", status)
-    _kernels.launched(hyb_spmv, suf)
+    _kernels.launched(hyb_spmv, suf, plan.route)
     _kernels.check_nan("hyb_spmv", y)
     return y
 
 
 hyb_spmv.launches = 0
 hyb_spmv.by_dtype = {}
+hyb_spmv.by_route = {}
 
 
 def hyb_spmm_plain(H: HYB, X: torch.Tensor, alpha: float = 1.0, beta: float = 0.0,

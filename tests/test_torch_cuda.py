@@ -795,3 +795,156 @@ def test_bf16_kernels_match_plain(cuda, k):
                      else (dia_spmm_ext, dia_spmm_ext_plain))
         y = fn(Md, M.offsets, x_ext, alpha, beta, zz)
         assert y.dtype == bf and _one_ulp(y, plain(Md, M.offsets, x_ext, alpha, beta, zz))
+
+
+# The band ring (csrc/band_ring.cuh): K1 / K3 in bf16 on the shapes the host
+# plan sends to it.  Its y is the rowwise kernel's bit for bit (the same
+# fused multiply-adds in the same order, one rounding), and so within one
+# bf16 ulp of the plain versions.
+
+RING_PINS = [None, (2048, 2), (1024, 4), (512, 3)]
+
+
+def _ring_band(n, ncols, offsets, seed):
+    """A DIA of random bf16 values (zeros where i + off_d leaves [0, ncols))."""
+    rng = np.random.default_rng(seed)
+    data = rng.uniform(-1, 1, (len(offsets), n))
+    for d, off in enumerate(offsets):
+        j = np.arange(n) + off
+        data[d, (j < 0) | (j >= ncols)] = 0.0
+    return lt.DIA(tuple(offsets), torch.from_numpy(data).to(torch.bfloat16), (n, ncols))
+
+
+RING_BANDS = {
+    "lap2d_512": (512 * 512, 512 * 512, (-512, -1, 0, 1, 512)),
+    "lap3d_32": (32 ** 3, 32 ** 3, (-1024, -32, -1, 0, 1, 32, 1024)),
+    "past_both_ends": (1024, 1024, (-1500, -13, 0, 6, 1201)),
+    "tall": (8192, 4096, (-4096, -4095, 0, 3)),
+    "wide": (4096, 8200, (0, 5, 4099, 8196)),
+    "partial_tile": (10000, 10000, (-71, -1, 0, 1, 71)),
+}
+
+
+def _ring_plan(shape, offsets, has_z, pin, rem=False):
+    from lssp_tpu_torch.ops.dia_spmv import band_tile_plan
+    kw = {} if pin is None else dict(T=pin[0], S=pin[1])
+    plan = band_tile_plan(shape[0], shape[1], tuple(offsets), 2, has_z, rem,
+                          num_sms=torch.cuda.get_device_properties(0).multi_processor_count,
+                          **kw)
+    assert plan.route == "ring", plan.reason
+    return plan
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("pin", RING_PINS, ids=lambda p: "plan" if p is None else f"T{p[0]}S{p[1]}")
+@pytest.mark.parametrize("name", list(RING_BANDS))
+def test_ring_k1_equals_rowwise_bitwise(cuda, name, pin):
+    from lssp_tpu_torch.ops.dia_spmv import ROWWISE
+    n, ncols, offs = RING_BANDS[name]
+    D = _ring_band(n, ncols, offs, seed=n).to(device=cuda)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = (torch.rand(ncols, generator=g) * 2 - 1).to(cuda, torch.bfloat16)
+    z = (torch.rand(n, generator=g) * 2 - 1).to(cuda, torch.bfloat16)
+    for alpha, beta, zz in ((1.0, 0.0, None), (0.25, 0.0, None), (-1.0, 1.0, z)):
+        plan = _ring_plan(D.shape, offs, zz is not None, pin)
+        before = dict(dia_spmv.by_route)
+        y = dia_spmv(D, x, alpha, beta, zz, plan=plan)
+        ref = dia_spmv(D, x, alpha, beta, zz, plan=ROWWISE)
+        torch.cuda.synchronize()
+        assert dia_spmv.by_route["ring"] == before.get("ring", 0) + 1
+        assert dia_spmv.by_route["rowwise"] == before.get("rowwise", 0) + 1
+        assert _bits_equal(y, ref), (y.float() - ref.float()).abs().max().item()
+        assert _one_ulp(y, dia_spmv_plain(D.data, D.offsets, x, alpha, beta, zz))
+        # the wrapper's own plan takes the ring too, and repeats bitwise
+        assert _bits_equal(dia_spmv(D, x, alpha, beta, zz), y)
+
+
+def _ring_hyb(kind, cuda):
+    """K3 ring cases on a 2-D Laplacian 128² band (16,384 rows; 10,000 for
+    the last partial tile): an empty remainder, random strays, a tile
+    whose slice spans several shared chunks, a row with 600 entries."""
+    rng = np.random.default_rng(7)
+    n = 10000 if kind == "partial_tile" else 128 * 128
+    offs = (-128, -1, 0, 1, 128)
+    D = _ring_band(n, n, offs, seed=3)
+    if kind == "empty":
+        rows = np.zeros(0, np.int64)
+    elif kind == "random":
+        rows = np.sort(rng.integers(0, n, 2000))
+    elif kind == "heavy_tile":
+        rows = np.sort(np.concatenate([rng.integers(4096, 6144, 3000), rng.integers(0, n, 100)]))
+    elif kind == "heavy_row":
+        rows = np.sort(np.concatenate([np.full(600, 5000), rng.integers(0, n, 100)]))
+    else:
+        rows = np.sort(np.concatenate([rng.integers(0, n, 500), rng.integers(9000, n, 300)]))
+    cols = rng.integers(0, n, len(rows))
+    H = lt.sparse.convert.hyb_from_parts(D.to(dtype=torch.float32), rows, cols,
+                                         0.1 * rng.standard_normal(len(rows)), (n, n))
+    return H.to(device=cuda, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("pin", RING_PINS, ids=lambda p: "plan" if p is None else f"T{p[0]}S{p[1]}")
+@pytest.mark.parametrize("kind", ["empty", "random", "heavy_tile", "heavy_row", "partial_tile"])
+def test_ring_k3_equals_rowwise_bitwise(cuda, kind, pin):
+    from lssp_tpu_torch.ops.dia_spmv import ROWWISE
+    H = _ring_hyb(kind, cuda)
+    n = H.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(9)
+    x = (torch.rand(n, generator=g) * 2 - 1).to(cuda, torch.bfloat16)
+    z = (torch.rand(n, generator=g) * 2 - 1).to(cuda, torch.bfloat16)
+    for alpha, beta, zz in ((1.0, 0.0, None), (-1.0, 1.0, z)):
+        plan = _ring_plan(H.shape, H.dia.offsets, zz is not None, pin, rem=True)
+        before = hyb_spmv.by_route.get("ring", 0)
+        y = hyb_spmv(H, x, alpha, beta, zz, plan=plan)
+        ref = hyb_spmv(H, x, alpha, beta, zz, plan=ROWWISE)
+        torch.cuda.synchronize()
+        assert hyb_spmv.by_route["ring"] == before + 1
+        assert _bits_equal(y, ref), (y.float() - ref.float()).abs().max().item()
+        assert _one_ulp(y, hyb_spmv_plain(H, x, alpha, beta, zz))
+
+
+def test_ring_misaligned_takes_rowwise(cuda):
+    """x one element into its buffer (2 bytes past 16-byte alignment), or n
+    not a multiple of 8: the rowwise kernel, counted as such, the same y."""
+    D = _ring_band(4096, 4096, (-64, -1, 0, 1, 64), seed=1).to(device=cuda)
+    buf = torch.rand(4097, device=cuda).to(torch.bfloat16)
+    x = buf[1:]
+    dia_spmv.by_route.clear()
+    y = dia_spmv(D, x)
+    assert dia_spmv.by_route == {"rowwise": 1}
+    y2 = dia_spmv(D, x.clone())
+    assert dia_spmv.by_route == {"rowwise": 1, "ring": 1} and _bits_equal(y, y2)
+    D7 = _ring_band(4095, 4095, (-64, -1, 0, 1, 64), seed=1).to(device=cuda)
+    dia_spmv(D7, x[:4095].clone())
+    assert dia_spmv.by_route["rowwise"] == 2
+
+
+def test_bf16_solves_on_cuda_take_only_the_ring(cuda):
+    """bf16 solve_ir cg + ILU(0) on 32³ (K1) and gmres(30) on a strayed
+    32³ HYB (K3): every bf16 K1 / K3 launch takes the ring (the fp64 outer
+    residuals take the rowwise fp64 kernels)."""
+    bf = torch.bfloat16
+    kw = dict(inner_dtype=bf, inner_rtol=3e-2, max_outer=60,
+              options=lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, restart=30),
+              pc_options=lt.PCOptions(ilu_sweeps=6))
+    A = lt.sparse.laplacian_3d(32)
+    b = torch.ones(A.shape[0], dtype=torch.float64, device=cuda)
+    dia_spmv.by_route.clear()
+    dia_spmv.by_dtype.clear()
+    x, info = lt.solve_ir(A, b, method="cg", pc="ilu0", **kw)
+    assert info.converged and dia_spmv.by_dtype.get("bf16", 0) > 0
+    assert dia_spmv.by_route.get("ring", 0) == dia_spmv.by_dtype["bf16"]
+    L = lt.sparse.laplacian_3d(32).to_scipy()
+    rng = np.random.default_rng(2)
+    n = L.shape[0]
+    E = sp.coo_matrix((0.01 * rng.standard_normal(300),
+                       (rng.integers(0, n, 300), rng.integers(0, n, 300))), shape=L.shape)
+    AH = lt.CSR.from_scipy((L + E).tocsr())
+    hyb_spmv.by_route.clear()
+    hyb_spmv.by_dtype.clear()
+    x, info = lt.solve_ir(AH, b, method="gmres", pc="ilu0", **kw)
+    assert info.converged and hyb_spmv.by_dtype.get("bf16", 0) > 0
+    assert hyb_spmv.by_route.get("ring", 0) == hyb_spmv.by_dtype["bf16"]
