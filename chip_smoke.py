@@ -170,7 +170,7 @@ time printed):
    single solves to 1e-12; solve_ir(method="direct"), the fp32 LU inner,
    relres ≤ 1e-8; solve_lsq, qr (host Givens QR, run last) and normal
    (the LU of AᵀA swept on the card), on [L; 0.1·I], L =
-   laplacian_2d(256) (131,072 × 65,536): ‖Aᵀ(b − Ax)‖ / ‖Aᵀb‖ ≤ 1e-10
+   laplacian_2d(128) (32,768 × 16,384): ‖Aᵀ(b − Ax)‖ / ‖Aᵀb‖ ≤ 1e-10
    and x within 1e-8 of spsolve(AᵀA, Aᵀb), x on the card;
    K1 / K3 on the residuals' matrices at the path's dtypes;
 31. solve_ir gmres(30) + ilutp (6 sweeps) on coupled3d_25 and the
@@ -218,8 +218,22 @@ counter, and its count by dtype, reset just before each solve):
    size, each section within 2 of JAX's CPU count (``JAX_CPU_TOUR``, from
    ``scripts/jax_krylov_reference.py tour``, the ILU PCs at the card's 6
    sweeps), the fp32 / bf16 inner sections held to their residual.
+35. the communicator: ``multihost.initialize(device="cuda")`` over a
+   ``file://`` rendezvous of its own (an NCCL group of one rank) and
+   ``global_mesh(slots=8)``; on it, each beside the group-less mesh of 8
+   slots, timed in turns (first call, then warm calls), with the
+   collectives a call (``dist_ops.collectives``): dist_solve_ir CG + ILU(0)
+   on 128³ (x bitwise the group-less x, the same inner count in [194, 262],
+   true relres ≤ 1e-8, only K4, K4 on the solve's partition and factors,
+   a profiled warm solve through the group), dist_solve_ir_multi block CG + ILU(0)
+   on 64³, k = 8 (the block solver's ``reduce=``: X within 1e-12 relative
+   of the group-less X, the same counts, only K4k), and dist_solve_ir
+   BiCGSTAB + Jacobi on the strayed 64³ as a DistHYB (the remainder's
+   all-gather: x bitwise, the same count).  A world size above 1 needs
+   more cards than one; the CPU tests hold W = 2 and 4 gloo ranks.
 Phase 6 runs ``lssp_tpu_torch.examples.exam``'s ``main``.  ``python3
-chip_smoke.py --only 32,33,34`` runs phases 32-34 alone.
+chip_smoke.py --only 32,33,34`` runs phases 32-34 alone, ``--only 35``
+phase 35.
 JAX cannot run phase 30's direct cells (its padded level schedules would
 need 1e9-1e12 slots; ROADMAP C property 14): they are held to scipy, and
 ``scripts/jax_krylov_reference.py 30`` gives JAX's host factors'
@@ -2503,7 +2517,7 @@ def phase_direct(lt, np, torch, dev, counters, card):
     convdiff_rot_128; Solver(method="direct") on 512², one factorization
     for 3 right-hand sides, and its solve_multi (k = 8, each column its
     single solve); solve_ir(method="direct") (fp32 LU inner) on 512²;
-    solve_lsq on the tall [L; 0.1·I], L = laplacian_2d(256), by both
+    solve_lsq on the tall [L; 0.1·I], L = laplacian_2d(128), by both
     routes, the host Givens QR last, after every timed apply.  K1 / K3
     against their plain versions on the residual products' matrices at the
     path's dtypes.  Returns {kernel: max abs err}."""
@@ -2511,7 +2525,7 @@ def phase_direct(lt, np, torch, dev, counters, card):
     from lssp_tpu_torch import native
     t_phase = time.perf_counter()
     errs = {"dia_spmv": 0.0, "hyb_spmv": 0.0}
-    tall = tall_system(lt, np, 256)
+    tall = tall_system(lt, np, 128)
     St = tall.to_scipy()
     bh = St @ np.ones(St.shape[1])
     A = lt.sparse.laplacian_2d(512)
@@ -2628,7 +2642,7 @@ def phase_direct(lt, np, torch, dev, counters, card):
         xh = xt.cpu().numpy()
         nrel = float(np.linalg.norm(St.T @ (bh - St @ xh)) / np.linalg.norm(atb))
         dx = float(np.linalg.norm(xh - xs) / np.linalg.norm(xs))
-        print(f"solve_lsq {method} [laplacian_2d(256); 0.1 I] {St.shape[0]}x{St.shape[1]} "
+        print(f"solve_lsq {method} [laplacian_2d(128); 0.1 I] {St.shape[0]}x{St.shape[1]} "
               f"[{card}]: {secs:.2f} s, ||A^T(b-Ax)||/||A^T b|| {nrel:.3e}, x vs "
               f"spsolve(A^T A, A^T b) {dx:.3e}, x on {xt.device}")
         check(xt.device.type == "cuda", f"solve_lsq {method}: x on {xt.device}")
@@ -3694,6 +3708,166 @@ def phase_examples(lt, np, torch, dev, counters, card):
     print(f"phase 34 (examples): {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 35: the communicator on the card, a torch.distributed group of one
+# ---------------------------------------------------------------------------
+
+def group_cell(torch, dev, counters, solve, mesh, plain, runs):
+    """``solve(mesh)`` -> (x, info) through the group and on the group-less
+    mesh: the first call of each (setup included), then ``runs`` warm calls
+    of each in turns, the launch counters and ``dist_ops.collectives`` reset
+    before every group call and read just after it, before the group-less
+    call runs.  Returns (x, info, x_plain, info_plain, first walls (group,
+    plain), warm walls (group list, plain list), the last group call's
+    launches and collectives by kind)."""
+    from lssp_tpu_torch.parallel import dist_ops
+
+    def timed(m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = solve(m)
+        torch.cuda.synchronize()
+        return x, info, time.perf_counter() - t0
+
+    def grouped():
+        for fn in counters:
+            fn.launches = 0
+        dist_ops.collectives.clear()
+        x, info, wall = timed(mesh)
+        return (x, info, wall, {fn.__name__: fn.launches for fn in counters},
+                dict(dist_ops.collectives))
+    x, info, first, launches, coll = grouped()
+    xp, infop, first_p = timed(plain)
+    warm, warm_p = [], []
+    for _ in range(runs):
+        x, info, w, launches, coll = grouped()
+        warm.append(w)
+        xp, infop, w = timed(plain)
+        warm_p.append(w)
+    return x, info, xp, infop, (first, first_p), (warm, warm_p), launches, coll
+
+
+def phase_comm(lt, np, torch, dev, counters, card):
+    """Phase 35: the distributed path through a torch.distributed group.
+    ``multihost.initialize(device="cuda")`` over a ``file://`` rendezvous of
+    its own, world size 1 (NCCL), and ``global_mesh(slots=8)``; on it, each
+    beside the group-less mesh of 8 slots on the card, timed in turns:
+    dist_solve_ir CG + ILU(0) on 128³ (x bitwise the group-less x, the same
+    inner count in [194, 262], only K4, K4 on the solve's partition and
+    Neumann factors), dist_solve_ir_multi block CG + ILU(0) 64³, k = 8
+    (the reduce= path: X within 1e-12 relative, the same counts, only K4k),
+    and dist_solve_ir BiCGSTAB + Jacobi on a strayed 64³ DistHYB (the
+    all-gather path: x bitwise, the same count).  Returns K4's max abs
+    err."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from lssp_tpu_torch.parallel import DistHYB, multihost
+    from lssp_tpu_torch.parallel.dist_ops import rank_sum
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "phase 35: a process group is already up")
+    tmp = tempfile.mkdtemp(prefix="lssp_rdv_")
+    t0 = time.perf_counter()
+    multihost.initialize(f"file://{tmp}/rdv", 1, 0, device="cuda")
+    init_s = time.perf_counter() - t0
+    try:
+        check(dist.is_initialized() and dist.get_backend() == "nccl",
+              "phase 35: initialize(device='cuda') brought up no NCCL group")
+        mesh = multihost.global_mesh(slots=8)
+        plain = lt.make_mesh(8, devices=[dev] * 8)
+        check(mesh.group is not None and (mesh.world, mesh.size, mesh.device) == (1, 8, dev),
+              f"phase 35: global_mesh gave {mesh}")
+        # NCCL builds its communicator at the first collective
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = rank_sum(torch.ones(1, device=dev), mesh)
+        torch.cuda.synchronize()
+        nccl_s = time.perf_counter() - t0
+        check(one.item() == 1.0, "phase 35: a sum over one rank is not the value")
+        print(f"phase 35 [{card}]: process group nccl, world {mesh.world}, rendezvous "
+              f"{init_s:.3f} s, NCCL's first collective (communicator start) {nccl_s:.3f} s")
+        opts = lt.SolverOptions(rtol=1e-8, atol=0, maxit=5000)
+
+        # the main path: dist_solve_ir cg + ILU(0) 128^3 over 8 shards
+        A = lt.sparse.laplacian_3d(128)
+        b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+
+        def main_solve(m):
+            return lt.dist_solve_ir(A, b, method="cg", pc="ilu0", mesh=m, options=opts)
+        x, info, xp, infop, first, warm, launches, coll = group_cell(
+            torch, dev, counters, main_solve, mesh, plain, runs=5)
+        rr = true_relres(A, x, np)
+        ncoll = sum(coll.values())
+        print(f"comm 128^3 dist_solve_ir cg+ilu0 [{card}]: inner its {info.nits} (group-less "
+              f"{infop.nits}), true relres {rr:.3e}, x bitwise the group-less x: "
+              f"{bool(torch.equal(x, xp))}; first call {first[0]:.3f} s (group-less "
+              f"{first[1]:.3f} s); warm through the group {', '.join(f'{w:.3f}' for w in warm[0])}"
+              f" s, group-less {', '.join(f'{w:.3f}' for w in warm[1])} s; collectives a call "
+              f"{coll} ({ncoll / info.nits:.2f} an inner iteration); launches {launches}")
+        check(torch.equal(x, xp), "comm 128^3: x differs from the group-less mesh's x")
+        check(info.nits == infop.nits and 194 <= info.nits <= 262,
+              f"comm 128^3: inner its {info.nits} (group-less {infop.nits}) outside [194, 262]")
+        check(rr <= 1e-8, f"comm 128^3: true relres {rr:.3e} > 1e-8")
+        check(coll.get("all_gather", 0) >= info.nits, f"comm 128^3: collectives {coll}")
+        check_only_k4(launches, "comm 128^3")
+        print("comm 128^3 through the group: " + profiled(
+            torch, lambda: main_solve(mesh), info.nits, "dia_spmv_ext_kernel"))
+        preps = {key[0]: prep for key, prep in A._dist_cache.items()}
+        abs_err, _, _ = check_dist_path(lt, np, torch, dev, preps[mesh], "comm 128^3")
+        del A, b, x, xp, preps
+
+        # the reduce= path: block CG k = 8 on 64^3
+        A = lt.sparse.laplacian_3d(64)
+        B = serving_block(np, torch, dev, A.shape[0])
+
+        def block_solve(m):
+            return lt.dist_solve_ir_multi(A, B, method="blockcg", pc="ilu0", mesh=m,
+                                          options=opts)
+        X, info, Xp, infop, first, warm, launches, coll = group_cell(
+            torch, dev, counters, block_solve, mesh, plain, runs=1)
+        dx = float((X - Xp).norm() / Xp.norm())
+        rr = block_relres(A, X, B, np)
+        print(f"comm 64^3 dist_solve_ir_multi blockcg+ilu0 k=8 [{card}]: inner its "
+              f"{info.nits.tolist()} (group-less {infop.nits.tolist()}), X against the group-less X "
+              f"{dx:.3e} relative, true relres max {max(rr):.3e}; first {first[0]:.3f} s "
+              f"(group-less {first[1]:.3f} s), warm {', '.join(f'{w:.3f}' for w in warm[0])} s "
+              f"(group-less {', '.join(f'{w:.3f}' for w in warm[1])} s); collectives a call "
+              f"{coll}; launches {launches}")
+        check(dx <= 1e-12 and np.array_equal(info.nits, infop.nits),
+              f"comm blockcg: X {dx:.3e} from the group-less X, its {info.nits} / {infop.nits}")
+        check(max(rr) <= 1e-8, f"comm blockcg: true relres {max(rr):.3e}")
+        check_only(launches, {"dia_spmm_ext"}, "comm blockcg")
+
+        # the all-gather path: BiCGSTAB + Jacobi on a strayed 64^3 DistHYB
+        A = strayed_grid(lt, np, 64, "3d", np.float64)
+        b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+
+        def hyb_solve(m):
+            return lt.dist_solve_ir(A, b, method="bicgstab", pc="jacobi", mesh=m, options=opts)
+        x, info, xp, infop, first, warm, launches, coll = group_cell(
+            torch, dev, counters, hyb_solve, mesh, plain, runs=1)
+        rr = true_relres(A, x, np)
+        preps = {key[0]: prep for key, prep in A._dist_cache.items()}
+        print(f"comm 64^3+strays dist_solve_ir bicgstab+jacobi [{card}]: inner its {info.nits} "
+              f"(group-less {infop.nits}), true relres {rr:.3e}, x bitwise the group-less x: "
+              f"{bool(torch.equal(x, xp))}; warm {', '.join(f'{w:.3f}' for w in warm[0])} s "
+              f"(group-less {', '.join(f'{w:.3f}' for w in warm[1])} s); collectives a call "
+              f"{coll}; launches {launches}")
+        check(isinstance(preps[mesh]["M"], DistHYB), "comm hyb: the partition is not DistHYB")
+        check(torch.equal(x, xp) and info.nits == infop.nits,
+              f"comm hyb: x or its count {info.nits} differs from the group-less {infop.nits}")
+        check(rr <= 1e-8, f"comm hyb: true relres {rr:.3e} > 1e-8")
+        check_only_k4(launches, "comm hyb")
+        print("phase 35: a world size above 1 needs more than one card; W = 2 and 4 gloo ranks "
+              "are held on the CPU (tests/test_torch_dist_ranks.py), bitwise to this one-process "
+              "mesh")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 35 (communicator): {time.perf_counter() - t_phase:.1f} s")
+    return abs_err
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3724,7 +3898,7 @@ def main():
                     neumann_block_apply, hyb_spmm, dia_spmm_ext)
         for phase, fn in (("28", phase_transpose), ("29", phase_relax), ("30", phase_direct),
                           ("31", phase_ilutp_arms_ca), ("32", phase_bf16), ("33", phase_utils),
-                          ("34", phase_examples)):
+                          ("34", phase_examples), ("35", phase_comm)):
             if phase in only:
                 print(json.dumps({f"phase {phase} max_abs_err": fn(lt, np, torch, dev, counters,
                                                                     card)}))
@@ -3773,6 +3947,7 @@ def main():
     bf16 = phase_bf16(lt, np, torch, dev, counters, card)
     phase_utils(lt, np, torch, dev, counters, card)
     phase_examples(lt, np, torch, dev, counters, card)
+    comm_err = phase_comm(lt, np, torch, dev, counters, card)
     library = phase_library(lt, np, torch, dev, card)
     # each kernel's error is the worst over its own phase and the later
     # phases' checks on their own data
@@ -3789,7 +3964,7 @@ def main():
     krhs["neumann_sweep_block"]["max_abs_err"] = max(
         krhs["neumann_sweep_block"]["max_abs_err"], transpose_errs["neumann_sweep_block"])
     k4["max_abs_err"] = max(k4["max_abs_err"], dist_amg["saamg"], dist_amg["rsamg"],
-                            ca_errs["dist_spmv_ext"])
+                            ca_errs["dist_spmv_ext"], comm_err)
     for errs in (saamg_errs, classical_errs, rsamg_errs, *krylov_errs):
         k1["max_abs_err"] = max(k1["max_abs_err"], errs.get("dia_spmv", 0.0))
         k2["max_abs_err"] = max(k2["max_abs_err"], errs.get("neumann_sweep", 0.0))

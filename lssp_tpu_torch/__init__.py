@@ -7,7 +7,9 @@ PyTorch and on CUDA tensors through four hand-written kernels: the DIA
 stencil SpMV (``ops/dia_spmv.py``, K1), the Neumann ILU sweep
 (``ops/neumann.py``, K2), the HYB band-plus-remainder SpMV
 (``ops/hyb_spmv.py``, K3) and the per-shard DIA SpMV of the distributed
-solve (``ops/dia_spmv_ext.py``, K4; ``parallel/``), each with a k-rhs form
+solve (``ops/dia_spmv_ext.py``, K4; ``parallel/``, over the ranks of a
+``torch.distributed`` group through ``parallel/multihost.py``, one process
+per device), each with a k-rhs form
 (K1k-K4k) for the multi-rhs path (``solve_multi``, ``solve_ir_multi``,
 ``dist_solve_multi``, ``dist_solve_ir_multi``; B is (n, k)).  The AMG
 preconditioners ``amg``, ``saamg`` and ``rsamg`` (``amg/``) run their

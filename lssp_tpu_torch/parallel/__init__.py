@@ -5,8 +5,10 @@
 ``dist_solve_multi`` / ``dist_solve_ir_multi`` (``dist_solve.py``), and
 the distributed AMG hierarchies: structured SA (``dist_sa.py``), classical
 through the same cycle (``dist_rs.py``) and classical on padded ELL
-(``dist_amg.py``)."""
+(``dist_amg.py``), and the multi-process runtime, one rank per device
+(``multihost.py``)."""
 
+from lssp_tpu_torch.parallel import multihost
 from lssp_tpu_torch.parallel.dist_amg import DistAMG, build_dist_amg, dist_vcycle
 from lssp_tpu_torch.parallel.dist_ops import (
     apply_dist_spmv, halo_exchange, make_dist_spmv, make_psum_dot,
@@ -25,5 +27,6 @@ __all__ = ["DistAMG", "DistDIA", "DistELL", "DistHYB", "DistSA", "Mesh", "apply_
            "build_dist_amg", "build_dist_rs", "build_dist_sa", "dist_sa_vcycle", "dist_solve",
            "dist_solve_ir", "dist_solve_ir_multi", "dist_solve_multi", "dist_vcycle",
            "halo_exchange",
-           "make_dist_spmv", "make_mesh", "make_psum_dot", "partition_csr", "partition_csr_dia",
+           "make_dist_spmv", "make_mesh", "make_psum_dot", "multihost", "partition_csr",
+           "partition_csr_dia",
            "partition_csr_hyb", "partition_matrix", "shard_vector", "unshard_vector"]

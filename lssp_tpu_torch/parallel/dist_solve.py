@@ -1,14 +1,22 @@
 """Distributed solve: partition on the host, iterate over a shard mesh.
 
 The JAX package runs the whole Krylov iteration inside one ``shard_map``
-over a 1-D device mesh.  Here a ``Mesh`` is P shard slots on one
-``torch.device``: each partitioned matrix and preconditioner state keeps
-its leading shard axis as a tensor dimension, vectors stay flat (n,), and
-the port's ``cg``, ``gmres``, ``rgmres`` and ``bicgstab`` run unchanged on
-the distributed operator (``dist_ops.make_dist_spmv``) and preconditioner
-(``_shard_pc_apply``).  So eight shards run, with every shard boundary, on
-one H100 or one CPU.  A mesh over several devices needs a communicator
-behind ``halo_exchange`` and is not ported yet (ROADMAP A13).
+over a 1-D device mesh.  Here a ``Mesh`` is the shard slots of one
+process on its one ``torch.device``, over the ranks of an optional
+``torch.distributed`` group (one rank per device, ``multihost.py``): each
+partitioned matrix and preconditioner state keeps its leading shard axis
+as a tensor dimension, vectors stay flat (the rank's rows), and the
+port's methods run unchanged on the distributed operator
+(``dist_ops.make_dist_spmv``), preconditioner (``_shard_pc_apply``) and
+dot (``dist_ops.make_psum_dot``).  So eight shards run, with every shard
+boundary, on one H100 or one CPU, or over W ranks with 8 / W shards each.
+
+Over ranks, every rank runs the same host build (padding, format, the
+per-shard factors and the choices made from them) and uploads only its
+own shards; b and x0 are cut to its rows, x is all-gathered at the end,
+and every branch of a solve follows a value reduced over all the ranks,
+so every rank takes the same steps and returns the same x and SolveInfo.
+Without a group the mesh communicates nothing.
 
 Preconditioning is block-Jacobi ILU (each shard factors its diagonal block
 and applies it with no exchange, by Neumann sweeps through kernel K4 or
@@ -48,11 +56,12 @@ from lssp_tpu_torch.config import (
     Defaults, PCOptions, SolverOptions, resolve_device, smoother_degree,
 )
 from lssp_tpu_torch.ops.trisolve import (
-    default_ilu_sweeps, ilu_apply, ilu_apply_t, ilu_transpose_schedules, level_schedule,
+    TriSchedule, _sweep, default_ilu_sweeps, ilu_transpose_schedules, level_schedule,
     neumann_exact_depth,
 )
 from lssp_tpu_torch.parallel.dist_ops import (
-    OpWithTranspose, _dia_local_spmv, make_dist_spmv, make_dist_spmv_t, make_psum_dot,
+    OpWithTranspose, _dia_local_spmv, gather_rows, make_dist_spmv, make_dist_spmv_t,
+    make_psum_dot, rank_sum,
 )
 from lssp_tpu_torch.parallel.partition import DistDIA, partition_matrix
 from lssp_tpu_torch.pc.base import cast_state, round_factor, rounding_to
@@ -67,14 +76,23 @@ from lssp_tpu_torch.sparse.convert import coo_to_csr
 from lssp_tpu_torch.sparse.types import COO, CSR, round_to, torch_dtype
 from lssp_tpu_torch.sparse.utils import diagonal, split_ldu
 from lssp_tpu_torch.utils.memo import fingerprint, memo_get, memo_put
+from lssp_tpu_torch.utils.tree import map_tensors
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """P shard slots; repeats of one device are allowed, so P slots can sit
-    on one card.  Slots on more than one distinct device raise
-    ``NotImplementedError``."""
+    """This process's shard slots on its one device, repeats allowed (P
+    slots on one card), over the ranks of ``group`` (a ``torch.distributed``
+    process group, or None for one process).  Every rank holds as many
+    slots; rank r owns the global shards [r·slots, (r+1)·slots).  Slots on
+    more than one distinct device raise ``NotImplementedError``: one
+    process drives one device.  The group (equal and hashed by identity),
+    ``rank`` and ``world`` are part of the mesh's equality and hash, so two
+    groups over one device never share a memo entry."""
 
     devices: Tuple[torch.device, ...]
+    group: Any = dataclasses.field(default=None, repr=False)
+    rank: int = dataclasses.field(default=0, init=False)
+    world: int = dataclasses.field(default=1, init=False)
 
     def __post_init__(self):
         if not self.devices:
@@ -83,13 +101,27 @@ class Mesh:
         object.__setattr__(self, "devices", tuple(resolve_device(d) for d in self.devices))
         if len(set(self.devices)) > 1:
             raise NotImplementedError(
-                f"a mesh over {len(set(self.devices))} distinct devices needs a "
-                "torch.distributed communicator behind halo_exchange and the dot "
-                "products, not ported yet (ROADMAP A13); put every slot on one device")
+                f"a mesh over {len(set(self.devices))} distinct devices in one process: run "
+                "one process per device (torchrun) and build its mesh with "
+                "multihost.initialize() and multihost.global_mesh()")
+        if self.group is not None:
+            import torch.distributed as dist
+            backend = dist.get_backend(self.group)
+            if (backend == "nccl") != (self.device.type == "cuda"):
+                raise ValueError(f"a {backend} process group cannot reach {self.device}: "
+                                 "NCCL for a CUDA device, gloo for the CPU")
+            object.__setattr__(self, "rank", dist.get_rank(self.group))
+            object.__setattr__(self, "world", dist.get_world_size(self.group))
+
+    @property
+    def slots(self) -> int:
+        """This rank's shards."""
+        return len(self.devices)
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        """The global shard count, over every rank."""
+        return self.world * self.slots
 
     @property
     def device(self) -> torch.device:
@@ -141,6 +173,93 @@ def _entry_offsets(S: CSR, R: int) -> np.ndarray:
     ip = np.asarray(S.indptr).astype(np.int64)
     rows = np.repeat(np.arange(R, dtype=np.int64), ip[1:] - ip[:-1])
     return np.unique(np.asarray(S.indices).astype(np.int64) - rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedSchedule:
+    """Per-shard padded level schedules of one factor, padded to a common
+    shape and stacked on a leading shard axis (JAX's ``_stack_schedules``):
+    one batched gather, row sum and scatter a level for every shard."""
+
+    rows: Any           # (P, nlev, w) int64, padded with R
+    cols: Any           # (P, nlev, w, k) int64, padded with R
+    vals: Any           # (P, nlev, w, k), padded with 0
+    invdiag: Any        # (P, R) 1/diag (1 where a shard has none), or None
+    n: int              # R
+
+
+def _stack_shape(scheds):
+    """The common (nlev, w, k) of per-shard ``TriSchedule``s."""
+    return (max(s.rows.shape[0] for s in scheds), max(s.rows.shape[1] for s in scheds),
+            max(s.cols.shape[2] for s in scheds))
+
+
+def _stack_schedules(scheds, R: int) -> StackedSchedule:
+    """Pad per-shard ``TriSchedule``s to a common (nlev, w, k) and stack
+    them (``lssp_tpu/parallel/dist_solve.py:_stack_schedules``): padded rows
+    and columns point at the dummy slot R, padded values are 0, a missing
+    diagonal is 1."""
+    NL, W, K = _stack_shape(scheds)
+    P, dev = len(scheds), scheds[0].vals.device
+    rows = torch.full((P, NL, W), R, dtype=torch.int64, device=dev)
+    cols = torch.full((P, NL, W, K), R, dtype=torch.int64, device=dev)
+    vals = scheds[0].vals.new_zeros((P, NL, W, K))
+    has_diag = any(s.invdiag is not None for s in scheds)
+    invd = scheds[0].vals.new_ones((P, R)) if has_diag else None
+    for p, s in enumerate(scheds):
+        nl, w = s.rows.shape
+        k = s.cols.shape[2]
+        rows[p, :nl, :w] = s.rows
+        cols[p, :nl, :w, :k] = s.cols
+        vals[p, :nl, :w, :k] = s.vals
+        if s.invdiag is not None:
+            invd[p] = s.invdiag
+    return StackedSchedule(rows, cols, vals, invd, R)
+
+
+def _stack_or_list(scheds, nnz: int, R: int):
+    """The shards' schedules of one factor stacked while the stacked padded
+    layout holds at most twice the factors' strict nnz (ROADMAP C 14's
+    rule), else the per-shard list."""
+    if all(isinstance(s, TriSchedule) for s in scheds) \
+            and len(scheds) * np.prod(_stack_shape(scheds)) <= 2 * nnz:
+        return _stack_schedules(scheds, R)
+    return list(scheds)
+
+
+def _sweep_stacked(S: StackedSchedule, b2: torch.Tensor) -> torch.Tensor:
+    """Every shard's exact triangular solve of b2 (P, R[, k]) at once: a
+    loop over the levels, each a gather, a row sum and a scatter into the
+    extended iterate (slot R is a dummy that stays 0)."""
+    P, R = b2.shape[:2]
+    tail = tuple(b2.shape[2:])
+    pad = b2.new_zeros((P, 1) + tail)
+    be = torch.cat([b2, pad], dim=1)
+    vals = S.vals.to(b2.dtype)
+    ide = None
+    if S.invdiag is not None:
+        ide = torch.cat([S.invdiag.to(b2.dtype), b2.new_ones((P, 1))], dim=1)
+        if tail:
+            ide = ide[..., None]
+    if tail:
+        vals = vals[..., None]
+    shard = torch.arange(P, device=b2.device)
+    xe = torch.zeros_like(be)
+    for lev in range(S.rows.shape[1]):
+        rows = S.rows[:, lev]
+        s = be[shard[:, None], rows] - (vals[:, lev] * xe[shard[:, None, None],
+                                                         S.cols[:, lev]]).sum(dim=2)
+        if ide is not None:
+            s = s * ide[shard[:, None], rows]
+        xe[shard[:, None], rows] = s
+    return xe[:, :R]
+
+
+def _sweep_shards(S, b2: torch.Tensor) -> torch.Tensor:
+    """One factor's exact solve on every shard: stacked, or shard by shard."""
+    if isinstance(S, StackedSchedule):
+        return _sweep_stacked(S, b2)
+    return torch.stack([_sweep(s, b2[p]) for p, s in enumerate(S)])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,6 +413,7 @@ def _build_dist_amg_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, device, sa_
 
 
 TRANSPOSE_PCS = (None, "none", "jacobi", "bjilu", "iluk", "ilu0", "ilut")
+AMG_PCS = ("amg", "rsamg", "saamg")
 
 
 def _build_dist_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, R: int, device,
@@ -308,7 +428,7 @@ def _build_dist_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, R: int, device,
         small = np.abs(d) < Defaults.ZERO_DIAG_TOL
         d[small] = np.where(d[small] > 0, Defaults.ZERO_DIAG_VALUE, -Defaults.ZERO_DIAG_VALUE)
         return "jacobi", torch.from_numpy((pc_opts.omega / d).reshape(Pn, R)).to(device)
-    if pc_type in ("amg", "rsamg", "saamg"):
+    if pc_type in AMG_PCS:
         return _build_dist_amg_pc(A, pc_type, pc_opts, Pn, device, sa_grid)
     if pc_type not in ("bjilu", "iluk", "ilu0", "ilut"):
         raise ValueError(f"unsupported distributed pc {pc_type!r}")
@@ -320,9 +440,7 @@ def _build_dist_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, R: int, device,
         else:
             LU = iluk_factor(blk, level=0 if pc_type == "ilu0" else pc_opts.iluk_level)
         factors.append(tuple(round_factor(T) for T in LU))
-    sweeps = pc_opts.ilu_sweeps
-    if sweeps is None:
-        sweeps = default_ilu_sweeps(device)
+    sweeps = pc_opts.ilu_sweeps     # resolved by _build_dist
     if sweeps:
         st = _build_dist_ilu_neumann(factors, Pn, R, sweeps)
         if isinstance(st, _DistNeumannILUDyn):
@@ -335,14 +453,19 @@ def _build_dist_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, R: int, device,
         warnings.warn("distributed ILU: a single shard's factor exceeds the streaming "
                       "diagonal cap; falling back to exact level schedules (slow); "
                       "consider RCM ordering or more shards", RuntimeWarning, stacklevel=3)
-    state = []
+    per = []
     for L, U in factors:
         scheds = (level_schedule(L, lower=True, device=device),
                   level_schedule(U, lower=False, device=device))
         if pc_opts.transpose:
             scheds += ilu_transpose_schedules(L, U, device=device)
-        state.append(scheds)
-    return "ilu", state
+        per.append(scheds)
+    # each factor's strict nnz over the shards; Uᵀ and Lᵀ hold U's and L's
+    nnz_l = sum(split_ldu(L)[0].nnz for L, _ in factors)
+    nnz_u = sum(split_ldu(U)[2].nnz for _, U in factors)
+    nnz = (nnz_l, nnz_u, nnz_u, nnz_l)
+    return "ilu", tuple(_stack_or_list([sc[j] for sc in per], nnz[j], R)
+                        for j in range(len(per[0])))
 
 
 def _sweep_repeat(step, k: int, x0):
@@ -459,15 +582,12 @@ def _shard_pc_apply(kind, state, Pn: int, R: int, op=None, cycles: int = 1):
         fn.t = fn_t
         return fn
     if kind == "ilu":
+        # state: the schedules of L, U (and Uᵀ, Lᵀ), each stacked or a list
         def fn(r):
-            r2 = shards(r)
-            return torch.stack([ilu_apply(sc[0], sc[1], r2[p])
-                                for p, sc in enumerate(state)]).view(r.shape)
-        if state and len(state[0]) == 4:
+            return _sweep_shards(state[1], _sweep_shards(state[0], shards(r))).reshape(r.shape)
+        if len(state) == 4:
             def fn_t(r):
-                r2 = shards(r)
-                return torch.stack([ilu_apply_t(sc[2], sc[3], r2[p])
-                                    for p, sc in enumerate(state)]).view(r.shape)
+                return _sweep_shards(state[3], _sweep_shards(state[2], shards(r))).reshape(r.shape)
             fn.t = fn_t
         return fn
     raise ValueError(kind)
@@ -558,6 +678,20 @@ def _prepare_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, 
     return out
 
 
+def _local_state(kind, state, p0: int, p1: int):
+    """A preconditioner state cut to the shards [p0, p1) (every tensor of it
+    has the leading shard axis)."""
+    def cut(t):
+        return t[p0:p1]
+    if kind == "ilu_nm":
+        bands = {f: getattr(state, f).local(p0, p1) for f in ("L", "U", "Lt", "Ut")
+                 if getattr(state, f) is not None}
+        return dataclasses.replace(state, invdiag=cut(state.invdiag), **bands)
+    if kind == "ilu":
+        return tuple(S[p0:p1] if isinstance(S, list) else map_tensors(cut, S) for S in state)
+    return map_tensors(cut, state)
+
+
 def _build_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, sa_grid, npad):
     A = _grow_identity(A, npad)
     Pn, device = mesh.size, mesh.device
@@ -568,8 +702,16 @@ def _build_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, sa
     # rounded to bf16 (pc.base.rounding_to) and its state cast on the device
     wdtype = inner_dtype if ir else dtype
     work = round_to(A, wdtype)
+    # every rank builds the whole state on the host, the same decisions from
+    # the same data (the Neumann sweeps are the device's default), and
+    # uploads its own shards; an AMG hierarchy builds on the device, as it
+    # runs on one rank only (ROADMAP A 3)
+    if pc_opts.ilu_sweeps is None:
+        pc_opts = dataclasses.replace(pc_opts, ilu_sweeps=default_ilu_sweeps(device))
+    amg = pc in AMG_PCS
     with rounding_to(wdtype):
-        kind, pc_state = _build_dist_pc(work, pc, pc_opts, Pn, R, device, sa_grid)
+        kind, pc_state = _build_dist_pc(work, pc, pc_opts, Pn, R,
+                                        device if amg else torch.device("cpu"), sa_grid)
     if kind == "saamg" and pc_state.n_top != n:
         # grid coarsening stalled and the hierarchy took the flat plan, which
         # pads itself: grow the system to the hierarchy's size
@@ -579,8 +721,12 @@ def _build_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, sa
         work = round_to(A, wdtype)
     if wdtype == torch.bfloat16:
         pc_state = cast_state(pc_state, wdtype)
-    M = partition_matrix(work, Pn, fmt=fmt).to(device, dtype=wdtype)
-    M64 = partition_matrix(A.astype(np.float64), Pn, fmt=fmt).to(device) if ir else None
+    p0, p1 = mesh.rank * mesh.slots, (mesh.rank + 1) * mesh.slots
+    M = partition_matrix(work, Pn, fmt=fmt).local(p0, p1).to(device, dtype=wdtype)
+    M64 = (partition_matrix(A.astype(np.float64), Pn, fmt=fmt).local(p0, p1).to(device)
+           if ir else None)
+    if not amg:
+        pc_state = map_tensors(lambda t: t.to(device), _local_state(kind, pc_state, p0, p1))
     return dict(n=n, R=R, M=M, M64=M64, kind=kind, pc_state=pc_state)
 
 
@@ -614,11 +760,18 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
                              f"{pc!r} has no distributed transpose apply")
         pc_opts = dataclasses.replace(pc_opts, transpose=True)
     mesh = mesh or make_mesh()
+    if mesh.world > 1 and pc in AMG_PCS:
+        raise NotImplementedError(
+            f"distributed pc={pc!r} over {mesh.world} ranks: the AMG cycles hold whole level "
+            "vectors and need their own gathers (ROADMAP A 3); run it on one rank")
     Pn, device = mesh.size, mesh.device
-    pdot = make_psum_dot(Pn)
+    pdot = make_psum_dot(mesh.slots, mesh)
     if get_block_solver(method) is None:
         # every inner product of the method is a psum over the shards
         fn = functools.partial(fn, dot=pdot)
+    elif mesh.group is not None:
+        # every Gram of a block method is summed over the ranks (JAX's reduce=)
+        fn = functools.partial(fn, reduce=functools.partial(rank_sum, mesh=mesh))
     dtype = torch.float64 if ir else torch.promote_types(torch_dtype(A.dtype), b.dtype)
     n_orig = A.shape[0]
     b = b.to(device=device, dtype=dtype).contiguous()
@@ -638,13 +791,16 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
             x0 = torch.cat([x0, x0.new_zeros(pad)])
     if x0 is None:
         x0 = torch.zeros_like(b)
-    op = make_dist_spmv(prep["M"])
+    # this rank's rows (all of them on one rank)
+    rows = slice(mesh.rank * mesh.slots * R, (mesh.rank + 1) * mesh.slots * R)
+    b, x0 = b[rows], x0[rows]
+    op = make_dist_spmv(prep["M"], mesh)
     if needs_transpose_pc(method):
-        op = OpWithTranspose(op, make_dist_spmv_t(prep["M"]))
-    pc_apply = _shard_pc_apply(prep["kind"], prep["pc_state"], Pn, R, op=op,
+        op = OpWithTranspose(op, make_dist_spmv_t(prep["M"], mesh))
+    pc_apply = _shard_pc_apply(prep["kind"], prep["pc_state"], mesh.slots, R, op=op,
                                cycles=max(1, int(pc_opts.amg_cycles)))
     if ir and multi:
-        op64 = make_dist_spmv(prep["M64"])
+        op64 = make_dist_spmv(prep["M64"], mesh)
 
         def inner(R32):
             return fn(op, R32, torch.zeros_like(R32), pc_apply, opts=solver_opts)
@@ -652,10 +808,12 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
         x, info = refine_multi(op64, inner, b, x0, opts, max_outer, inner_dtype,
                                functools.partial(norm, dot_fn=pdot))
     elif ir:
-        x, info = _shard_ir(op, make_dist_spmv(prep["M64"]), pc_apply, fn, b, x0, opts,
+        x, info = _shard_ir(op, make_dist_spmv(prep["M64"], mesh), pc_apply, fn, b, x0, opts,
                             solver_opts, max_outer, inner_dtype, pdot)
     else:
         x, info = fn(op, b, x0, pc_apply, opts=solver_opts)
+    if mesh.world > 1:
+        x = gather_rows(x, mesh)
     return x[:n_orig], info
 
 

@@ -6,7 +6,10 @@ leading shard axis on every array: ``DistDIA.data`` is (P, ndiag, R),
 host work is numpy and gives the same arrays as
 ``lssp_tpu/parallel/partition.py``; the containers hold them as tensors
 and move with ``.to(device)``.  Index arrays are int64 here (torch's
-index type); JAX stores them as int32.
+index type); JAX stores them as int32.  ``.local(p0, p1)`` is a rank's
+slice, the shards [p0, p1) with the partition's halo widths and offsets:
+its ``n`` and ``nshards`` count the rank's rows and shards, while a HYB
+remainder's and an all-gather ELL's columns stay global.
 """
 from __future__ import annotations
 
@@ -59,6 +62,9 @@ class DistDIA:
     def to(self, device=None, dtype=None) -> "DistDIA":
         return dataclasses.replace(self, data=self.data.to(device=device, dtype=dtype))
 
+    def local(self, p0: int, p1: int) -> "DistDIA":
+        return DistDIA(self.data[p0:p1], self.offsets, (p1 - p0) * self.rows_per_shard, p1 - p0)
+
 
 @dataclasses.dataclass(frozen=True)
 class DistHYB:
@@ -90,6 +96,10 @@ class DistHYB:
                        self.rem_cols.to(device),
                        self.rem_vals.to(device=device, dtype=dtype))
 
+    def local(self, p0: int, p1: int) -> "DistHYB":
+        return DistHYB(self.band.local(p0, p1), self.rem_rows[p0:p1], self.rem_cols[p0:p1],
+                       self.rem_vals[p0:p1])
+
 
 @dataclasses.dataclass(frozen=True)
 class DistELL:
@@ -111,6 +121,10 @@ class DistELL:
     def to(self, device=None, dtype=None) -> "DistELL":
         return dataclasses.replace(self, cols=self.cols.to(device),
                                    data=self.data.to(device=device, dtype=dtype))
+
+    def local(self, p0: int, p1: int) -> "DistELL":
+        return dataclasses.replace(self, cols=self.cols[p0:p1], data=self.data[p0:p1],
+                                   n=(p1 - p0) * self.rows_per_shard, nshards=p1 - p0)
 
 
 def _round_up(x, m):
@@ -256,11 +270,17 @@ def partition_matrix(A: CSR, nshards: int, fmt: str = "auto"):
     raise ValueError(f"unknown distributed format {fmt!r}")
 
 
-def shard_vector(x, nshards: int) -> torch.Tensor:
-    """(n,) → the (P, R) shard view."""
-    return torch.as_tensor(x).reshape(nshards, -1)
+def shard_vector(x, nshards: int, mesh=None) -> torch.Tensor:
+    """(n,) → the (P, R) shard view; over the ranks of ``mesh`` (``nshards``
+    global) this rank's (P_loc, R) rows."""
+    xs = torch.as_tensor(x).reshape(nshards, -1)
+    if mesh is None:
+        return xs
+    return xs[mesh.rank * mesh.slots:(mesh.rank + 1) * mesh.slots]
 
 
-def unshard_vector(xs) -> torch.Tensor:
-    """(P, R) → (n,)."""
-    return torch.as_tensor(xs).reshape(-1)
+def unshard_vector(xs, mesh=None) -> torch.Tensor:
+    """(P, R) → (n,); over the ranks of ``mesh`` every rank's (P_loc, R)
+    rows all-gathered, so that every rank returns the whole vector."""
+    from lssp_tpu_torch.parallel.dist_ops import gather_rows
+    return gather_rows(torch.as_tensor(xs).reshape(-1), mesh)

@@ -208,6 +208,22 @@ def gram_norms(V: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.diagonal(chunked_gram(V, V)))
 
 
+def reduced_grams(reduce=None):
+    """(gram, gram_norms) of a block solver: ``chunked_gram`` and the column
+    norms from it, each Gram passed through ``reduce`` first (JAX's
+    ``reduce=``, the sum over the ranks of a distributed solve).  With
+    ``reduce=None`` they are ``chunked_gram`` and ``gram_norms``."""
+    if reduce is None:
+        return chunked_gram, gram_norms
+
+    def gram(U, V):
+        return reduce(chunked_gram(U, V))
+
+    def norms(V):
+        return torch.sqrt(torch.diagonal(gram(V, V)))
+    return gram, norms
+
+
 def ridge(G: torch.Tensor, floor: float = 0.0) -> torch.Tensor:
     """G + (64·eps/k)·(trace G + floor)·I: the relative ridge that keeps a
     rank-deficient Gram factorable."""

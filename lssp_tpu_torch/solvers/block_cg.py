@@ -21,7 +21,10 @@ exits on a recomputed residual), restart of the conjugacy on breakdown,
 and an honest unconverged exit on two breakdowns in a row.
 
 The Grams and the (n, k)·(k, k) combines are ``torch.matmul``: JAX writes
-them as mul+sum only because an fp64 dot is lossy on a TPU.  The k×k
+them as mul+sum only because an fp64 dot is lossy on a TPU.  Every Gram
+and column norm² goes through ``reduce`` (JAX's ``reduce=``): the
+identity on one device, the sum over the ranks of a distributed solve,
+one reduction of a k×k (or (k,)) partial per reduction point.  The k×k
 solves stay on the device (``solve_ex``, no sync); each iteration brings
 the k recursive residual norms and the breakdown flag to the host once
 to decide the residual replacement, plus one more read on the iterations
@@ -33,19 +36,21 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch.solvers.base import (
-    SolveInfo, chunked_gram as gram, gram_norms, history_init_block, history_update_block,
-    init_state, ridge, to_host,
+    SolveInfo, history_init_block, history_update_block, init_state, reduced_grams, ridge,
+    to_host,
 )
 
 
-def block_cg(A, B, X0=None, M=None, opts=None):
+def block_cg(A, B, X0=None, M=None, opts=None, reduce=None):
     """Solve A X = B for all columns of B (n, k) at once.
 
     Returns (X (n, k), SolveInfo with per-column (k,) nits / residual /
     converged).  The stopping rule is ``cg``'s per column; the loop runs
     until every column meets its tolerance (or maxit, or two breakdowns).
-    Every Gram and norm is ``chunked_gram``, on one device or a shard
-    mesh alike."""
+    Every Gram and norm is ``chunked_gram`` over the rows held here, then
+    ``reduce`` (None: the identity; the distributed launcher passes the
+    sum over the ranks)."""
+    gram, gram_norms = reduced_grams(reduce)
     op, pc, X, R = init_state(A, B, X0, M)
     n, k = B.shape
     bnorm, r0norm = to_host(gram_norms(B), gram_norms(R))

@@ -30,13 +30,13 @@ import scipy.linalg
 import torch
 
 from lssp_tpu_torch.solvers.base import (
-    SolveInfo, chunked_gram as gram, gram_norms, history_init_block, history_update_block,
-    init_state, ridge, to_host,
+    SolveInfo, history_init_block, history_update_block, init_state, reduced_grams, ridge,
+    to_host,
 )
 from lssp_tpu_torch.sparse.types import numpy_dtype
 
 
-def _cholqr2(W, floor):
+def _cholqr2(W, floor, gram):
     """Two-pass Cholesky QR: W = V·S with V near-orthonormal, S upper k×k;
     the ridge keeps the Gram factorable when the block lost rank."""
     def one(W):
@@ -68,7 +68,7 @@ def _least_squares(Hbar, S0, m, k, dt):
     return Y.astype(dt), np.sqrt(tail2[None, :] + suffix_at)
 
 
-def block_gmres(A, B, X0=None, M=None, opts=None):
+def block_gmres(A, B, X0=None, M=None, opts=None, reduce=None):
     """Solve A X = B for all columns of B (n, k) at once: restarted,
     right-preconditioned block GMRES.
 
@@ -78,7 +78,9 @@ def block_gmres(A, B, X0=None, M=None, opts=None):
     block-Arnoldi step it crossed its tolerance at.  The loop runs until
     every column meets its tolerance, maxit block steps elapse, or three
     cycles in a row leave every active column's residual bit-stationary.
-    Basis memory is (m+1)·n·k."""
+    Basis memory is (m+1)·n·k.  ``reduce``: as in ``block_cg``, applied to
+    every Gram and column norm² (JAX's ``reduce=``)."""
+    gram, gram_norms = reduced_grams(reduce)
     op, pc, X, R = init_state(A, B, X0, M)
     n, k = B.shape
     m = max(1, min(int(opts.restart), int(opts.maxit)))
@@ -90,7 +92,7 @@ def block_gmres(A, B, X0=None, M=None, opts=None):
     tol = np.maximum(np.maximum(opts.rtol * r0norm, opts.atol), opts.rbtol * bnorm)
 
     def cycle(X, R):
-        V0, S0 = _cholqr2(R, floor)
+        V0, S0 = _cholqr2(R, floor, gram)
         V = B.new_zeros((n, m + 1, k))
         V[:, 0] = V0
         H = B.new_zeros((m, m + 1, k, k))
@@ -102,7 +104,7 @@ def block_gmres(A, B, X0=None, M=None, opts=None):
             W = W - Vflat @ h1
             h2 = gram(Vflat, W)
             W = W - Vflat @ h2
-            Vj, Sj = _cholqr2(W, floor)
+            Vj, Sj = _cholqr2(W, floor, gram)
             V[:, j + 1] = Vj
             H[j, :j + 1] = (h1 + h2).view(j + 1, k, k)
             H[j, j + 1] = Sj

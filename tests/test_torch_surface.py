@@ -16,13 +16,10 @@ EXCLUDED_MODULES = {
     # the Pallas kernels; their CUDA counterparts are csrc/*.cu (K1-K4)
     ".ops.pallas_spmv": "TPU kernels, ported as csrc/dia_spmv.cu, hyb_spmv.cu, dia_spmv_ext.cu",
     ".ops.pallas_neumann": "TPU kernel, ported as csrc/neumann.cu",
-    # one rank per device needs the multi-process communicator
-    ".parallel.multihost": "waits for the multi-process communicator (ROADMAP A 4)",
 }
 EXCLUDED_NAMES = {
     (".ops.spmv", "dia_pallas_ok"): "the TPU gate of the Pallas kernels; no gate on CUDA",
     (".ops.spmv", "lane_gather"): "a TPU gather layout for the Pallas HYB kernels",
-    (".parallel", "multihost"): "the module above",
 }
 
 
