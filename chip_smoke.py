@@ -231,9 +231,22 @@ counter, and its count by dtype, reset just before each solve):
    BiCGSTAB + Jacobi on the strayed 64³ as a DistHYB (the remainder's
    all-gather: x bitwise, the same count).  A world size above 1 needs
    more cards than one; the CPU tests hold W = 2 and 4 gloo ranks.
+36. the distributed AMG through the group: a new NCCL group of one rank and
+   ``global_mesh(slots=8)``, each cell beside the group-less 8-slot mesh in
+   turns (first call, then a warm call each way), with the launches and
+   ``dist_ops.collectives`` of the group call, a call and an inner
+   iteration: (a) dist_solve_ir GMRES(30) + saamg on the anisotropic 1024²
+   (ε 0.01, phase 27's cell), (b) the same at 256² with the line smoother
+   (the Spike interface all-gather), (c) dist_solve_ir CG + rsamg on 64³,
+   (d) dist_solve GMRES(30) + classical amg fp64 on the anisotropic 512²
+   (ε 1e-3; every level product all-gathers its vector): x bitwise the
+   group-less x, the same count, true relres ≤ 1e-8; (e)
+   dist_solve_ir_multi block CG + saamg 512², k = 8: X within 1e-12
+   relative, the same counts; (a), (c) and (e) launch only K4 (K4k), K4
+   checked on level 0 of each of their hierarchies.
 Phase 6 runs ``lssp_tpu_torch.examples.exam``'s ``main``.  ``python3
 chip_smoke.py --only 32,33,34`` runs phases 32-34 alone, ``--only 35``
-phase 35.
+phase 35, ``--only 36`` phase 36.
 JAX cannot run phase 30's direct cells (its padded level schedules would
 need 1e9-1e12 slots; ROADMAP C property 14): they are held to scipy, and
 ``scripts/jax_krylov_reference.py 30`` gives JAX's host factors'
@@ -3868,6 +3881,132 @@ def phase_comm(lt, np, torch, dev, counters, card):
     return abs_err
 
 
+# ---------------------------------------------------------------------------
+# phase 36: the distributed AMG through a torch.distributed group of one
+# ---------------------------------------------------------------------------
+
+def report_group_cell(np, name, card, nits, nits_p, first, warm, launches, coll, extra=""):
+    """One line of phase 36: the counts both ways, the kernel launches, the
+    collectives of the group call by kind, a call and an inner iteration,
+    and the first and warm walls both ways."""
+    its = int(np.max(nits))
+    per_it = {k: round(v / max(its, 1), 2) for k, v in coll.items()}
+    print(f"{name} [{card}]: inner its {nits} (group-less {nits_p}){extra}; K4 / K4k launches "
+          f"{launches['dia_spmv_ext']} / {launches['dia_spmm_ext']}, all launches {launches}; "
+          f"collectives a call {coll}, an inner iteration {per_it}; first call {first[0]:.3f} s "
+          f"(group-less {first[1]:.3f} s); warm through the group "
+          f"{', '.join(f'{w:.3f}' for w in warm[0])} s, group-less "
+          f"{', '.join(f'{w:.3f}' for w in warm[1])} s")
+
+
+def phase_amg_group(lt, np, torch, dev, counters, card):
+    """Phase 36: the distributed AMG through a torch.distributed group.
+    ``multihost.initialize(device="cuda")`` over a ``file://`` rendezvous of
+    its own, world size 1 (NCCL), and ``global_mesh(slots=8)``; on it, each
+    beside the group-less mesh of 8 slots on the card, timed in turns
+    (``group_cell``): (a) dist_solve_ir GMRES(30) + saamg on the anisotropic
+    1024² (ε 0.01, phase 27's cell), (b) the same at 256² with the line
+    smoother (the Spike interface gather), (c) dist_solve_ir CG + rsamg on
+    64³, (d) dist_solve GMRES(30) + classical amg fp64 on the anisotropic
+    512² (ε 1e-3, phase 27's), x bitwise the group-less x and the same
+    count in (a)-(d); (e) dist_solve_ir_multi block CG + saamg 512², k = 8,
+    X within 1e-12 relative and the same counts.  (a), (c) and (e) launch
+    only K4 (K4k), and K4 is checked on level 0 of each of their
+    hierarchies.  Returns K4's max abs err."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from lssp_tpu_torch.parallel import multihost
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "phase 36: a process group is already up")
+    tmp = tempfile.mkdtemp(prefix="lssp_rdv36_")
+    multihost.initialize(f"file://{tmp}/rdv", 1, 0, device="cuda")
+    k4_err = 0.0
+    try:
+        check(dist.is_initialized() and dist.get_backend() == "nccl",
+              "phase 36: initialize(device='cuda') brought up no NCCL group")
+        mesh = multihost.global_mesh(slots=8)
+        plain = lt.make_mesh(8, devices=[dev] * 8)
+        check(mesh.group is not None and (mesh.world, mesh.size) == (1, 8),
+              f"phase 36: global_mesh gave {mesh}")
+        opts = lt.SolverOptions(rtol=1e-8, atol=0.0, rbtol=0.0, maxit=2000)
+        gmres = dataclasses.replace(opts, restart=30)
+
+        def k4_on_level0(A, name):
+            preps = {key[0]: prep for key, prep in A._dist_cache.items()}
+            h = preps[mesh]["pc_state"]
+            return check_dist_levels(np, torch, dev, h.levels[:1], name)[0]
+
+        def vector_cell(name, A, solve, only_k4, runs=1):
+            nonlocal k4_err
+            x, info, xp, infop, first, warm, launches, coll = group_cell(
+                torch, dev, counters, solve, mesh, plain, runs=runs)
+            rr = true_relres(A, x, np)
+            report_group_cell(np, name, card, info.nits, infop.nits, first, warm, launches, coll,
+                              f", true relres {rr:.3e}, x bitwise the group-less x: "
+                              f"{bool(torch.equal(x, xp))}")
+            check(torch.equal(x, xp) and info.nits == infop.nits,
+                  f"{name}: x or its count {info.nits} differs from the group-less "
+                  f"{infop.nits}")
+            check(rr <= 1e-8, f"{name}: true relres {rr:.3e} > 1e-8")
+            check(coll.get("all_gather", 0) > info.nits, f"{name}: collectives {coll}")
+            if only_k4:
+                check_only_k4(launches, name)
+                check(launches["dia_spmm_ext"] == 0, f"{name}: K4k launched on a vector")
+                k4_err = max(k4_err, k4_on_level0(A, name))
+
+        # (a) phase 27's full-width saamg cell
+        A = lt.sparse.anisotropic_poisson_2d(1024, epsilon=0.01)
+        b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+        vector_cell("amg group (a) aniso 1024^2 dist_solve_ir gmres(30)+saamg", A,
+                    lambda m: lt.dist_solve_ir(A, b, method="gmres", pc="saamg", mesh=m,
+                                               options=gmres), True)
+        # (b) the line smoother: the Spike interface all-gather (256²: at 512²
+        # its plain-torch PCR took 11 s of the phase, the cell checks the same)
+        A = lt.sparse.anisotropic_poisson_2d(256, epsilon=0.01)
+        b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+        line = lt.PCOptions(amg_smoother="line")
+        vector_cell("amg group (b) aniso 256^2 dist_solve_ir gmres(30)+saamg line", A,
+                    lambda m: lt.dist_solve_ir(A, b, method="gmres", pc="saamg", mesh=m,
+                                               options=gmres, pc_options=line), False)
+        # (c) rsamg
+        A = lt.sparse.laplacian_3d(64)
+        b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+        vector_cell("amg group (c) 64^3 dist_solve_ir cg+rsamg", A,
+                    lambda m: lt.dist_solve_ir(A, b, method="cg", pc="rsamg", mesh=m,
+                                               options=opts), True)
+        # (d) classical amg, fp64: every level product gathers its vector
+        A = lt.sparse.anisotropic_poisson_2d(512)
+        b = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+        o = dataclasses.replace(gmres, maxit=5000)
+        vector_cell("amg group (d) aniso 512^2 eps 1e-3 dist_solve gmres(30)+amg fp64", A,
+                    lambda m: lt.dist_solve(A, b, method="gmres", pc="amg", mesh=m, options=o),
+                    False)
+        # (e) block CG + saamg, k = 8
+        name = "amg group (e) aniso 512^2 dist_solve_ir_multi blockcg+saamg k=8"
+        A = lt.sparse.anisotropic_poisson_2d(512, epsilon=0.01)
+        B = serving_block(np, torch, dev, A.shape[0])
+        X, info, Xp, infop, first, warm, launches, coll = group_cell(
+            torch, dev, counters,
+            lambda m: lt.dist_solve_ir_multi(A, B, method="blockcg", pc="saamg", mesh=m,
+                                             options=opts), mesh, plain, runs=1)
+        dx = float((X - Xp).norm() / Xp.norm())
+        rr = block_relres(A, X, B, np)
+        report_group_cell(np, name, card, info.nits.tolist(), infop.nits.tolist(), first, warm,
+                          launches, coll, f", X against the group-less X {dx:.3e} relative, "
+                          f"true relres max {max(rr):.3e}")
+        check(dx <= 1e-12 and np.array_equal(info.nits, infop.nits),
+              f"{name}: X {dx:.3e} from the group-less X, its {info.nits} / {infop.nits}")
+        check(max(rr) <= 1e-8, f"{name}: true relres {max(rr):.3e}")
+        check_only(launches, {"dia_spmm_ext"}, name)
+        k4_err = max(k4_err, k4_on_level0(A, name))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 36 (distributed AMG through the group): {time.perf_counter() - t_phase:.1f} s")
+    return k4_err
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3898,7 +4037,7 @@ def main():
                     neumann_block_apply, hyb_spmm, dia_spmm_ext)
         for phase, fn in (("28", phase_transpose), ("29", phase_relax), ("30", phase_direct),
                           ("31", phase_ilutp_arms_ca), ("32", phase_bf16), ("33", phase_utils),
-                          ("34", phase_examples), ("35", phase_comm)):
+                          ("34", phase_examples), ("35", phase_comm), ("36", phase_amg_group)):
             if phase in only:
                 print(json.dumps({f"phase {phase} max_abs_err": fn(lt, np, torch, dev, counters,
                                                                     card)}))
@@ -3948,6 +4087,7 @@ def main():
     phase_utils(lt, np, torch, dev, counters, card)
     phase_examples(lt, np, torch, dev, counters, card)
     comm_err = phase_comm(lt, np, torch, dev, counters, card)
+    amg_group_err = phase_amg_group(lt, np, torch, dev, counters, card)
     library = phase_library(lt, np, torch, dev, card)
     # each kernel's error is the worst over its own phase and the later
     # phases' checks on their own data
@@ -3964,7 +4104,7 @@ def main():
     krhs["neumann_sweep_block"]["max_abs_err"] = max(
         krhs["neumann_sweep_block"]["max_abs_err"], transpose_errs["neumann_sweep_block"])
     k4["max_abs_err"] = max(k4["max_abs_err"], dist_amg["saamg"], dist_amg["rsamg"],
-                            ca_errs["dist_spmv_ext"], comm_err)
+                            ca_errs["dist_spmv_ext"], comm_err, amg_group_err)
     for errs in (saamg_errs, classical_errs, rsamg_errs, *krylov_errs):
         k1["max_abs_err"] = max(k1["max_abs_err"], errs.get("dia_spmv", 0.0))
         k2["max_abs_err"] = max(k2["max_abs_err"], errs.get("neumann_sweep", 0.0))

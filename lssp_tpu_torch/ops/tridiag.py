@@ -18,8 +18,9 @@ The distributed line smoother's cross-shard solve is the Spike algorithm
 from ``spike_interface_host``): every shard solves its own tridiagonal
 with PCR, and a (2P, 2P) interface system couples the first and last
 unknowns of the shards, so a line may cross shard boundaries.  On the
-port's one-device mesh the shards are the leading axis of (P, R) tensors
-and the all-gather of the interface values is a slice.
+port's mesh a rank's shards are the leading axis of (P_loc, R) tensors;
+the interface values of every rank's shards come from one all-gather over
+the ranks of the mesh's group (a slice without a group).
 """
 from __future__ import annotations
 
@@ -113,15 +114,17 @@ def _shard_pcr(dl, d, du, b):
     return pcr_solve(dl.T, d.T, du.T, b.transpose(0, 1)).transpose(0, 1)
 
 
-def _interface_correct(y, vspike, wspike, u):
-    """x = y − v·u_prev − w·u_next: shard p's correction from the interface
-    unknowns u (2P, ...) = [x_p[0], x_p[-1]] of every shard."""
-    P = y.shape[0]
+def _interface_correct(y, vspike, wspike, u, p0: int = 0):
+    """x = y − v·u_prev − w·u_next: the correction of the shards
+    [p0, p0 + y.shape[0]) from the interface unknowns u (2P, ...) =
+    [x_p[0], x_p[-1]] of every global shard."""
+    P = u.shape[0] // 2
     zero = u.new_zeros((1,) + tuple(u.shape[1:]))
     u_prev = torch.cat([zero, u[1:2 * P - 2:2]])        # u[2p-1], 0 on shard 0
     u_next = torch.cat([u[2:2 * P:2], zero])            # u[2p+2], 0 on shard P-1
-    return (y - _cols(vspike, y) * u_prev[:, None]
-            - _cols(wspike, y) * u_next[:, None])
+    own = slice(p0, p0 + y.shape[0])
+    return (y - _cols(vspike, y) * u_prev[own, None]
+            - _cols(wspike, y) * u_next[own, None])
 
 
 def _interface_matrix(v0, vR, w0, wR, dtype, device):
@@ -186,13 +189,20 @@ def spike_interface_host(dl, d, du):
     return v, w, np.linalg.inv(M).astype(d.dtype)
 
 
-def dist_spike_solve(dl, d, du, vspike, wspike, Minv, b):
+def dist_spike_solve(dl, d, du, vspike, wspike, Minv, b, mesh=None):
     """The Spike solve with the spikes and interface inverse of
     ``spike_interface_host`` (``lssp_tpu/ops/tridiag.py:198``): one PCR
     right-hand side a shard, the interface values, a small matrix-vector
-    product (multiply and sum, as JAX's) and the correction.  Coefficients
-    and spikes (P, R), Minv (2P, 2P), b (P, R) or (P, R, k)."""
+    product (multiply and sum, as JAX's) and the correction.  Coefficients,
+    spikes and b are this rank's shards, (P_loc, R) (b also (P_loc, R, k));
+    Minv is whole, (2P, 2P) over every global shard.  Over the ranks of
+    ``mesh``'s group the shards' end values are all-gathered in rank
+    order, and every rank forms the whole u, as one process does, so the
+    result is bitwise the one-process solve's."""
+    from lssp_tpu_torch.parallel.dist_ops import gather_rows
     y = _shard_pcr(dl, d, du, b)
-    rhs = torch.stack([y[:, 0], y[:, -1]], dim=1).reshape((-1,) + tuple(b.shape[2:]))
+    ends = gather_rows(torch.stack([y[:, 0], y[:, -1]], dim=1), mesh)
+    rhs = ends.reshape((-1,) + tuple(b.shape[2:]))
     u = (_cols(Minv, rhs[None]) * rhs[None]).sum(dim=1)
-    return _interface_correct(y, vspike, wspike, u)
+    p0 = mesh.rank * mesh.slots if mesh is not None else 0
+    return _interface_correct(y, vspike, wspike, u, p0)

@@ -5,8 +5,9 @@
 ``dist_solve_multi`` / ``dist_solve_ir_multi`` (``dist_solve.py``), and
 the distributed AMG hierarchies: structured SA (``dist_sa.py``), classical
 through the same cycle (``dist_rs.py``) and classical on padded ELL
-(``dist_amg.py``), and the multi-process runtime, one rank per device
-(``multihost.py``)."""
+(``dist_amg.py``), each built whole on the host and cut to a rank's
+shards, and the multi-process runtime, one rank per device
+(``multihost.py``), over which every preconditioner runs."""
 
 from lssp_tpu_torch.parallel import multihost
 from lssp_tpu_torch.parallel.dist_amg import DistAMG, build_dist_amg, dist_vcycle

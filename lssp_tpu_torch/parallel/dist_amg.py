@@ -3,9 +3,12 @@
 
 Every level's A, P and R = Pᵀ is padded to a shard-divisible row count and
 stored as stacked per-shard padded ELL with global column ids.  A product
-gathers the whole level vector (JAX's all-gather, here the flat vector
-itself) and sums each row's slots; the coarsest level is a row-sharded
-dense solve.  Plain torch, as the JAX package runs it in XLA.
+gathers the whole level vector from every rank's rows (JAX's all-gather;
+the rank's flat vector itself without a group) and sums each of the
+rank's rows' slots; the coarsest level is the dense solve of
+``dist_ops.dense_rows``.  The hierarchy is built whole on the host and
+``local`` cuts it to a rank's shards.  Plain torch, as the JAX package
+runs it in XLA.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from lssp_tpu_torch.amg.cycle import chebyshev, col, residual
 from lssp_tpu_torch.amg.setup import AMGHierarchy
+from lssp_tpu_torch.parallel.dist_ops import dense_rows, gather_rows
 
 __all__ = ["DistAMG", "DistAMGLevel", "build_dist_amg", "dist_vcycle"]
 
@@ -37,11 +41,25 @@ class DistAMGLevel:
     lmax: float
     smoother: str   # "jacobi" | "chebyshev"
 
+    def local(self, p0: int, p1: int) -> "DistAMGLevel":
+        """The level's rows of the global shards [p0, p1); the column ids
+        stay global."""
+        def cut(t):
+            return None if t is None else t[p0:p1]
+        return dataclasses.replace(
+            self, a_cols=cut(self.a_cols), a_data=cut(self.a_data), p_cols=cut(self.p_cols),
+            p_data=cut(self.p_data), r_cols=cut(self.r_cols), r_data=cut(self.r_data),
+            dinv=cut(self.dinv))
+
 
 @dataclasses.dataclass(frozen=True)
 class DistAMG:
     levels: Tuple[DistAMGLevel, ...]
-    coarse_inv: Any     # (nc_pad, nc_pad) (JAX: its (P, Rc, nc_pad) row shards)
+    coarse_inv: Any     # (nc_pad, nc_pad), whole on every rank (JAX: row shards)
+
+    def local(self, p0: int, p1: int) -> "DistAMG":
+        """The hierarchy cut to the global shards [p0, p1) (``_local_state``)."""
+        return dataclasses.replace(self, levels=tuple(lev.local(p0, p1) for lev in self.levels))
 
 
 def _pad_ell(S, nshards: int, dtype):
@@ -94,24 +112,29 @@ def build_dist_amg(hier: AMGHierarchy, nshards: int, dtype=np.float64, degree: i
     return DistAMG(levels=tuple(levels), coarse_inv=up(ci))
 
 
-def _ag_spmv(cols, data, x):
-    """The gathered padded-ELL product: x is the whole (flat) level vector,
-    (n,) or (n, k); the result is flat over the operator's padded rows."""
+def _ag_spmv(cols, data, x, mesh=None):
+    """The gathered padded-ELL product: x is the rank's rows of the level
+    vector, (n_loc,) or (n_loc, k), all-gathered into the whole vector;
+    the result is flat over the rank's padded rows of the operator."""
+    x = gather_rows(x, mesh)
     if x.ndim == 2:
         return (data[..., None] * x[cols]).sum(dim=2).reshape(-1, x.shape[1])
     return (data * x[cols]).sum(dim=2).reshape(-1)
 
 
-def dist_vcycle(h: DistAMG, b: torch.Tensor) -> torch.Tensor:
-    """One V-cycle from x = 0 on the flat b (n_pad,) or (n_pad, k)."""
+def dist_vcycle(h: DistAMG, b: torch.Tensor, mesh=None) -> torch.Tensor:
+    """One V-cycle from x = 0 on the rank's flat rows b of the (n_pad,) or
+    (n_pad, k) rhs, ``h`` cut to the rank's shards, over ``mesh``'s group:
+    the A and R products gather the fine vector, the P product the coarse
+    one."""
 
     def cycle(l, b_l, x_l):
         lev = h.levels[l]
         if l == len(h.levels) - 1:
-            return h.coarse_inv @ b_l
+            return dense_rows(h.coarse_inv, b_l, mesh)
 
         def Aop(v):
-            return _ag_spmv(lev.a_cols, lev.a_data, v)
+            return _ag_spmv(lev.a_cols, lev.a_data, v, mesh)
         dinv = lev.dinv.reshape(-1)
 
         def smooth(x):
@@ -122,8 +145,8 @@ def dist_vcycle(h: DistAMG, b: torch.Tensor) -> torch.Tensor:
             return chebyshev(Aop, dinv, lev.lmax, lev.degree, x, b_l)
 
         x_l = smooth(x_l)
-        rc = _ag_spmv(lev.r_cols, lev.r_data, residual(Aop, x_l, b_l))
+        rc = _ag_spmv(lev.r_cols, lev.r_data, residual(Aop, x_l, b_l), mesh)
         ec = cycle(l + 1, rc, torch.zeros_like(rc))
-        return smooth(x_l + _ag_spmv(lev.p_cols, lev.p_data, ec))
+        return smooth(x_l + _ag_spmv(lev.p_cols, lev.p_data, ec, mesh))
 
     return cycle(0, b, torch.zeros_like(b))

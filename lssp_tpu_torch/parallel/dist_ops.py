@@ -18,7 +18,9 @@ card, gloo on the CPU) the communicator is:
 - the halo rows of a rank's first and last shards: one
   ``batch_isend_irecv`` with the neighbouring ranks of the ring
   (``_ring_swap``);
-- the whole x of a HYB remainder or an all-gather ELL: one all-gather;
+- the whole x of a HYB remainder or an all-gather ELL, and the whole
+  level vector of a classical AMG product, of an AMG coarse solve
+  (``dense_rows``) or of the Spike interface: one all-gather;
 - a ``psum``: one all-gather of every rank's per-shard partials, laid out
   in global shard order and summed as on one rank, so a dot over W ranks
   is bitwise the one-process dot wherever the partials are;
@@ -85,6 +87,19 @@ def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
     if not _grouped(mesh):
         return x
     return all_gather(x, mesh).view(-1, *x.shape[1:])
+
+
+def dense_rows(inv: torch.Tensor, b: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of ``inv @ b_full``, b_full the whole vector (or
+    block) gathered from every rank's rows ``b``: the AMG cycles' dense
+    coarse solve.  Every rank forms the whole product, as one process
+    does, so its rows are bitwise the one-process rows (JAX keeps row
+    shards of ``inv``, which saves only the flops)."""
+    x = inv @ gather_rows(b, mesh)
+    if not _grouped(mesh):
+        return x
+    n = b.shape[0]
+    return x[mesh.rank * n:(mesh.rank + 1) * n]
 
 
 def rank_sum(t: torch.Tensor, mesh) -> torch.Tensor:

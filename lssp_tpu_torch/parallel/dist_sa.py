@@ -8,15 +8,18 @@ and a level's only communication is the halo exchange of its A, B and C
 products (``parallel/dist_ops``: a DistDIA level product is kernel K4 on
 CUDA) plus the gather that feeds the dense coarse solve.
 
-On the port's mesh the P shards are the leading axis of one tensor, so a
-level vector is flat (n_l,) (or an (n_l, k) block) and its shard view
-(P, R_l); the coarse gather is the flat vector itself.  The host setup is
-the JAX package's, so the levels are identical to it.
+On the port's mesh a rank's shards are the leading axis of one tensor, so
+a level vector is the rank's flat rows (n_l,) (or an (n_l, k) block) and
+its shard view (P_loc, R_l).  The hierarchy is built whole on the host,
+the JAX package's setup, so the levels are identical to it; ``local``
+cuts it to a rank's shards.  Over the ranks of a mesh's group the level
+products exchange halos with the neighbouring ranks, the Spike line
+smoother all-gathers its interface values and the coarse solve
+all-gathers the coarsest vector (``dist_ops.dense_rows``).
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 import warnings
 from typing import Any, Tuple
 
@@ -29,7 +32,7 @@ from lssp_tpu_torch.amg.sa import (
     _pad_identity, agg_localize, agg_prolong, agg_restrict, detect_grid, sa_host_levels,
 )
 from lssp_tpu_torch.ops.tridiag import dist_spike_solve, line_jacobi_sweeps, spike_interface_host
-from lssp_tpu_torch.parallel.dist_ops import make_dist_spmv
+from lssp_tpu_torch.parallel.dist_ops import dense_rows, make_dist_spmv
 from lssp_tpu_torch.parallel.partition import partition_matrix
 from lssp_tpu_torch.sparse.types import CSR
 
@@ -50,19 +53,37 @@ class DistSALevel:
     n_next: int = 0     # shard-local size of the next level
     agg: Any = None     # shard-local aggregation descriptor (agg_localize)
     tri: Any = None     # line smoother: (dl, d, du, v, w) (P, R_l) and Minv (2P, 2P)
-    nshards: int = 1
+    nshards: int = 1    # the shards held: every global shard, or a rank's after local()
 
-    @functools.cached_property
-    def ops(self):
-        """The level's products (A, B, C) as flat-vector operators."""
-        return tuple(None if M is None else make_dist_spmv(M) for M in (self.A, self.B, self.C))
+    def ops(self, mesh=None):
+        """The level's products (A, B, C) as operators on the rank's flat
+        rows, communicating through ``mesh``'s group; built once a mesh."""
+        cache = self.__dict__.setdefault("_ops", {})
+        if mesh not in cache:
+            cache[mesh] = tuple(None if M is None else make_dist_spmv(M, mesh)
+                                for M in (self.A, self.B, self.C))
+        return cache[mesh]
+
+    def local(self, p0: int, p1: int) -> "DistSALevel":
+        """The level cut to the global shards [p0, p1): every per-shard
+        field; the line smoother's interface inverse stays whole."""
+        def cut(M):
+            return None if M is None else M.local(p0, p1)
+        tri = None if self.tri is None else \
+            tuple(t[p0:p1] for t in self.tri[:5]) + (self.tri[5],)
+        return dataclasses.replace(self, A=cut(self.A), B=cut(self.B), C=cut(self.C),
+                                   dinv=self.dinv[p0:p1], tri=tri, nshards=p1 - p0)
 
 
 @dataclasses.dataclass(frozen=True)
 class DistSA:
     levels: Tuple[DistSALevel, ...]
-    coarse_inv: Any     # (nc, nc) dense inverse (JAX: its (P, nc/P, nc) row shards)
+    coarse_inv: Any     # (nc, nc) dense inverse, whole on every rank (JAX: row shards)
     n_top: int          # the size the hierarchy was built on (see build_dist_sa)
+
+    def local(self, p0: int, p1: int) -> "DistSA":
+        """The hierarchy cut to the global shards [p0, p1) (``_local_state``)."""
+        return dataclasses.replace(self, levels=tuple(lev.local(p0, p1) for lev in self.levels))
 
 
 def _dist_tri_parts(Ah, nshards: int, dtype, device):
@@ -146,23 +167,25 @@ def build_dist_sa(A: CSR, nshards: int, g: int = 4, max_levels: int = 12,
 
 
 def shard_local(fn, agg, g: int, n_next: int, P: int, t: torch.Tensor) -> torch.Tensor:
-    """``agg_restrict`` / ``agg_prolong`` applied to every shard of the flat
-    t (n,) or (n, k): the shard axis rides as a trailing batch axis."""
+    """``agg_restrict`` / ``agg_prolong`` applied to every one of the P
+    shards of the flat t (n,) or (n, k) (P: the shards held, a rank's
+    own): the shard axis rides as a trailing batch axis."""
     tail = tuple(t.shape[1:])
     out = fn(agg, g, n_next, t.reshape((P, -1) + tail).movedim(0, 1))
     return out.movedim(1, 0).reshape((-1,) + tail)
 
 
-def _smooth(lev: DistSALevel, Aop, x, b):
-    """Damped line Jacobi (the Spike solve across shards), weighted Jacobi
-    (2/3), or Chebyshev on [0.3, 1.1]·λmax of D⁻¹A (``dist_sa_vcycle``'s)."""
+def _smooth(lev: DistSALevel, Aop, x, b, mesh=None):
+    """Damped line Jacobi (the Spike solve across shards and ranks),
+    weighted Jacobi (2/3), or Chebyshev on [0.3, 1.1]·λmax of D⁻¹A
+    (``dist_sa_vcycle``'s)."""
     P = lev.nshards
     if lev.smoother == "line" and lev.tri is not None:
         dl, d0, du, vs, ws, mi = lev.tri
 
         def solve_t(_dl, _d, _du, r):
             tail = tuple(r.shape[1:])
-            y = dist_spike_solve(dl, d0, du, vs, ws, mi, r.reshape((P, -1) + tail))
+            y = dist_spike_solve(dl, d0, du, vs, ws, mi, r.reshape((P, -1) + tail), mesh)
             return y.reshape(r.shape)
         return line_jacobi_sweeps((dl, d0, du), Aop, x, b, lev.degree, tri_solve=solve_t)
     dinv = lev.dinv.reshape(-1)
@@ -173,15 +196,16 @@ def _smooth(lev: DistSALevel, Aop, x, b):
     return chebyshev(Aop, dinv, lev.lmax, lev.degree, x, b)
 
 
-def dist_sa_vcycle(h: DistSA, b: torch.Tensor) -> torch.Tensor:
-    """One V-cycle from x = 0 on the flat b (n_top,) or (n_top, k)."""
+def dist_sa_vcycle(h: DistSA, b: torch.Tensor, mesh=None) -> torch.Tensor:
+    """One V-cycle from x = 0 on the rank's flat rows b of the (n_top,) or
+    (n_top, k) rhs, ``h`` cut to the rank's shards, over ``mesh``'s group."""
 
     def cycle(l, b_l, x_l):
         if l == len(h.levels):
-            return h.coarse_inv @ b_l
+            return dense_rows(h.coarse_inv, b_l, mesh)
         lev = h.levels[l]
-        Aop, Bop, Cop = lev.ops
-        x_l = _smooth(lev, Aop, x_l, b_l)
+        Aop, Bop, Cop = lev.ops(mesh)
+        x_l = _smooth(lev, Aop, x_l, b_l, mesh)
         r = residual(Aop, x_l, b_l)
         if Cop is not None:
             r = Cop(r)
@@ -190,6 +214,6 @@ def dist_sa_vcycle(h: DistSA, b: torch.Tensor) -> torch.Tensor:
         e = shard_local(agg_prolong, lev.agg, lev.g, lev.n_next, lev.nshards, ec)
         if Bop is not None:
             e = Bop(e)
-        return _smooth(lev, Aop, x_l + e, b_l)
+        return _smooth(lev, Aop, x_l + e, b_l, mesh)
 
     return cycle(0, b, torch.zeros_like(b))

@@ -24,7 +24,10 @@ by exact level schedules) or a distributed AMG hierarchy: ``saamg``
 (``dist_sa``: shard-local reshape transfers, every banded level product
 through K4), ``rsamg`` (``dist_rs``: the classical hierarchy through the
 same cycle, or the flat saamg plan when the matrix is no shard-alignable
-lattice) and ``amg`` (``dist_amg``: padded-ELL gathers).
+lattice) and ``amg`` (``dist_amg``: padded-ELL gathers).  Every rank
+builds the whole hierarchy on the host and keeps its shards; the cycles
+exchange halos, gather the Spike interface, the classical levels'
+vectors and the coarsest vector over the ranks.
 
 The transpose methods (bicg, qmr, cgnr, lsqr) take the operator with its
 transpose (``dist_ops.OpWithTranspose``: ``make_dist_spmv_t``, plain
@@ -484,11 +487,11 @@ def _dyn_index(offs: torch.Tensor, R: int):
     return src.clamp(0, R - 1).view(offs.shape[0], -1), valid
 
 
-def _shard_pc_apply(kind, state, Pn: int, R: int, op=None, cycles: int = 1):
+def _shard_pc_apply(kind, state, Pn: int, R: int, op=None, cycles: int = 1, mesh=None):
     """The preconditioner apply ``r ↦ M⁻¹r`` on the flat vector or on an
     (n, k) block (seen per shard as (P, R) or (P, R, k)).  An AMG apply
-    runs ``cycles`` V-cycles, each after the first on the residual through
-    the distributed operator ``op``."""
+    runs ``cycles`` V-cycles over ``mesh``'s group, each after the first on
+    the residual through the distributed operator ``op``."""
     if kind == "none":
         def identity(r):
             return r
@@ -501,9 +504,9 @@ def _shard_pc_apply(kind, state, Pn: int, R: int, op=None, cycles: int = 1):
             from lssp_tpu_torch.parallel.dist_sa import dist_sa_vcycle as vcycle
 
         def apply_mg(r):
-            z = vcycle(state, r)
+            z = vcycle(state, r, mesh)
             for _ in range(cycles - 1):
-                z = z + vcycle(state, r - op(z))
+                z = z + vcycle(state, r - op(z), mesh)
             return z
         return apply_mg
 
@@ -680,9 +683,12 @@ def _prepare_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, 
 
 def _local_state(kind, state, p0: int, p1: int):
     """A preconditioner state cut to the shards [p0, p1) (every tensor of it
-    has the leading shard axis)."""
+    has the leading shard axis, but an AMG hierarchy's coarse inverse and
+    interface inverses, which stay whole)."""
     def cut(t):
         return t[p0:p1]
+    if kind in ("amg", "saamg"):
+        return state.local(p0, p1)
     if kind == "ilu_nm":
         bands = {f: getattr(state, f).local(p0, p1) for f in ("L", "U", "Lt", "Ut")
                  if getattr(state, f) is not None}
@@ -703,15 +709,13 @@ def _build_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, sa
     wdtype = inner_dtype if ir else dtype
     work = round_to(A, wdtype)
     # every rank builds the whole state on the host, the same decisions from
-    # the same data (the Neumann sweeps are the device's default), and
-    # uploads its own shards; an AMG hierarchy builds on the device, as it
-    # runs on one rank only (ROADMAP A 3)
+    # the same data (the Neumann sweeps are the device's default; an AMG
+    # hierarchy's grid or flat plan, its fallbacks and its padding), and
+    # uploads its own shards
     if pc_opts.ilu_sweeps is None:
         pc_opts = dataclasses.replace(pc_opts, ilu_sweeps=default_ilu_sweeps(device))
-    amg = pc in AMG_PCS
     with rounding_to(wdtype):
-        kind, pc_state = _build_dist_pc(work, pc, pc_opts, Pn, R,
-                                        device if amg else torch.device("cpu"), sa_grid)
+        kind, pc_state = _build_dist_pc(work, pc, pc_opts, Pn, R, torch.device("cpu"), sa_grid)
     if kind == "saamg" and pc_state.n_top != n:
         # grid coarsening stalled and the hierarchy took the flat plan, which
         # pads itself: grow the system to the hierarchy's size
@@ -725,8 +729,7 @@ def _build_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, sa
     M = partition_matrix(work, Pn, fmt=fmt).local(p0, p1).to(device, dtype=wdtype)
     M64 = (partition_matrix(A.astype(np.float64), Pn, fmt=fmt).local(p0, p1).to(device)
            if ir else None)
-    if not amg:
-        pc_state = map_tensors(lambda t: t.to(device), _local_state(kind, pc_state, p0, p1))
+    pc_state = map_tensors(lambda t: t.to(device), _local_state(kind, pc_state, p0, p1))
     return dict(n=n, R=R, M=M, M64=M64, kind=kind, pc_state=pc_state)
 
 
@@ -760,10 +763,6 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
                              f"{pc!r} has no distributed transpose apply")
         pc_opts = dataclasses.replace(pc_opts, transpose=True)
     mesh = mesh or make_mesh()
-    if mesh.world > 1 and pc in AMG_PCS:
-        raise NotImplementedError(
-            f"distributed pc={pc!r} over {mesh.world} ranks: the AMG cycles hold whole level "
-            "vectors and need their own gathers (ROADMAP A 3); run it on one rank")
     Pn, device = mesh.size, mesh.device
     pdot = make_psum_dot(mesh.slots, mesh)
     if get_block_solver(method) is None:
@@ -798,7 +797,7 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
     if needs_transpose_pc(method):
         op = OpWithTranspose(op, make_dist_spmv_t(prep["M"], mesh))
     pc_apply = _shard_pc_apply(prep["kind"], prep["pc_state"], mesh.slots, R, op=op,
-                               cycles=max(1, int(pc_opts.amg_cycles)))
+                               cycles=max(1, int(pc_opts.amg_cycles)), mesh=mesh)
     if ir and multi:
         op64 = make_dist_spmv(prep["M64"], mesh)
 

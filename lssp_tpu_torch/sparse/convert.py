@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from lssp_tpu_torch import _kernels
+from lssp_tpu_torch.config import resolve_device
 from lssp_tpu_torch.sparse.types import BDIA, BSR, COO, CSR, DIA, ELL, HYB
 
 
@@ -250,10 +251,12 @@ def csr_to_hyb(A: CSR, max_diags: int = 256, min_occ: float = 0.02,
 
 
 def to_device_format(A: CSR, max_diags: int = 32, dia_fill: float = 2.0,
-                     hyb_diags: int = 256, device="cpu"):
+                     hyb_diags: int = 256, device=None):
     """Pick the execution format for a CSR matrix, on ``device``: DIA when
     the diagonal count is small and the storage waste bounded (stencils),
     HYB when a dominant band holds most entries, padded ELL otherwise.
+    ``device`` follows ``config.resolve_device``: the current CUDA device
+    unless one is named, and an error without a CUDA device.
 
     A rectangular matrix (lsqr) follows the same rule over its rows: a tall
     one gets the format JAX gives it (the regularised least-squares system
@@ -261,6 +264,7 @@ def to_device_format(A: CSR, max_diags: int = 32, dia_fill: float = 2.0,
     K3 bound every read of x by the column count; a wide one whose offsets
     pass its row count goes to ELL.  ``ops/spmv.spmv_t`` returns
     ``A.shape[1]`` entries for each of them."""
+    device = resolve_device(device)
     n = A.shape[0]
     try:
         _, _, offs = csr_entry_offsets(A.indptr, A.indices, n)

@@ -13,12 +13,15 @@ parent, also with one thread (torch's and the host BLAS / LAPACK's).
 Held bitwise (x and the iteration count equal): the halo exchange (DIA,
 and the masked ELL one), the DIA / HYB / ELL-halo / ELL-all-gather
 forward products on (n,) and (n, k), the psum dot with ``.many`` and
-``.rows``, and the solves in ``BITWISE``: every reduction is the
-one-process sum of the same per-shard partials.  To rounding: the
-transposes (rtol 1e-13: the all-gather paths reduce over ranks in another
-order), and the solves in ``ROUNDED`` (x within 1e-10 relative, counts ±1:
-the transposes, the stacked exact schedules, the block methods' Grams
-summed per rank).  At W = 1 every solve is bitwise the group-less mesh's.
+``.rows``, the Spike tridiagonal solve (also within 1e-12 of scipy's
+banded solve), and the solves in ``BITWISE`` and ``AMG``: every reduction
+is the one-process sum of the same per-shard partials, and every AMG
+coarse solve and Spike interface product is the one-process product, formed
+whole on every rank.  To rounding: the transposes (rtol 1e-13: the
+all-gather paths reduce over ranks in another order), and the solves in
+``ROUNDED`` and ``AMG_ROUNDED`` (x within 1e-10 relative, counts ±1: the
+transposes, the stacked exact schedules, the block methods' Grams summed
+per rank).  At W = 1 every solve is bitwise the group-less mesh's.
 Against JAX: ``tests/test_torch_dist.py``'s bounds (±2 iterations, x within
 1e-8 relative).
 """
@@ -28,10 +31,12 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import scipy.sparse.linalg  # noqa: F401  (sp.linalg)
 import torch
 
 import lssp_tpu_torch as T
@@ -61,11 +66,26 @@ def nearly_banded(n_side=16, n_extra=40, seed=4):
     return T.CSR.from_scipy(S)
 
 
+def non_lattice(n=1024, seed=4):
+    """tests/test_torch_dist_amg.py:_non_lattice: a random graph Laplacian
+    plus a shift, no grid (rsamg falls back to saamg on it)."""
+    R = sp.random(n, n, density=0.008, random_state=seed)
+    W = -(abs(R) + abs(R.T))
+    W = W - sp.diags(W.diagonal())
+    return T.CSR.from_scipy((W + sp.diags(-np.asarray(W.sum(axis=1)).ravel() + 0.05)).tocsr())
+
+
 MATRICES = {
     "lap2": lambda: T.sparse.laplacian_2d(32),
+    "lap2_30": lambda: T.sparse.laplacian_2d(30),
     "lap3": lambda: T.sparse.laplacian_3d(16),
+    "aniso32": lambda: T.sparse.anisotropic_poisson_2d(32, epsilon=0.01),
+    # lines along x cut mid-row by the shard cuts (test_torch_dist_amg.py's
+    # misaligned-grid matrix)
+    "aniso36": lambda: T.sparse.anisotropic_poisson_2d(36, epsilon=0.01),
     "convdiff": lambda: T.sparse.convection_diffusion_2d(32, beta=10.0),
     "nearly_banded": nearly_banded,
+    "non_lattice": non_lattice,
     "random": lambda: T.sparse.random_sparse(64, 6),
 }
 
@@ -126,23 +146,58 @@ def dot_case(kind):
     return run
 
 
-def solve(name, entry, method, pc, sweeps=6, k=None, fmt="auto", rtol=None):
-    """A solve case's spec: the matrix, the entry point and its arguments."""
+def solve(name, entry, method, pc, sweeps=6, k=None, fmt="auto", rtol=None, pco=None):
+    """A solve case's spec: the matrix, the entry point and its arguments
+    (``pco``: more ``PCOptions`` fields)."""
     return dict(name=name, entry=entry, method=method, pc=pc, sweeps=sweeps, k=k, fmt=fmt,
-                rtol=rtol)
+                rtol=rtol, pco=pco or {})
 
 
-def solve_case(name, entry, method, pc, sweeps, k, fmt, rtol):
+def solve_case(name, entry, method, pc, sweeps, k, fmt, rtol, pco):
     def run(mesh):
         A = MATRICES[name]()
         n = A.shape[0]
         b = torch.ones(n, dtype=torch.float64) if k is None else rhs(n, k, seed=6)
         opts = T.SolverOptions(maxit=3000) if rtol is None else T.SolverOptions(rtol=rtol, atol=0)
-        x, info = getattr(T, entry)(A, b, method=method, pc=pc, mesh=mesh, fmt=fmt,
-                                    options=opts, pc_options=T.PCOptions(ilu_sweeps=sweeps))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", RuntimeWarning)
+            x, info = getattr(T, entry)(A, b, method=method, pc=pc, mesh=mesh, fmt=fmt,
+                                        options=opts,
+                                        pc_options=T.PCOptions(ilu_sweeps=sweeps, **pco))
+        fallback = any("shard-alignable lattice" in str(w.message) for w in caught)
+        (prep,) = A._dist_cache.values()
         return {"x": x, "nits": torch.as_tensor(np.asarray(info.nits)),
-                "converged": torch.as_tensor(np.asarray(info.converged))}
+                "converged": torch.as_tensor(np.asarray(info.converged)),
+                "fallback": torch.tensor(fallback), "n_solved": torch.tensor(prep["n"])}
     return run
+
+
+def tridiag(n=256, seed=1):
+    """A diagonally dominant tridiagonal system (dl, d, du, b) whose every
+    coupling crosses the shard cuts it meets."""
+    rng = np.random.default_rng(seed)
+    d = 4.0 + rng.uniform(0, 1, n)
+    dl = np.zeros(n)
+    dl[1:] = -rng.uniform(0.5, 1.0, n - 1)
+    du = np.zeros(n)
+    du[:-1] = -rng.uniform(0.5, 1.0, n - 1)
+    return dl, d, du, rng.standard_normal(n)
+
+
+def spike_case(mesh):
+    """The Spike solve of ``tridiag()`` on this rank's shards, for b (n,)
+    and a block (n, 2), gathered whole."""
+    from lssp_tpu_torch.ops.tridiag import dist_spike_solve, spike_interface_host
+    dl, d, du, b = tridiag()
+    parts = [a.reshape(NSHARDS, -1) for a in (dl, d, du)]
+    v, w, Minv = spike_interface_host(*parts)
+    own = slice(mesh.rank * mesh.slots, (mesh.rank + 1) * mesh.slots)
+    coeffs = [torch.from_numpy(a[own]) for a in (*parts, v, w)]
+    B = np.stack([b, -2 * b], axis=1).reshape(NSHARDS, -1, 2)
+    y = dist_spike_solve(*coeffs, torch.from_numpy(Minv),
+                         torch.from_numpy(b.reshape(NSHARDS, -1)[own]), mesh)
+    Y = dist_spike_solve(*coeffs, torch.from_numpy(Minv), torch.from_numpy(B[own]), mesh)
+    return {"y": gather_rows(y, mesh).reshape(-1), "Y": gather_rows(Y, mesh).reshape(-1, 2)}
 
 
 def shard_case(mesh):
@@ -188,15 +243,25 @@ ROUNDED = {
     "ir_multi_blockcg": solve("lap3", "dist_solve_ir_multi", "blockcg", "ilu0", k=4,
                               rtol=1e-8),
 }
-AMG = {f"cg_{pc}": solve("lap2", "dist_solve", "cg", pc) for pc in ("saamg", "rsamg", "amg")}
-CASES = {**HALOS, **FORWARD, **TRANSPOSED, **DOTS,
-         **{c: solve_case(**spec) for c, spec in {**BITWISE, **ROUNDED, **AMG}.items()}}
+AMG = {
+    **{f"cg_{pc}": solve("lap2", "dist_solve", "cg", pc) for pc in ("saamg", "rsamg", "amg")},
+    "cg_saamg_flat": solve("lap2_30", "dist_solve", "cg", "saamg", pco=dict(saamg_grid=False)),
+    "cg_saamg_line": solve("aniso36", "dist_solve", "cg", "saamg",
+                           pco=dict(saamg_grid=False, amg_smoother="line")),
+    "cg_rsamg_lap3": solve("lap3", "dist_solve", "cg", "rsamg"),
+    "cg_rsamg_fallback": solve("non_lattice", "dist_solve", "cg", "rsamg", rtol=1e-8),
+    "ir_gmres_saamg": solve("aniso32", "dist_solve_ir", "gmres", "saamg", rtol=1e-8),
+}
+AMG_ROUNDED = {"blockcg_saamg": solve("lap2", "dist_solve_multi", "blockcg", "saamg", k=4)}
+CASES = {**HALOS, **FORWARD, **TRANSPOSED, **DOTS, "spike": spike_case,
+         **{c: solve_case(**spec)
+            for c, spec in {**BITWISE, **ROUNDED, **AMG, **AMG_ROUNDED}.items()}}
 
 
 def run_cases(mesh):
     """Every case on ``mesh``: {case: {key: tensor}} or {case: {"error": ...}}.
     Every rank runs the same cases in the same order; a case that raises
-    on every rank (the AMG PCs over ranks) raises before any collective."""
+    does so on every rank, before any collective."""
     out = {}
     for name, fn in CASES.items():
         try:
@@ -324,23 +389,14 @@ def test_transposes_to_rounding(runs, world, case):
                                atol=1e-13 * float(ref["y"].abs().max()))
 
 
-@pytest.mark.parametrize("world", WORLDS)
-@pytest.mark.parametrize("case", list(BITWISE))
-def test_solves_bitwise(runs, world, case):
-    per_rank, ref = ranks_and_ref(runs, world, case)
-    assert_same_on_every_rank(per_rank)
-    got = per_rank[0]
+def assert_bitwise(got, ref):
     assert bool(ref["converged"].all())
     assert torch.equal(got["nits"], ref["nits"])
     assert torch.equal(got["x"], ref["x"])
 
 
-@pytest.mark.parametrize("world", WORLDS)
-@pytest.mark.parametrize("case", list(ROUNDED))
-def test_solves_to_rounding(runs, world, case):
-    per_rank, ref = ranks_and_ref(runs, world, case)
-    assert_same_on_every_rank(per_rank)
-    got = per_rank[0]
+def assert_rounded(got, ref, world):
+    """x within 1e-10 relative and counts ±1; bitwise at W = 1."""
     assert bool(got["converged"].all()) and bool(ref["converged"].all())
     if world == 1:                      # one rank: the group-less mesh's bits
         assert torch.equal(got["x"], ref["x"]) and torch.equal(got["nits"], ref["nits"])
@@ -350,22 +406,59 @@ def test_solves_to_rounding(runs, world, case):
 
 
 @pytest.mark.parametrize("world", WORLDS)
-@pytest.mark.parametrize("case", list(AMG))
+@pytest.mark.parametrize("case", list(BITWISE))
+def test_solves_bitwise(runs, world, case):
+    per_rank, ref = ranks_and_ref(runs, world, case)
+    assert_same_on_every_rank(per_rank)
+    assert_bitwise(per_rank[0], ref)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("case", list(ROUNDED))
+def test_solves_to_rounding(runs, world, case):
+    per_rank, ref = ranks_and_ref(runs, world, case)
+    assert_same_on_every_rank(per_rank)
+    assert_rounded(per_rank[0], ref, world)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("case", list(AMG) + list(AMG_ROUNDED))
 def test_amg_over_ranks(runs, world, case):
-    """The AMG PCs run unchanged on one rank and refuse more (ROADMAP A 3)."""
-    got, ref = runs
-    per_rank = [g[case] for g in got[world]]
-    if world == 1:
-        assert torch.equal(per_rank[0]["x"], ref[case]["x"])
-        assert torch.equal(per_rank[0]["nits"], ref[case]["nits"])
-        return
-    for g in per_rank:
-        assert g["error"].startswith("NotImplementedError") and "ROADMAP A 3" in g["error"]
+    """saamg (grid, flat with padding, the line smoother across shard and
+    rank cuts), rsamg (lattice, and its saamg fallback, warned on every
+    rank) and classical amg over W ranks: x and the count bitwise the
+    one-process mesh's; block CG + saamg to rounding."""
+    per_rank, ref = ranks_and_ref(runs, world, case)
+    assert_same_on_every_rank(per_rank)
+    if case in AMG_ROUNDED:
+        assert_rounded(per_rank[0], ref, world)
+    else:
+        assert_bitwise(per_rank[0], ref)
+    assert bool(ref["fallback"]) == (case == "cg_rsamg_fallback")
+    assert all(bool(g["fallback"]) == bool(ref["fallback"]) for g in per_rank)
+    if case in ("cg_saamg_flat", "cg_saamg_line"):
+        # the flat plan grew the system to its P·gᴸ multiple; x is cut back
+        n = MATRICES[AMG[case]["name"]]().shape[0]
+        assert int(ref["n_solved"]) > n and ref["x"].shape == (n,)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_spike_over_ranks(runs, world):
+    """The Spike solve over W ranks is bitwise the one-process solve and
+    within 1e-12 (absolute, |x| ~ 1) of scipy's banded solve."""
+    per_rank, ref = ranks_and_ref(runs, world, "spike")
+    assert_same_on_every_rank(per_rank)
+    got = per_rank[0]
+    assert torch.equal(got["y"], ref["y"]) and torch.equal(got["Y"], ref["Y"])
+    dl, d, du, b = tridiag()
+    want = sp.linalg.spsolve(sp.diags([dl[1:], d, du[:-1]], [-1, 0, 1]).tocsc(), b)
+    assert np.abs(got["y"].numpy() - want).max() <= 1e-12
+    assert np.abs(got["Y"].numpy() - np.stack([want, -2 * want], axis=1)).max() <= 2e-12
 
 
 # JAX's 8-device mesh on the same cases (run once, in the parent)
 JAX_CASES = ["cg_bjilu", "gmres_bjilu", "bicgstab_jacobi_hyb", "cg_jacobi_ell_halo",
-             "gmres_none_allgather", "ir_cg_ilu0"]
+             "gmres_none_allgather", "ir_cg_ilu0", "cg_saamg", "cg_rsamg", "cg_amg"]
 _jax_results = {}
 
 
@@ -376,7 +469,7 @@ def jax_solve(case):
         import lssp_tpu as J
         from lssp_tpu.parallel import dist_solve as jsolve
         assert len(jax.devices()) >= 8, "conftest must force 8 CPU devices"
-        spec = BITWISE[case]
+        spec = {**BITWISE, **AMG}[case]
         S = MATRICES[spec["name"]]().to_scipy()
         A = J.sparse.CSR.from_scipy(S)
         opts = (J.SolverOptions(maxit=3000) if spec["rtol"] is None
@@ -384,7 +477,7 @@ def jax_solve(case):
         x, info = getattr(jsolve, spec["entry"])(
             A, jnp.ones(S.shape[0]), method=spec["method"], pc=spec["pc"], fmt=spec["fmt"],
             mesh=jsolve.make_mesh(8), options=opts,
-            pc_options=J.PCOptions(ilu_sweeps=spec["sweeps"]))
+            pc_options=J.PCOptions(ilu_sweeps=spec["sweeps"], **spec["pco"]))
         _jax_results[case] = (np.asarray(x), int(info.nits), bool(info.converged))
     return _jax_results[case]
 
@@ -479,6 +572,53 @@ def test_stack_or_list_keeps_a_list_past_twice_the_nnz():
     assert isinstance(tsolve._stack_or_list(scheds, nnz, R), tsolve.StackedSchedule)
     slots = NSHARDS * max(s.slots for s in scheds)
     assert tsolve._stack_or_list(scheds, slots // 2 - 1, R) == scheds
+
+
+def _amg_hierarchies():
+    from lssp_tpu_torch.amg.setup import amg_setup
+    from lssp_tpu_torch.parallel import build_dist_amg, build_dist_rs, build_dist_sa
+    return {
+        "saamg_grid": lambda: build_dist_sa(MATRICES["lap2"](), NSHARDS),
+        "saamg_line": lambda: build_dist_sa(MATRICES["aniso36"](), NSHARDS, grid=False,
+                                            smoother="line"),
+        "rsamg": lambda: build_dist_rs(MATRICES["lap3"](), NSHARDS, coarse_size=32),
+        "amg": lambda: build_dist_amg(amg_setup(MATRICES["lap2"]()), NSHARDS),
+    }
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", ["saamg_grid", "saamg_line", "rsamg", "amg"])
+def test_hierarchy_local_cuts_put_back_whole(name, world):
+    """``DistSA.local`` / ``DistAMG.local`` over every rank of W put back
+    together give the whole hierarchy, field by field: every per-shard
+    tensor is the concatenation of the ranks' cuts, the coarse inverse and
+    the line smoother's interface inverses are the whole ones on every
+    rank, and each cut level holds the rank's shards."""
+    from lssp_tpu_torch.utils.tree import array_leaves
+    h = _amg_hierarchies()[name]()
+    slots = NSHARDS // world
+    cuts = [h.local(r * slots, (r + 1) * slots) for r in range(world)]
+    whole = array_leaves(h)
+    parts = [array_leaves(c) for c in cuts]
+    kept = 0
+    for i, t in enumerate(whole):
+        got = [p[i] for p in parts]
+        if all(g is t for g in got):
+            kept += 1
+            continue
+        assert all(g.shape[0] == slots for g in got)
+        assert torch.equal(torch.cat(got), t)
+    line_levels = sum(getattr(lev, "tri", None) is not None for lev in h.levels)
+    assert kept == 1 + line_levels
+    assert (line_levels > 0) == (name == "saamg_line")
+    for c in cuts:
+        assert len(c.levels) == len(h.levels)
+        for lev, full in zip(c.levels, h.levels):
+            if hasattr(lev, "nshards"):
+                assert lev.nshards == slots and lev.A.nshards == slots
+                assert (lev.agg, lev.n_next, lev.lmax) == (full.agg, full.n_next, full.lmax)
+            else:
+                assert lev.a_cols.shape[0] == slots and lev.n_pad == full.n_pad
 
 
 @pytest.mark.parametrize("world", (2, 4))

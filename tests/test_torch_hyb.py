@@ -116,7 +116,7 @@ FORMAT_CASES = {
 @pytest.mark.parametrize("name", list(FORMAT_CASES))
 def test_to_device_format_same_class(name):
     Aj, At = _both(FORMAT_CASES[name]())
-    fj, ft = J.sparse.to_device_format(Aj), T.sparse.to_device_format(At)
+    fj, ft = J.sparse.to_device_format(Aj), T.sparse.to_device_format(At, device="cpu")
     assert type(ft).__name__ == type(fj).__name__
     assert np.array_equal(ft.todense(), At.todense())
 
@@ -154,10 +154,10 @@ def test_to_device_format_raises_layout_errors(monkeypatch):
     def refuse(*args, **kwargs):
         raise ValueError("HYB indexes rows, columns and remainder entries in int32")
     A = T.sparse.CSR.from_scipy(nearly_banded())
-    assert isinstance(T.sparse.to_device_format(A), T.sparse.HYB)
+    assert isinstance(T.sparse.to_device_format(A, device="cpu"), T.sparse.HYB)
     monkeypatch.setattr(T.sparse.convert, "hyb_from_parts", refuse)
     with pytest.raises(ValueError, match="int32"):
-        T.sparse.to_device_format(A)
+        T.sparse.to_device_format(A, device="cpu")
 
 
 def _x(n, seed, dtype=np.float64):

@@ -78,7 +78,7 @@ def test_to_device_format_choice(name, args, kw):
     """The same container class as the JAX package picks: DIA, HYB or ELL,
     with the same band."""
     Aj, At = _pair(name, *args, **kw)
-    fj, ft = J.sparse.to_device_format(Aj), T.sparse.to_device_format(At)
+    fj, ft = J.sparse.to_device_format(Aj), T.sparse.to_device_format(At, device="cpu")
     assert type(ft).__name__ == type(fj).__name__
     if isinstance(fj, J.sparse.DIA):
         assert fj.offsets == ft.offsets
@@ -87,6 +87,23 @@ def test_to_device_format_choice(name, args, kw):
         assert fj.dia.offsets == ft.dia.offsets
         assert np.array_equal(np.asarray(fj.dia.data), ft.dia.data.numpy())
     assert np.array_equal(ft.todense(), At.todense())
+
+
+def test_to_device_format_runs_on_the_card_unless_asked(monkeypatch):
+    """With no ``device=`` the conversion follows ``config.resolve_device``,
+    as the solve entry points do: the same RuntimeError without a CUDA
+    device, the current CUDA device with one."""
+    A = T.sparse.laplacian_2d(8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.sparse.to_device_format(A)
+    seen = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    monkeypatch.setattr(T.sparse.convert, "csr_to_dia",
+                        lambda A, **kw: seen.append(kw["device"]))
+    T.sparse.to_device_format(A)
+    assert seen == [torch.device("cuda", 3)]
 
 
 def test_csr_utils_identical():

@@ -113,7 +113,7 @@ def test_spmv_t_tall_against_scipy(fmt):
     Aj, At = both(S)
     D = {"dia": lambda: T.sparse.csr_to_dia(At, max_diags=64), "hyb": lambda: T.sparse.csr_to_hyb(At),
          "ell": lambda: T.sparse.csr_to_ell(At),
-         "auto": lambda: T.sparse.to_device_format(At)}[fmt]()
+         "auto": lambda: T.sparse.to_device_format(At, device="cpu")}[fmt]()
     if fmt == "auto":
         assert isinstance(D, T.HYB) and type(J.sparse.to_device_format(Aj)).__name__ == "HYB"
     rng = np.random.default_rng(2)
@@ -138,7 +138,7 @@ def test_spmv_t_tall_against_scipy(fmt):
 def test_wide_matrix_goes_to_ell():
     """A wide matrix whose offsets pass its row count has no band: ELL."""
     S = tall(8).T.tocsr()
-    D = T.sparse.to_device_format(T.CSR.from_scipy(S))
+    D = T.sparse.to_device_format(T.CSR.from_scipy(S), device="cpu")
     assert isinstance(D, T.ELL)
     y = np.random.default_rng(3).standard_normal(S.shape[0])
     np.testing.assert_allclose(spmv_t(D, torch.from_numpy(y)).numpy(), S.T @ y, rtol=1e-13,
@@ -496,7 +496,7 @@ def test_operator_with_transpose_attribute():
     ``t_op`` (``parallel.dist_ops.OpWithTranspose``)."""
     from lssp_tpu_torch.parallel.dist_ops import OpWithTranspose
     At = T.sparse.convection_diffusion_2d(12, beta=5.0)
-    D = T.sparse.to_device_format(At)
+    D = T.sparse.to_device_format(At, device="cpu")
     op = OpWithTranspose(lambda v: spmv(D, v), lambda v: spmv_t(D, v))
     b = torch.ones(At.shape[0], dtype=torch.float64)
     for method in TMETHODS:
