@@ -1,0 +1,11 @@
+"""K2k (``neumann_wavefront_kernel`` on a block of k rhs, the ILU(0)
+apply) against its HBM roofline, in %."""
+from bench_port import roofline
+
+
+def read(run):
+    if run.columns == 1:
+        return None
+    return roofline.kernel_share(
+        run, "neumann_wavefront_kernel",
+        lambda m, k, s: roofline.k2k_bytes(m["n"], m["nd_lower"], m["nd_upper"], k, s))
