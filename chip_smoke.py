@@ -1333,7 +1333,9 @@ def profile_solve(torch, fn):
         wall = time.perf_counter() - t0
     spans, by_name = [], {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a host range mirrored on the device's timeline (the program's
+        # lssp.* spans) repeats the kernels under it: no operation of its own
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             spans.append((e.time_range.start, e.time_range.end))
             # the kernel's own name, without its namespace and template
             short = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
@@ -2454,7 +2456,8 @@ def device_launches(torch, fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
 
 
 def apply_time(torch, fn, v, reps=3, launches=True):

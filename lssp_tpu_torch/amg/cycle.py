@@ -24,6 +24,7 @@ from lssp_tpu_torch.config import resolve_device
 from lssp_tpu_torch.ops.spmv import mv_amxpby, spmv
 from lssp_tpu_torch.sparse.convert import csr_to_ell, to_device_format
 from lssp_tpu_torch.sparse.types import CSR
+from lssp_tpu_torch.utils.profile import amg_level, annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,18 +116,20 @@ def _smooth(lev: DeviceLevel, x, b):
 
 
 def _cycle_at(h: DeviceAMG, l: int, b_l, x_l):
-    """One cycle starting at level ``l`` (0 = finest)."""
-    lev = h.levels[l]
-    if l == len(h.levels) - 1:
-        return h.coarse_inv @ b_l
-    x_l = _smooth(lev, x_l, b_l)
-    rc = spmv(lev.R, residual(lev.A, x_l, b_l))
-    ec = _cycle_at(h, l + 1, rc, torch.zeros_like(rc))
-    for _ in range(h.gamma - 1):
-        # W-cycle: revisit the coarse hierarchy warm-started
-        ec = _cycle_at(h, l + 1, rc, ec)
-    x_l = x_l + spmv(lev.P, ec)
-    return _smooth(lev, x_l, b_l)
+    """One cycle starting at level ``l`` (0 = finest); the visit is the
+    span ``lssp.amg.level.<l>``."""
+    with annotate(amg_level(l)):
+        lev = h.levels[l]
+        if l == len(h.levels) - 1:
+            return h.coarse_inv @ b_l
+        x_l = _smooth(lev, x_l, b_l)
+        rc = spmv(lev.R, residual(lev.A, x_l, b_l))
+        ec = _cycle_at(h, l + 1, rc, torch.zeros_like(rc))
+        for _ in range(h.gamma - 1):
+            # W-cycle: revisit the coarse hierarchy warm-started
+            ec = _cycle_at(h, l + 1, rc, ec)
+        x_l = x_l + spmv(lev.P, ec)
+        return _smooth(lev, x_l, b_l)
 
 
 def vcycle(h: DeviceAMG, b, x=None):

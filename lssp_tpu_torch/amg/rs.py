@@ -41,6 +41,7 @@ from lssp_tpu_torch.amg.setup import direct_interpolation, lambda_est, strength_
 from lssp_tpu_torch.config import resolve_device, smoother_degree
 from lssp_tpu_torch.sparse.convert import csr_entry_offsets
 from lssp_tpu_torch.sparse.types import CSR
+from lssp_tpu_torch.utils import profile as _prof
 
 AXES = ("z", "y", "x")
 
@@ -494,17 +495,20 @@ def build_device_rs(hier: RSHierarchyHost, dtype=np.float64, smoother: str = "ch
 
 
 def _cycle(h: RSAMG, l: int, b_l, x_l, gamma: int):
-    if l == len(h.levels):
-        return h.coarse_inv @ b_l
-    lev = h.levels[l]
-    x_l = _smooth(lev, x_l, b_l)
-    rc = pad_rows(aggp_restrict(lev.P, residual(lev.A, x_l, b_l)), _size_below(h, l))
-    ec = _cycle(h, l + 1, rc, torch.zeros_like(rc), gamma)
-    for _ in range(gamma - 1):
-        # W-cycle: revisit the coarse hierarchy with the current correction
-        ec = _cycle(h, l + 1, rc, ec, gamma)
-    x_l = x_l + aggp_prolong(lev.P, ec[:lev.P.shape[1]])
-    return _smooth(lev, x_l, b_l)
+    """One cycle from level ``l``; the visit is the span
+    ``lssp.amg.level.<l>`` (the coarse solve the deepest)."""
+    with _prof.annotate(_prof.amg_level(l)):
+        if l == len(h.levels):
+            return h.coarse_inv @ b_l
+        lev = h.levels[l]
+        x_l = _smooth(lev, x_l, b_l)
+        rc = pad_rows(aggp_restrict(lev.P, residual(lev.A, x_l, b_l)), _size_below(h, l))
+        ec = _cycle(h, l + 1, rc, torch.zeros_like(rc), gamma)
+        for _ in range(gamma - 1):
+            # W-cycle: revisit the coarse hierarchy with the current correction
+            ec = _cycle(h, l + 1, rc, ec, gamma)
+        x_l = x_l + aggp_prolong(lev.P, ec[:lev.P.shape[1]])
+        return _smooth(lev, x_l, b_l)
 
 
 def _top_size(h: RSAMG) -> int:
@@ -546,7 +550,6 @@ def setup_rs_pc(A: CSR, opts, device=None):
     """The rsamg preconditioner, on ``device`` (``config.resolve_device``:
     the current CUDA device unless one is named)."""
     from lssp_tpu_torch.pc.base import Preconditioner
-    from lssp_tpu_torch.utils import profile as _prof
     with _prof.phase("amg_host_levels"):
         hier = rs_host_setup(A, theta=opts.amg_theta, max_levels=opts.amg_max_levels,
                              coarse_size=opts.amg_coarse_size,

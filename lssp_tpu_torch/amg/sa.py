@@ -637,23 +637,25 @@ def _size_below(h, l: int) -> int:
 
 def sa_vcycle(h: SAHierarchy, b, x=None):
     """One V-cycle (W with ``h.gamma`` = 2); pads b and x to the top level's
-    size and cuts the result back."""
+    size and cuts the result back.  Each visit of level l is the span
+    ``lssp.amg.level.<l>`` (the coarse solve the deepest)."""
     nl0 = h.levels[0].A.shape[0] if h.levels else h.coarse_inv.shape[0]
     bp = pad_rows(b, nl0)
     xp = torch.zeros_like(bp) if x is None else pad_rows(x, nl0)
 
     def cycle(l, b_l, x_l):
-        if l == len(h.levels):
-            return h.coarse_inv @ b_l
-        lev = h.levels[l]
-        x_l = _smooth(lev, x_l, b_l)
-        rc = pad_rows(_restrict(lev, residual(lev.A, x_l, b_l)), _size_below(h, l))
-        ec = cycle(l + 1, rc, torch.zeros_like(rc))
-        for _ in range(h.gamma - 1):
-            # W-cycle: revisit the coarse hierarchy warm-started
-            ec = cycle(l + 1, rc, ec)
-        x_l = x_l + _prolong(lev, ec[:lev.n_next])
-        return _smooth(lev, x_l, b_l)
+        with _prof.annotate(_prof.amg_level(l)):
+            if l == len(h.levels):
+                return h.coarse_inv @ b_l
+            lev = h.levels[l]
+            x_l = _smooth(lev, x_l, b_l)
+            rc = pad_rows(_restrict(lev, residual(lev.A, x_l, b_l)), _size_below(h, l))
+            ec = cycle(l + 1, rc, torch.zeros_like(rc))
+            for _ in range(h.gamma - 1):
+                # W-cycle: revisit the coarse hierarchy warm-started
+                ec = cycle(l + 1, rc, ec)
+            x_l = x_l + _prolong(lev, ec[:lev.n_next])
+            return _smooth(lev, x_l, b_l)
 
     return cycle(0, bp, xp)[:b.shape[0]]
 

@@ -21,6 +21,7 @@ import torch
 from lssp_tpu_torch.amg.cycle import chebyshev, col, residual
 from lssp_tpu_torch.amg.setup import AMGHierarchy
 from lssp_tpu_torch.parallel.dist_ops import dense_rows, gather_rows
+from lssp_tpu_torch.utils.profile import amg_level, annotate
 
 __all__ = ["DistAMG", "DistAMGLevel", "build_dist_amg", "dist_vcycle"]
 
@@ -126,27 +127,28 @@ def dist_vcycle(h: DistAMG, b: torch.Tensor, mesh=None) -> torch.Tensor:
     """One V-cycle from x = 0 on the rank's flat rows b of the (n_pad,) or
     (n_pad, k) rhs, ``h`` cut to the rank's shards, over ``mesh``'s group:
     the A and R products gather the fine vector, the P product the coarse
-    one."""
+    one.  Each visit of level l is the span ``lssp.amg.level.<l>``."""
 
     def cycle(l, b_l, x_l):
-        lev = h.levels[l]
-        if l == len(h.levels) - 1:
-            return dense_rows(h.coarse_inv, b_l, mesh)
+        with annotate(amg_level(l)):
+            lev = h.levels[l]
+            if l == len(h.levels) - 1:
+                return dense_rows(h.coarse_inv, b_l, mesh)
 
-        def Aop(v):
-            return _ag_spmv(lev.a_cols, lev.a_data, v, mesh)
-        dinv = lev.dinv.reshape(-1)
+            def Aop(v):
+                return _ag_spmv(lev.a_cols, lev.a_data, v, mesh)
+            dinv = lev.dinv.reshape(-1)
 
-        def smooth(x):
-            if lev.smoother == "jacobi" or lev.lmax <= 0:
-                for _ in range(lev.degree):
-                    x = x + lev.omega * col(dinv, b_l) * residual(Aop, x, b_l)
-                return x
-            return chebyshev(Aop, dinv, lev.lmax, lev.degree, x, b_l)
+            def smooth(x):
+                if lev.smoother == "jacobi" or lev.lmax <= 0:
+                    for _ in range(lev.degree):
+                        x = x + lev.omega * col(dinv, b_l) * residual(Aop, x, b_l)
+                    return x
+                return chebyshev(Aop, dinv, lev.lmax, lev.degree, x, b_l)
 
-        x_l = smooth(x_l)
-        rc = _ag_spmv(lev.r_cols, lev.r_data, residual(Aop, x_l, b_l), mesh)
-        ec = cycle(l + 1, rc, torch.zeros_like(rc))
-        return smooth(x_l + _ag_spmv(lev.p_cols, lev.p_data, ec, mesh))
+            x_l = smooth(x_l)
+            rc = _ag_spmv(lev.r_cols, lev.r_data, residual(Aop, x_l, b_l), mesh)
+            ec = cycle(l + 1, rc, torch.zeros_like(rc))
+            return smooth(x_l + _ag_spmv(lev.p_cols, lev.p_data, ec, mesh))
 
     return cycle(0, b, torch.zeros_like(b))

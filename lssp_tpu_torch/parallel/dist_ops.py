@@ -36,7 +36,9 @@ and checks it there.
 
 Every sum over ranks runs in rank order, never in an order a library
 picks, so every rank gets the same bits and takes the same branch.
-``collectives`` counts the collective calls by kind.  Without a group
+``collectives`` counts the collective calls by kind, and each call, its
+wait included, is the span ``lssp.comm.all_gather``, ``all_to_all`` or
+``p2p``.  Without a group
 (``mesh=None`` or ``mesh.group is None``) nothing here communicates.
 
 ``make_dist_spmv_t`` is the transpose (bicg, qmr, cgnr, lsqr over the
@@ -56,6 +58,7 @@ import torch
 from lssp_tpu_torch.ops.dia_spmv_ext import dia_spmm_ext, dia_spmv_ext
 from lssp_tpu_torch.parallel.partition import DistDIA, DistELL, DistHYB
 from lssp_tpu_torch.solvers.base import dot
+from lssp_tpu_torch.utils.profile import annotate
 
 # collective calls by kind ("all_gather", "all_to_all", "p2p"), for the
 # per-iteration counts of a distributed solve; callers reset it
@@ -76,7 +79,8 @@ def all_gather(t: torch.Tensor, mesh) -> torch.Tensor:
     import torch.distributed as dist
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     out = t.new_empty(mesh.world * t.numel())
-    gather(out, t.contiguous().view(-1), group=mesh.group)
+    with annotate("lssp.comm.all_gather"):
+        gather(out, t.contiguous().view(-1), group=mesh.group)
     collectives["all_gather"] += 1
     return out.view(mesh.world, *t.shape)
 
@@ -120,7 +124,8 @@ def _scatter_sum(full: torch.Tensor, mesh) -> torch.Tensor:
         return full
     import torch.distributed as dist
     recv = torch.empty_like(full)
-    dist.all_to_all_single(recv, full.contiguous(), group=mesh.group)
+    with annotate("lssp.comm.all_to_all"):
+        dist.all_to_all_single(recv, full.contiguous(), group=mesh.group)
     collectives["all_to_all"] += 1
     parts = recv.view(mesh.world, -1, *full.shape[1:])
     acc = parts[0]
@@ -149,8 +154,9 @@ def _ring_swap(to_next: Optional[torch.Tensor], to_prev: Optional[torch.Tensor],
         ops += [dist.P2POp(dist.isend, to_prev.contiguous(), prv, g, tag=2),
                 dist.P2POp(dist.irecv, from_next, nxt, g, tag=2)]
     if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        with annotate("lssp.comm.p2p"):
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
         collectives["p2p"] += 1
     return from_prev, from_next
 

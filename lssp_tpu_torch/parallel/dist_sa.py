@@ -35,6 +35,7 @@ from lssp_tpu_torch.ops.tridiag import dist_spike_solve, line_jacobi_sweeps, spi
 from lssp_tpu_torch.parallel.dist_ops import dense_rows, make_dist_spmv
 from lssp_tpu_torch.parallel.partition import partition_matrix
 from lssp_tpu_torch.sparse.types import CSR
+from lssp_tpu_torch.utils.profile import amg_level, annotate
 
 __all__ = ["DistSA", "DistSALevel", "build_dist_sa", "dist_sa_vcycle", "planned_depth",
            "planned_padded_size"]
@@ -198,22 +199,24 @@ def _smooth(lev: DistSALevel, Aop, x, b, mesh=None):
 
 def dist_sa_vcycle(h: DistSA, b: torch.Tensor, mesh=None) -> torch.Tensor:
     """One V-cycle from x = 0 on the rank's flat rows b of the (n_top,) or
-    (n_top, k) rhs, ``h`` cut to the rank's shards, over ``mesh``'s group."""
+    (n_top, k) rhs, ``h`` cut to the rank's shards, over ``mesh``'s group;
+    each visit of level l is the span ``lssp.amg.level.<l>``."""
 
     def cycle(l, b_l, x_l):
-        if l == len(h.levels):
-            return dense_rows(h.coarse_inv, b_l, mesh)
-        lev = h.levels[l]
-        Aop, Bop, Cop = lev.ops(mesh)
-        x_l = _smooth(lev, Aop, x_l, b_l, mesh)
-        r = residual(Aop, x_l, b_l)
-        if Cop is not None:
-            r = Cop(r)
-        rc = shard_local(agg_restrict, lev.agg, lev.g, lev.n_next, lev.nshards, r)
-        ec = cycle(l + 1, rc, torch.zeros_like(rc))
-        e = shard_local(agg_prolong, lev.agg, lev.g, lev.n_next, lev.nshards, ec)
-        if Bop is not None:
-            e = Bop(e)
-        return _smooth(lev, Aop, x_l + e, b_l, mesh)
+        with annotate(amg_level(l)):
+            if l == len(h.levels):
+                return dense_rows(h.coarse_inv, b_l, mesh)
+            lev = h.levels[l]
+            Aop, Bop, Cop = lev.ops(mesh)
+            x_l = _smooth(lev, Aop, x_l, b_l, mesh)
+            r = residual(Aop, x_l, b_l)
+            if Cop is not None:
+                r = Cop(r)
+            rc = shard_local(agg_restrict, lev.agg, lev.g, lev.n_next, lev.nshards, r)
+            ec = cycle(l + 1, rc, torch.zeros_like(rc))
+            e = shard_local(agg_prolong, lev.agg, lev.g, lev.n_next, lev.nshards, ec)
+            if Bop is not None:
+                e = Bop(e)
+            return _smooth(lev, Aop, x_l + e, b_l, mesh)
 
     return cycle(0, b, torch.zeros_like(b))

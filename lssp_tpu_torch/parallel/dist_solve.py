@@ -79,6 +79,7 @@ from lssp_tpu_torch.sparse.convert import coo_to_csr
 from lssp_tpu_torch.sparse.types import COO, CSR, round_to, torch_dtype
 from lssp_tpu_torch.sparse.utils import diagonal, split_ldu
 from lssp_tpu_torch.utils.memo import fingerprint, memo_get, memo_put
+from lssp_tpu_torch.utils.profile import annotate
 from lssp_tpu_torch.utils.tree import map_tensors
 
 @dataclasses.dataclass(frozen=True)
@@ -489,9 +490,26 @@ def _dyn_index(offs: torch.Tensor, R: int):
 
 def _shard_pc_apply(kind, state, Pn: int, R: int, op=None, cycles: int = 1, mesh=None):
     """The preconditioner apply ``r ↦ M⁻¹r`` on the flat vector or on an
-    (n, k) block (seen per shard as (P, R) or (P, R, k)).  An AMG apply
-    runs ``cycles`` V-cycles over ``mesh``'s group, each after the first on
-    the residual through the distributed operator ``op``."""
+    (n, k) block (seen per shard as (P, R) or (P, R, k)), with its M⁻ᵀ as
+    ``.t`` where it has one; each apply is the span ``lssp.pc.apply``.  An
+    AMG apply runs ``cycles`` V-cycles over ``mesh``'s group, each after
+    the first on the residual through the distributed operator ``op``."""
+    fn = _shard_pc_fn(kind, state, Pn, R, op, cycles, mesh)
+
+    def spanned(apply):
+        def run(r):
+            with annotate("lssp.pc.apply"):
+                return apply(r)
+        return run
+
+    out = spanned(fn)
+    if hasattr(fn, "t"):
+        out.t = spanned(fn.t)
+    return out
+
+
+def _shard_pc_fn(kind, state, Pn: int, R: int, op, cycles: int, mesh):
+    """``_shard_pc_apply``'s apply for each kind, without its span."""
     if kind == "none":
         def identity(r):
             return r
@@ -613,12 +631,14 @@ def _shard_ir(op32, op64, pc_apply, fn, b, x0, opts, inner_opts, max_outer,
     res = r0 = norm(r)
     outer = total = 0
     while res > tol and outer < max_outer:
-        scale = res if res != 0.0 else 1.0
-        r32 = (r / scale).to(inner_dtype)
-        d32, info = fn(op32, r32, torch.zeros_like(r32), pc_apply, opts=inner_opts)
-        x = x + d32.to(torch.float64) * scale
-        r = b - op64(x)
-        res = norm(r)
+        with annotate("lssp.ir.round"):
+            scale = res if res != 0.0 else 1.0
+            r32 = (r / scale).to(inner_dtype)
+            with annotate("lssp.krylov.inner"):
+                d32, info = fn(op32, r32, torch.zeros_like(r32), pc_apply, opts=inner_opts)
+            x = x + d32.to(torch.float64) * scale
+            r = b - op64(x)
+            res = norm(r)
         total += info.nits
         outer += 1
     return x, SolveInfo(nits=total, residual=res, converged=res <= tol, r0norm=r0,
@@ -828,8 +848,10 @@ def dist_solve(A, b, x0=None, method: str = "cg", pc: Optional[str] = "none",
     are padded with identity equations (zero rhs).  ``pc``: "none",
     "jacobi", block-Jacobi "bjilu" (ILU(k) at ``iluk_level``), "iluk",
     "ilu0", "ilut", or the distributed AMG hierarchies "saamg", "rsamg"
-    and "amg" (a saamg plan may pad the system further)."""
-    return _dist_launch(A, b, x0, method, pc, mesh, options, pc_options, fmt)
+    and "amg" (a saamg plan may pad the system further).  The call is the
+    span ``lssp.dist_solve``."""
+    with annotate("lssp.dist_solve"):
+        return _dist_launch(A, b, x0, method, pc, mesh, options, pc_options, fmt)
 
 
 def dist_solve_multi(A, B, X0=None, method: str = "cg", pc: Optional[str] = "none",
@@ -841,8 +863,9 @@ def dist_solve_multi(A, B, X0=None, method: str = "cg", pc: Optional[str] = "non
     runs column by column in one batched loop.  Every DIA product and
     Neumann sweep is one K4k launch for all shards and columns.  Returns
     (X (n, k), SolveInfo with (k,) fields).  Other arguments as in
-    ``dist_solve``."""
-    return _dist_launch(A, B, X0, method, pc, mesh, options, pc_options, fmt, multi=True)
+    ``dist_solve``; the call is the span ``lssp.dist_solve_multi``."""
+    with annotate("lssp.dist_solve_multi"):
+        return _dist_launch(A, B, X0, method, pc, mesh, options, pc_options, fmt, multi=True)
 
 
 def dist_solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
@@ -851,9 +874,12 @@ def dist_solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "non
                   inner_rtol: float = 1e-3, max_outer: int = 20, inner_dtype=torch.float32):
     """Mixed-precision refinement over a shard mesh: fp64 x, the Krylov
     loop, the preconditioner and its factors in ``inner_dtype``.  Same
-    inner policy as ``solve_ir``; ``nits`` counts the inner iterations."""
-    return _dist_launch(A, b, x0, method, pc, mesh, options, pc_options, fmt, ir=True,
-                        inner_rtol=inner_rtol, max_outer=max_outer, inner_dtype=inner_dtype)
+    inner policy as ``solve_ir``; ``nits`` counts the inner iterations.  The
+    call is the span ``lssp.dist_solve_ir``."""
+    with annotate("lssp.dist_solve_ir"):
+        return _dist_launch(A, b, x0, method, pc, mesh, options, pc_options, fmt, ir=True,
+                            inner_rtol=inner_rtol, max_outer=max_outer,
+                            inner_dtype=inner_dtype)
 
 
 def dist_solve_ir_multi(A, B, X0=None, method: str = "blockgmres", pc: Optional[str] = "none",
@@ -865,7 +891,9 @@ def dist_solve_ir_multi(A, B, X0=None, method: str = "blockgmres", pc: Optional[
     (B: (n, k)), the sharded ``solve_ir_multi``: fp64 residuals per column,
     one ``inner_dtype`` inner solve per round for the whole block (block
     GMRES by default), converged columns frozen.  Returns (X fp64 (n, k),
-    SolveInfo with (k,) fields counting each column's inner iterations)."""
-    return _dist_launch(A, B, X0, method, pc, mesh, options, pc_options, fmt, ir=True,
-                        inner_rtol=inner_rtol, max_outer=max_outer, inner_dtype=inner_dtype,
-                        multi=True)
+    SolveInfo with (k,) fields counting each column's inner iterations).
+    The call is the span ``lssp.dist_solve_ir_multi``."""
+    with annotate("lssp.dist_solve_ir_multi"):
+        return _dist_launch(A, B, X0, method, pc, mesh, options, pc_options, fmt, ir=True,
+                            inner_rtol=inner_rtol, max_outer=max_outer,
+                            inner_dtype=inner_dtype, multi=True)

@@ -19,11 +19,13 @@ import torch
 from lssp_tpu_torch.config import Defaults, PCOptions, resolve_device
 from lssp_tpu_torch.sparse.types import round_to
 from lssp_tpu_torch.sparse.utils import diagonal
+from lssp_tpu_torch.utils.profile import annotate
 
 
 @dataclasses.dataclass(frozen=True)
 class Preconditioner:
-    """``M(r)`` applies M⁻¹; ``M.t(r)`` applies M⁻ᵀ where installed."""
+    """``M(r)`` applies M⁻¹; ``M.t(r)`` applies M⁻ᵀ where installed; each
+    apply is the span ``lssp.pc.apply``."""
 
     apply_fn: Callable      # (state, r) -> z
     state: Any
@@ -31,14 +33,16 @@ class Preconditioner:
     apply_t_fn: Any = None  # (state, r) -> M⁻ᵀr, or None
 
     def __call__(self, r):
-        return self.apply_fn(self.state, r)
+        with annotate("lssp.pc.apply"):
+            return self.apply_fn(self.state, r)
 
     def t(self, r):
         """Apply M⁻ᵀ.  Raises when the PC has none: substituting M⁻¹ would
         corrupt two-sided recurrences."""
         if self.apply_t_fn is None:
             raise ValueError(f"preconditioner {self.name!r} has no transpose apply")
-        return self.apply_t_fn(self.state, r)
+        with annotate("lssp.pc.apply"):
+            return self.apply_t_fn(self.state, r)
 
 
 PC_REGISTRY = {}

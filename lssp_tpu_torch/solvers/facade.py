@@ -30,7 +30,7 @@ from lssp_tpu_torch.sparse.types import BDIA, BSR, COO, CSR, DIA, ELL, HYB
 from lssp_tpu_torch.sparse.utils import sort_columns
 from lssp_tpu_torch.utils.log import Timer, set_log
 from lssp_tpu_torch.utils.memo import fingerprint, memo_get, memo_put
-from lssp_tpu_torch.utils.profile import add_bytes, tree_device_bytes
+from lssp_tpu_torch.utils.profile import add_bytes, annotate, tree_device_bytes
 
 
 # the methods that apply M⁻ᵀ (and Aᵀ): every entry point builds their
@@ -297,20 +297,22 @@ def solve(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
     where the solve runs; None means b's device for a tensor b and the
     current CUDA device otherwise (no CUDA device raises: pass
     ``device="cpu"``).  The solve runs in b's dtype promoted with the
-    matrix's."""
-    opts = (options or SolverOptions()).resolved()
-    device = resolve_device(device, b)
-    b = validate_system(A, b, method)
-    reject_block_method(method, "solve_multi")
-    pc = direct_pc(method, pc, M)
-    reorder = resolve_reorder(pc, pc_options, reorder)
-    A_host, A_dev, perm, _ = _prepare_matrix(A, reorder=reorder, device=device)
-    dtype = _system_dtype(A_dev, b)
-    if M is None and pc not in (None, "none"):
-        M = _setup_pc(A_host, pc, transpose_options(method, pc_options), dtype, device)
-    A_dev, b, x0 = _as_system(A_dev, b, x0, dtype, device)
-    x, info = get_solver(method)(A_dev, _permute(b, perm), _permute(x0, perm), M, opts=opts)
-    return _unpermute(x, perm), info
+    matrix's.  The call is the span ``lssp.solve``."""
+    with annotate("lssp.solve"):
+        opts = (options or SolverOptions()).resolved()
+        device = resolve_device(device, b)
+        b = validate_system(A, b, method)
+        reject_block_method(method, "solve_multi")
+        pc = direct_pc(method, pc, M)
+        reorder = resolve_reorder(pc, pc_options, reorder)
+        A_host, A_dev, perm, _ = _prepare_matrix(A, reorder=reorder, device=device)
+        dtype = _system_dtype(A_dev, b)
+        if M is None and pc not in (None, "none"):
+            M = _setup_pc(A_host, pc, transpose_options(method, pc_options), dtype, device)
+        A_dev, b, x0 = _as_system(A_dev, b, x0, dtype, device)
+        x, info = get_solver(method)(A_dev, _permute(b, perm), _permute(x0, perm), M,
+                                     opts=opts)
+        return _unpermute(x, perm), info
 
 
 def solve_multi(A, B, X0=None, method: str = "cg", pc: Optional[str] = "none",
@@ -326,18 +328,20 @@ def solve_multi(A, B, X0=None, method: str = "cg", pc: Optional[str] = "none",
     own single-rhs trajectory and count (JAX's ``jax.vmap``).  Either way
     the matrix and preconditioner stream once per iteration for all k
     columns (kernels K1k-K3k on CUDA).  Other arguments as in ``solve``;
-    ``reorder="rcm"`` permutes B's rows."""
-    opts = (options or SolverOptions()).resolved()
-    device = resolve_device(device, B)
-    B = validate_block(A, B, "solve_multi", method)
-    pc = direct_pc(method, pc, M)
-    reorder = resolve_reorder(pc, pc_options, reorder)
-    A_host, A_dev, perm, _ = _prepare_matrix(A, reorder=reorder, device=device)
-    dtype = _system_dtype(A_dev, B)
-    if M is None and pc not in (None, "none"):
-        M = _setup_pc(A_host, pc, transpose_options(method, pc_options), dtype, device)
-    A_dev, B, X0 = _as_system(A_dev, B, X0, dtype, device)
-    return _run_multi(method, A_dev, M, B, X0, perm, opts)
+    ``reorder="rcm"`` permutes B's rows.  The call is the span
+    ``lssp.solve_multi``."""
+    with annotate("lssp.solve_multi"):
+        opts = (options or SolverOptions()).resolved()
+        device = resolve_device(device, B)
+        B = validate_block(A, B, "solve_multi", method)
+        pc = direct_pc(method, pc, M)
+        reorder = resolve_reorder(pc, pc_options, reorder)
+        A_host, A_dev, perm, _ = _prepare_matrix(A, reorder=reorder, device=device)
+        dtype = _system_dtype(A_dev, B)
+        if M is None and pc not in (None, "none"):
+            M = _setup_pc(A_host, pc, transpose_options(method, pc_options), dtype, device)
+        A_dev, B, X0 = _as_system(A_dev, B, X0, dtype, device)
+        return _run_multi(method, A_dev, M, B, X0, perm, opts)
 
 
 def _run_multi(method, A_dev, M, B, X0, perm, opts):

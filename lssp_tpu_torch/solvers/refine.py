@@ -144,13 +144,15 @@ def refine_multi(op64, inner, B, X, opts, max_outer, inner_dtype, norms):
     total = np.zeros(B.shape[1], np.int64)
     outer = 0
     while (res > tol).any() and outer < max_outer:
-        active = res > tol
-        scale = torch.from_numpy(np.where(res == 0.0, 1.0, res)).to(B.device)
-        R32 = torch.where(torch.from_numpy(active).to(B.device), R / scale, 0.0)
-        D32, info = inner(R32.to(inner_dtype))
-        X = X + D32.to(torch.float64) * scale
-        R = B - op64(X)
-        (res,) = to_host(norms(R))
+        with _prof.annotate("lssp.ir.round"):
+            active = res > tol
+            scale = torch.from_numpy(np.where(res == 0.0, 1.0, res)).to(B.device)
+            R32 = torch.where(torch.from_numpy(active).to(B.device), R / scale, 0.0)
+            with _prof.annotate("lssp.krylov.inner"):
+                D32, info = inner(R32.to(inner_dtype))
+            X = X + D32.to(torch.float64) * scale
+            R = B - op64(X)
+            (res,) = to_host(norms(R))
         total += np.asarray(info.nits)
         outer += 1
     if opts.verbosity >= 1:
@@ -170,24 +172,26 @@ def solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
 
     ``A``: host CSR/COO.  ``reorder`` and ``device``: as in ``solve``.
     Returns (x fp64, SolveInfo) where nits counts the total inner
-    iterations and the residual is the true fp64 residual."""
-    reject_block_method(method, "solve_ir_multi")
-    opts = (options or SolverOptions()).resolved()
-    device = resolve_device(device, b)
-    b = validate_system(A, b, method)
-    _, A64, A32, perm, M32 = prepare_ir(A, method=method, pc=pc, pc_options=pc_options,
-                                        inner_dtype=inner_dtype, reorder=reorder,
-                                        device=device)
-    b = _permute(b.to(device=device, dtype=torch.float64), perm)
-    x = (b.new_zeros(A64.shape[1]) if x0 is None     # the column space (lsqr)
-         else _permute(torch.as_tensor(x0).to(device=device, dtype=torch.float64), perm))
-    bnorm = norm(b).item()
-    tol = max(opts.rtol * bnorm, opts.atol)
-    fn, inner_opts = _inner_plan(method, opts, inner_rtol)
+    iterations and the residual is the true fp64 residual.  The call is
+    the span ``lssp.solve_ir``."""
+    with _prof.annotate("lssp.solve_ir"):
+        reject_block_method(method, "solve_ir_multi")
+        opts = (options or SolverOptions()).resolved()
+        device = resolve_device(device, b)
+        b = validate_system(A, b, method)
+        _, A64, A32, perm, M32 = prepare_ir(A, method=method, pc=pc, pc_options=pc_options,
+                                            inner_dtype=inner_dtype, reorder=reorder,
+                                            device=device)
+        b = _permute(b.to(device=device, dtype=torch.float64), perm)
+        x = (b.new_zeros(A64.shape[1]) if x0 is None     # the column space (lsqr)
+             else _permute(torch.as_tensor(x0).to(device=device, dtype=torch.float64), perm))
+        bnorm = norm(b).item()
+        tol = max(opts.rtol * bnorm, opts.atol)
+        fn, inner_opts = _inner_plan(method, opts, inner_rtol)
 
-    x, info = _refine(A64, A32, M32, b, x, tol, fn, inner_opts, max_outer, inner_dtype,
-                      opts.verbosity)
-    return _unpermute(x, perm), dataclasses.replace(info, bnorm=bnorm)
+        x, info = _refine(A64, A32, M32, b, x, tol, fn, inner_opts, max_outer, inner_dtype,
+                          opts.verbosity)
+        return _unpermute(x, perm), dataclasses.replace(info, bnorm=bnorm)
 
 
 def _refine(A64, A32, M32, b, x, tol, fn, inner_opts, max_outer, inner_dtype, verbosity=0):
@@ -199,12 +203,14 @@ def _refine(A64, A32, M32, b, x, tol, fn, inner_opts, max_outer, inner_dtype, ve
     res = r0 = norm(r).item()
     total_inner = outer = 0
     while res > tol and outer < max_outer:
-        scale = res if res != 0.0 else 1.0
-        r32 = (r / scale).to(inner_dtype)
-        d32, info = fn(A32, r32, r32.new_zeros(A32.shape[1]), M32, opts=inner_opts)
-        x = x + d32.to(torch.float64) * scale
-        r = b - spmv(A64, x)
-        res = norm(r).item()
+        with _prof.annotate("lssp.ir.round"):
+            scale = res if res != 0.0 else 1.0
+            r32 = (r / scale).to(inner_dtype)
+            with _prof.annotate("lssp.krylov.inner"):
+                d32, info = fn(A32, r32, r32.new_zeros(A32.shape[1]), M32, opts=inner_opts)
+            x = x + d32.to(torch.float64) * scale
+            r = b - spmv(A64, x)
+            res = norm(r).item()
         total_inner += info.nits
         outer += 1
         if verbosity >= 1:
@@ -274,25 +280,28 @@ def solve_ir_multi(A, B, X0=None, method: str = "blockgmres", pc: Optional[str] 
     k corrections share one block-Krylov basis.  Any other method runs its
     per-column batched form.  The serving path for many-rhs fp64
     workloads: the matrix streams once per iteration for all k columns
-    (kernels K1k-K3k on CUDA).  Other arguments as in ``solve_ir``."""
-    opts = (options or SolverOptions()).resolved()
-    device = resolve_device(device, B)
-    B = validate_block(A, B, "solve_ir_multi", method)
-    fn, inner_opts = _inner_plan(method, opts, inner_rtol, multi=True)
-    _, A64, A32, perm, M32 = prepare_ir(A, method=method, pc=pc, pc_options=pc_options,
-                                        inner_dtype=inner_dtype, reorder=reorder,
-                                        device=device)
-    B = _permute(B.to(device=device, dtype=torch.float64), perm).contiguous()
-    X = (B.new_zeros(A64.shape[1], B.shape[1]) if X0 is None
-         else _permute(torch.as_tensor(X0).to(device=device, dtype=torch.float64),
-                       perm).contiguous())
-    if X.shape != (A64.shape[1], B.shape[1]):
-        raise ValueError(f"X0 must have shape {(A64.shape[1], B.shape[1])}, got "
-                         f"{tuple(X.shape)}")
+    (kernels K1k-K3k on CUDA).  Other arguments as in ``solve_ir``.  The
+    call is the span ``lssp.solve_ir_multi``."""
+    with _prof.annotate("lssp.solve_ir_multi"):
+        opts = (options or SolverOptions()).resolved()
+        device = resolve_device(device, B)
+        B = validate_block(A, B, "solve_ir_multi", method)
+        fn, inner_opts = _inner_plan(method, opts, inner_rtol, multi=True)
+        _, A64, A32, perm, M32 = prepare_ir(A, method=method, pc=pc, pc_options=pc_options,
+                                            inner_dtype=inner_dtype, reorder=reorder,
+                                            device=device)
+        B = _permute(B.to(device=device, dtype=torch.float64), perm).contiguous()
+        X = (B.new_zeros(A64.shape[1], B.shape[1]) if X0 is None
+             else _permute(torch.as_tensor(X0).to(device=device, dtype=torch.float64),
+                           perm).contiguous())
+        if X.shape != (A64.shape[1], B.shape[1]):
+            raise ValueError(f"X0 must have shape {(A64.shape[1], B.shape[1])}, got "
+                             f"{tuple(X.shape)}")
 
-    def inner(R32):
-        return fn(A32, R32, R32.new_zeros(A32.shape[1], R32.shape[1]), M32, opts=inner_opts)
+        def inner(R32):
+            return fn(A32, R32, R32.new_zeros(A32.shape[1], R32.shape[1]), M32,
+                      opts=inner_opts)
 
-    X, info = refine_multi(lambda V: spmv(A64, V), inner, B, X, opts, max_outer,
-                           inner_dtype, norm)
-    return _unpermute(X, perm), info
+        X, info = refine_multi(lambda V: spmv(A64, V), inner, B, X, opts, max_outer,
+                               inner_dtype, norm)
+        return _unpermute(X, perm), info

@@ -10,12 +10,24 @@ Bounded caches are LRU: a hit moves the entry to the back, replacing an
 existing key keeps its siblings, and only a new entry can push the oldest
 out (a distributed entry pins device copies of the partitioned matrix and
 the PC state).
+
+``lookups`` counts every lookup by outcome: ``hit``, ``miss`` (no entry
+under the key) and ``stale`` (an entry built from other contents: the
+matrix changed in place, so the caller builds it all again).  A stale
+lookup turns a request that reuses its set-up into a full set-up; the
+counter is what shows it.
 """
 from __future__ import annotations
 
+import collections
 import zlib
 
 import numpy as np
+
+from lssp_tpu_torch.utils.profile import annotate
+
+# memo_get's lookups by outcome ("hit", "miss", "stale"); callers reset it
+lookups = collections.Counter()
 
 
 def checksum(a) -> int:
@@ -32,34 +44,39 @@ def fingerprint(A):
     the reference: it "silently validated a stale device matrix".  crc32
     also beat ``zlib.adler32`` on the 128³ CSR's 183 MB (57 against 81 ms
     in one CPU run).  None when the container has no such buffers (never
-    matches)."""
-    try:
-        vals = getattr(A, "data", None)
-        if vals is None:
-            vals = getattr(A, "blocks", None)
-        d = np.ascontiguousarray(np.asarray(vals))
-        if d.dtype == object:
+    matches).  The scan is the span ``lssp.memo.fingerprint``."""
+    with annotate("lssp.memo.fingerprint"):
+        try:
+            vals = getattr(A, "data", None)
+            if vals is None:
+                vals = getattr(A, "blocks", None)
+            d = np.ascontiguousarray(np.asarray(vals))
+            if d.dtype == object:
+                return None
+            parts = [d.shape, d.dtype.str, zlib.crc32(d)]
+            for name in ("indices", "indptr", "row", "col"):
+                buf = getattr(A, name, None)
+                if buf is not None:
+                    parts.append(checksum(buf))
+            return tuple(parts)
+        except (TypeError, ValueError):
             return None
-        parts = [d.shape, d.dtype.str, zlib.crc32(d)]
-        for name in ("indices", "indptr", "row", "col"):
-            buf = getattr(A, name, None)
-            if buf is not None:
-                parts.append(checksum(buf))
-        return tuple(parts)
-    except (TypeError, ValueError):
-        return None
 
 
 def memo_get(A, attr, key, fp):
     """The value stored under ``key`` in ``A.<attr>`` when its fingerprint
     equals ``fp``, else None (a miss or a stale entry).  A None ``fp``
-    never matches.  A hit moves to the back of the LRU order."""
+    never matches.  A hit moves to the back of the LRU order.  Counts the
+    outcome in ``lookups``."""
     cache = getattr(A, attr, None)
     fps = getattr(A, attr + "_fp", None)
     if cache is None or fps is None or fp is None or key not in cache:
+        lookups["miss"] += 1
         return None
     if fps.get(key) is None or fps[key] != fp:
+        lookups["stale"] += 1
         return None
+    lookups["hit"] += 1
     out = cache.pop(key)            # LRU touch: re-insert at the back
     cache[key] = out
     return out

@@ -1,5 +1,5 @@
 """Profiling hooks (``lssp_tpu/utils/profile.py``): ``torch.profiler``
-traces and ranges, derived SpMV throughput, and the setup-phase ledger.
+traces, the program's named spans, and the setup-phase ledger.
 
 The reference times assemble and PC assemble separately
 (reference src/lssp.cxx:162-184, pc.cxx:83-236); ``prepare_ir``,
@@ -8,6 +8,15 @@ names, so a harness can itemize setup: ``reorder_convert``, ``upload``,
 ``pc_build`` (``solvers/refine.prepare_ir``), ``saamg_host_levels``,
 ``saamg_pack_upload``, ``saamg_coarse_inv`` (``amg/sa.py``),
 ``amg_host_levels`` and ``amg_pack_upload`` (``amg/rs.py``).
+
+``annotate`` is the span every layer opens, all named ``lssp.*``: a
+request (``lssp.solve``, ``lssp.solve_ir``, ``lssp.dist_solve_ir``, ... and
+their ``_multi`` forms), ``lssp.memo.fingerprint``, each phase as
+``lssp.<phase>``, ``lssp.ir.round``, ``lssp.krylov.inner``,
+``lssp.pc.apply``, ``lssp.amg.level.<l>`` and ``lssp.comm.all_gather`` /
+``all_to_all`` / ``p2p``.  A span is a host range on the profiler's own
+clock, so a trace puts each of the device's idle gaps down to the spans
+open at that moment; with no profiler recording it reads one flag.
 """
 from __future__ import annotations
 
@@ -15,8 +24,8 @@ import contextlib
 import os
 import time
 
-import numpy as np
 import torch
+import torch.autograd.profiler as _ap
 
 
 @contextlib.contextmanager
@@ -37,34 +46,27 @@ def trace(logdir: str, device=None):
     prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}.json"))
 
 
-@contextlib.contextmanager
+_RecordFast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named range in the trace: ``torch.profiler.record_function``, and
-    an NVTX range when CUDA is available."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+    """The program's span ``name``, as a context manager.  While a
+    ``torch.profiler`` records, a host range on its clock
+    (``_RecordFunctionFast``, else ``record_function``); otherwise one flag
+    read and a shared no-op context.  Under Nsight Systems, run the block
+    inside ``torch.autograd.profiler.emit_nvtx()``: the spans are then
+    NVTX ranges."""
+    if not _ap._is_profiler_enabled:
+        return _OFF
+    if _RecordFast is not None:
+        return _RecordFast(name)
+    return _ap.record_function(name)
 
 
-def spmv_counters(A, seconds: float, iters: int = 1) -> dict:
-    """Derived throughput of an SpMV-bound phase: nnz/s and effective GB/s
-    under the standard traffic model (values and indices read once, x read
-    once, y written once)."""
-    nnz = int(A.nnz)
-    n = int(A.shape[0])
-    dt = A.dtype
-    itemsize = (dt.itemsize if isinstance(dt, torch.dtype)
-                else getattr(np.dtype(dt), "itemsize", 8))
-    bytes_per = nnz * itemsize + nnz * 4 + 2 * n * itemsize
-    t = seconds / max(1, iters)
-    return {"nnz_per_s": nnz / t, "gbytes_per_s": bytes_per / t / 1e9,
-            "seconds_per_iter": t}
+def amg_level(l: int) -> str:
+    """The span name of AMG level ``l`` (0 the finest)."""
+    return f"lssp.amg.level.{l}"
 
 
 def enable_persistent_cache(warn=True):
@@ -83,10 +85,12 @@ _phase_bytes: dict = {}
 
 @contextlib.contextmanager
 def phase(name: str):
-    """Add the block's wall seconds to the setup phase ``name``."""
+    """Add the block's wall seconds to the setup phase ``name``; the block
+    is also the span ``lssp.<name>``."""
     t0 = time.perf_counter()
     try:
-        yield
+        with annotate("lssp." + name):
+            yield
     finally:
         _phase_times[name] = _phase_times.get(name, 0.0) + time.perf_counter() - t0
 

@@ -20,6 +20,8 @@ EXCLUDED_MODULES = {
 EXCLUDED_NAMES = {
     (".ops.spmv", "dia_pallas_ok"): "the TPU gate of the Pallas kernels; no gate on CUDA",
     (".ops.spmv", "lane_gather"): "a TPU gather layout for the Pallas HYB kernels",
+    (".utils.profile", "spmv_counters"): "read by no one, and it derived GB/s from host "
+                                         "seconds; a trace gives device times",
 }
 
 

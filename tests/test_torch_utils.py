@@ -154,9 +154,6 @@ def test_profile_hooks(tmp_path):
         with profile.annotate("region"):
             torch.ones(4).sum()
     assert any(p.suffix == ".json" for p in (tmp_path / "tr").iterdir())
-    c = profile.spmv_counters(T.sparse.laplacian_2d(10), 1e-3, iters=2)
-    assert set(c) == {"nnz_per_s", "gbytes_per_s", "seconds_per_iter"}
-    assert c["seconds_per_iter"] == 5e-4
     assert profile.enable_persistent_cache() == _kernels._BUILD_DIR
 
 
