@@ -10,6 +10,9 @@ take each kernel's plain PyTorch version.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import contextvars
 import ctypes
 import glob
 import os
@@ -249,15 +252,48 @@ def check_status(name: str, status: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
 
 
+# the launches a CUDA graph capture records (``recording``), or None
+_recorded: contextvars.ContextVar = contextvars.ContextVar("recorded_launches", default=None)
+
+
 def launched(counter, suf: str, route: str | None = None) -> None:
     """Count one launch on the wrapper ``counter``: ``counter.launches``,
     and ``counter.by_dtype[suf]`` by entry suffix (f32, f64, bf16), so a run
     can show which precision's kernel its path took; with ``route`` (K1 and
-    K3: "ring" or "rowwise") also ``counter.by_route[route]``."""
-    counter.launches += 1
-    counter.by_dtype[suf] = counter.by_dtype.get(suf, 0) + 1
+    K3: "ring" or "rowwise") also ``counter.by_route[route]``.  Inside
+    ``recording`` the launch is kept for the graph's replays instead."""
+    recorded = _recorded.get()
+    if recorded is not None:
+        recorded[(counter, suf, route)] += 1
+        return
+    _count(counter, suf, route, 1)
+
+
+def _count(counter, suf, route, n):
+    counter.launches += n
+    counter.by_dtype[suf] = counter.by_dtype.get(suf, 0) + n
     if route is not None:
-        counter.by_route[route] = counter.by_route.get(route, 0) + 1
+        counter.by_route[route] = counter.by_route.get(route, 0) + n
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block (a CUDA graph's capture, which launches nothing)
+    the wrappers count no launch; each is kept in the yielded Counter,
+    keyed (counter, suffix, route), for ``replayed``."""
+    recorded = collections.Counter()
+    token = _recorded.set(recorded)
+    try:
+        yield recorded
+    finally:
+        _recorded.reset(token)
+
+
+def replayed(recorded) -> None:
+    """Count the launches ``recording`` kept once each: one replay of the
+    graph whose capture they were."""
+    for (counter, suf, route), n in recorded.items():
+        _count(counter, suf, route, n)
 
 
 # set by utils.debug.nan_guard: the ctypes launches are invisible to its

@@ -674,7 +674,8 @@ def _saamg_apply(cycles, state, r):
 def setup_saamg_pc(A: CSR, opts, device=None):
     """The saamg preconditioner: ``amg_cycles`` V- (or W-) cycles an apply,
     smoothing degree from the pre/post counts (``l1jacobi`` runs as
-    jacobi here, as in the JAX package)."""
+    jacobi here, as in the JAX package).  The cycle makes no host sync,
+    so the PC is ``graph_safe``: a CUDA apply replays a graph of it."""
     from lssp_tpu_torch.pc.base import Preconditioner
     h = sa_setup(A, g=opts.saamg_aggregate, max_levels=opts.amg_max_levels,
                  coarse_size=opts.amg_coarse_size,
@@ -684,4 +685,4 @@ def setup_saamg_pc(A: CSR, opts, device=None):
                  gamma=2 if str(opts.amg_cycle_type).upper() == "W" else 1, device=device)
     cycles = max(1, int(opts.amg_cycles))
     return Preconditioner(functools.partial(_saamg_apply, cycles), state=h,
-                          name=f"saamg(x{cycles})")
+                          name=f"saamg(x{cycles})", graph_safe=True)

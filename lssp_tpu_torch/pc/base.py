@@ -5,36 +5,123 @@ A ``Preconditioner`` is an apply function plus its device state; calling
 LSSP_PC_SOLVE).  Every ported PC applies to r (n,) and to an (n, k) block
 column by column (the multi-rhs path).  ``setup`` builds one from a host CSR matrix on a given
 device (reference lssp_pc_assemble, pc.cxx:81-239).
+
+A PC whose setup declares its apply free of host syncs
+(``graph_safe``) applies a CUDA tensor by replaying a CUDA graph of the
+apply, captured on its first apply of each (shape, dtype, device,
+stream): one copy in, one replay, one copy out in place of each
+operation's launch from Python.  The graph runs the same kernels in the
+same order, so the result is bitwise the eager apply's, and each replay
+counts the kernel wrappers' launches its capture recorded
+(``_kernels.recording``).  ``applies`` counts every apply by outcome:
+``capture``, ``replay`` and ``eager``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 import dataclasses
+import threading
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from lssp_tpu_torch import _kernels
 from lssp_tpu_torch.config import Defaults, PCOptions, resolve_device
 from lssp_tpu_torch.sparse.types import round_to
 from lssp_tpu_torch.sparse.utils import diagonal
 from lssp_tpu_torch.utils.profile import annotate
 
 
+# applies by outcome ("capture", "replay", "eager"); callers reset it
+applies = collections.Counter()
+
+# the CUDA graphs a graph-safe PC keeps, one a (shape, dtype, device) of
+# r and stream, least recently used out first
+GRAPH_SHAPES = 4
+
+
+@dataclasses.dataclass
+class _Graph:
+    """A captured apply: ``graph`` reads ``r_in`` and writes ``z_out``;
+    ``launches`` holds the kernel wrappers' launches of one replay."""
+    graph: Any
+    r_in: torch.Tensor
+    z_out: torch.Tensor
+    launches: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+
+
 @dataclasses.dataclass(frozen=True)
 class Preconditioner:
     """``M(r)`` applies M⁻¹; ``M.t(r)`` applies M⁻ᵀ where installed; each
-    apply is the span ``lssp.pc.apply``."""
+    apply is the span ``lssp.pc.apply``.  ``graph_safe``: the apply makes
+    no host sync and allocates nothing that outlives it but its result,
+    so a CUDA ``r`` replays a graph of it (the module's docstring).  The
+    graphs hold the addresses of ``state``'s tensors, which the instance
+    owns; ``dataclasses.replace`` builds an instance with no graphs.  A
+    graph's buffers serve the one stream it was captured for, and a lock
+    holds each copy in, replay and copy out together, so streams and
+    threads may share an instance."""
 
     apply_fn: Callable      # (state, r) -> z
     state: Any
     name: str = "user"
     apply_t_fn: Any = None  # (state, r) -> M⁻ᵀr, or None
+    graph_safe: bool = False
+    _graphs: Any = dataclasses.field(init=False, repr=False, compare=False)
+    _lock: Any = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "_graphs", collections.OrderedDict())
+        object.__setattr__(self, "_lock", threading.Lock())
 
     def __call__(self, r):
         with annotate("lssp.pc.apply"):
+            if (self.graph_safe and r.is_cuda and not _kernels.nan_check
+                    and not torch.cuda.is_current_stream_capturing()):
+                return self._graph_apply(r, torch.cuda.current_stream(r.device).cuda_stream)
+            applies["eager"] += 1
             return self.apply_fn(self.state, r)
+
+    def _graph_apply(self, r, stream):
+        """The apply of a CUDA ``r`` on the stream ``stream`` (its id) as a
+        replay of the graph of its shape and stream, captured first where
+        there is none; returns a tensor of its own."""
+        key = (tuple(r.shape), r.dtype, r.device, stream)
+        with self._lock:
+            g = self._graphs.get(key)
+            if g is None:
+                g = self._graphs[key] = self._capture(r)
+                if len(self._graphs) > GRAPH_SHAPES:
+                    self._graphs.popitem(last=False)
+                applies["capture"] += 1
+            else:
+                self._graphs.move_to_end(key)
+                g.r_in.copy_(r)
+                applies["replay"] += 1
+            g.graph.replay()
+            _kernels.replayed(g.launches)
+            return g.z_out.clone()
+
+    def _capture(self, r) -> _Graph:
+        """The apply captured on a copy of ``r``, after one eager apply on a
+        side stream has loaded what the apply loads on first use (the
+        kernel library, K1's tile plans, the cuBLAS handle); the capture's
+        launches are recorded, not counted."""
+        with torch.cuda.device(r.device):
+            r_in = r.clone(memory_format=torch.contiguous_format)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self.apply_fn(self.state, r_in)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with (_kernels.recording() as launches,
+                  torch.cuda.graph(graph, capture_error_mode="thread_local")):
+                z_out = self.apply_fn(self.state, r_in)
+        return _Graph(graph, r_in, z_out, launches)
 
     def t(self, r):
         """Apply M⁻ᵀ.  Raises when the PC has none: substituting M⁻¹ would
@@ -42,6 +129,7 @@ class Preconditioner:
         if self.apply_t_fn is None:
             raise ValueError(f"preconditioner {self.name!r} has no transpose apply")
         with annotate("lssp.pc.apply"):
+            applies["eager"] += 1
             return self.apply_t_fn(self.state, r)
 
 

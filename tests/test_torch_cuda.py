@@ -24,6 +24,7 @@ from lssp_tpu_torch.ops.dia_spmv_ext import (dia_spmm_ext, dia_spmm_ext_plain, d
 from lssp_tpu_torch.ops.hyb_spmv import hyb_spmm, hyb_spmm_plain, hyb_spmv, hyb_spmv_plain
 from lssp_tpu_torch.ops.neumann import (fused_neumann_apply, neumann_apply_plain,
                                         neumann_block_apply, plan_fused_neumann)
+from lssp_tpu_torch.pc import base as pc_base
 from lssp_tpu_torch.pc.ilu_host import iluk_factor
 
 # the modules (``lssp_tpu_torch.ops`` re-exports functions of the same names)
@@ -543,6 +544,154 @@ def test_amg_apply_on_the_card_matches_cpu(cuda, pc, gen, N, dtype):
     assert dia_spmv.launches + dia_spmm.launches > before
     assert _rel(z.cpu(), Mc(r)) <= 10 * TOL[dtype]
     assert _rel(Z.cpu(), Mc(R)) <= 10 * TOL[dtype]
+
+
+def _applies_moved(before):
+    return {k: v - before.get(k, 0) for k, v in pc_base.applies.items()
+            if v != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("k", [None, 8])
+def test_saamg_graph_replay_is_the_eager_apply(cuda, k):
+    """saamg on the anisotropic Poisson 256² (fp32): the first apply of a
+    shape captures a CUDA graph, every later one replays it; each result
+    is bitwise the eager ``apply_fn(state, r)`` and a tensor of its own, so
+    a later apply leaves an earlier result as it was."""
+    A = lt.sparse.anisotropic_poisson_2d(256, epsilon=0.01).astype(np.float32)
+    M = lt.pc.setup(A, "saamg", device=cuda)
+    rng = np.random.default_rng(7)
+    shape = (A.shape[0],) if k is None else (A.shape[0], k)
+    rs = [torch.from_numpy(rng.standard_normal(shape)).float().to(cuda) for _ in range(3)]
+    before = dict(pc_base.applies)
+    zs = [M(rs[0])]
+    assert _applies_moved(before) == {"capture": 1}
+    zs += [M(r) for r in rs[1:]]
+    assert _applies_moved(before) == {"capture": 1, "replay": 2}
+    for r, z in zip(rs, zs):
+        assert torch.equal(z, M.apply_fn(M.state, r))
+    assert len({z.data_ptr() for z in zs}) == 3
+
+
+# every kernel wrapper's launch counter
+WRAPPERS = (dia_spmv, dia_spmm, dia_spmv_ext, dia_spmm_ext, hyb_spmv, hyb_spmm,
+            fused_neumann_apply, neumann_block_apply)
+
+
+def _launch_counts():
+    return {fn.__name__: (fn.launches, dict(fn.by_dtype), dict(getattr(fn, "by_route", {})))
+            for fn in WRAPPERS}
+
+
+def _launches_moved(before):
+    moved = {}
+    for name, (n, dt, rt) in _launch_counts().items():
+        n0, dt0, rt0 = before[name]
+        if n != n0:
+            moved[name] = (n - n0, {k: v - dt0.get(k, 0) for k, v in dt.items() if v != dt0.get(k, 0)},
+                           {k: v - rt0.get(k, 0) for k, v in rt.items() if v != rt0.get(k, 0)})
+    return moved
+
+
+def _times(moved, m):
+    return {name: (n * m, {k: v * m for k, v in dt.items()}, {k: v * m for k, v in rt.items()})
+            for name, (n, dt, rt) in moved.items()}
+
+
+@pytest.mark.parametrize("k", [None, 8])
+def test_saamg_replays_count_the_launches_of_the_eager_apply(cuda, k):
+    """The kernel wrappers count what runs: a replay counts the launches
+    of one eager apply (by dtype and route), N replays N times as many;
+    the capturing apply counts its eager warm-up and its replay, and the
+    capture itself, which launches nothing, no launch."""
+    A = lt.sparse.anisotropic_poisson_2d(256, epsilon=0.01).astype(np.float32)
+    M = lt.pc.setup(A, "saamg", device=cuda)
+    shape = (A.shape[0],) if k is None else (A.shape[0], k)
+    r = torch.from_numpy(np.random.default_rng(11).standard_normal(shape)).float().to(cuda)
+    before = _launch_counts()
+    M.apply_fn(M.state, r)
+    eager = _launches_moved(before)
+    assert eager and ("dia_spmv" if k is None else "dia_spmm") in eager
+    before = _launch_counts()
+    M(r)
+    assert _launches_moved(before) == _times(eager, 2)
+    before = _launch_counts()
+    for _ in range(5):
+        M(r)
+    assert _launches_moved(before) == _times(eager, 5)
+
+
+def test_saamg_applies_on_two_streams_keep_apart(cuda):
+    """One saamg instance applied on two streams, each to its own r, with
+    no sync between them: each stream replays a graph of its own, and
+    every result is bitwise the eager apply of its own r."""
+    A = lt.sparse.anisotropic_poisson_2d(256, epsilon=0.01).astype(np.float32)
+    M = lt.pc.setup(A, "saamg", device=cuda)
+    rng = np.random.default_rng(12)
+    rs = [torch.from_numpy(rng.standard_normal(A.shape[0])).float().to(cuda) for _ in range(2)]
+    want = [M.apply_fn(M.state, r) for r in rs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    zs = [[], []]
+    for _ in range(6):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                zs[i].append(M(rs[i]))
+    torch.cuda.synchronize()
+    assert len({key[3] for key in M._graphs}) == 2
+    for i in range(2):
+        assert all(torch.equal(z, want[i]) for z in zs[i])
+
+
+@pytest.mark.parametrize("where", ["nan_guard", "capture"])
+def test_saamg_apply_runs_eagerly_where_a_graph_cannot_hold_it(cuda, where):
+    """Under ``nan_guard`` every kernel's output is read back, a host sync
+    a graph cannot hold; inside a caller's own capture a second capture
+    cannot begin.  The saamg apply runs eagerly in both, and the caller's
+    graph replays it bitwise."""
+    A = lt.sparse.anisotropic_poisson_2d(64, epsilon=0.01).astype(np.float32)
+    M = lt.pc.setup(A, "saamg", device=cuda)
+    r = torch.from_numpy(np.random.default_rng(9).standard_normal(A.shape[0])).float().to(cuda)
+    eager = M.apply_fn(M.state, r)
+    before = dict(pc_base.applies)
+    if where == "nan_guard":
+        with lt.utils.nan_guard():
+            z = M(r)
+    else:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            M.apply_fn(M.state, r)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            z = M(r)
+        graph.replay()
+        torch.cuda.synchronize()
+    assert _applies_moved(before) == {"eager": 1} and not M._graphs
+    assert torch.equal(z, eager)
+
+
+def test_solve_ir_saamg_graph_matches_the_eager_solve(cuda):
+    """solve_ir GMRES(30) + saamg on the anisotropic Poisson 256²: the
+    solve whose PC replays graphs gives the counts and, bitwise, the x of
+    the same solve with that PC rebuilt with ``graph_safe`` off."""
+    A = lt.sparse.anisotropic_poisson_2d(256, epsilon=0.01)
+    b = torch.from_numpy(np.random.default_rng(8).standard_normal(A.shape[0])).to(cuda)
+    kw = dict(method="gmres", pc="saamg",
+              options=lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0, restart=30))
+    before = dict(pc_base.applies)
+    x1, i1 = lt.solve_ir(A, b, **kw)
+    moved = _applies_moved(before)
+    assert moved["capture"] == 1 and set(moved) == {"capture", "replay"}, moved
+    key, = [key for key in A._prepared_cache if key[0] == "ir-pc"]
+    M = A._prepared_cache[key]
+    A._prepared_cache[key] = dataclasses.replace(M, graph_safe=False)
+    before = dict(pc_base.applies)
+    x2, i2 = lt.solve_ir(A, b, **kw)
+    assert set(_applies_moved(before)) == {"eager"}
+    assert i1.converged and i1.nits == i2.nits and i1.residual == i2.residual
+    assert torch.equal(x1, x2)
 
 
 def test_one_card_one_memo_entry(cuda):
