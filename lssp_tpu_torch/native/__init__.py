@@ -14,6 +14,14 @@ library is built on first use into ``lssp_tpu_torch/_build/``, and rebuilt
 when a source is newer.  The ILU wrappers have no pure-Python fallback: a
 missing compiler raises.  The AMG setup asks ``available()`` first and
 otherwise takes its numpy oracles, as the JAX package does.
+
+``src/checksum.cpp``, the CRC-32 of the memo's content fingerprint
+(``crc32``), belongs to the port alone (the JAX package has no such
+source).  It is built the same way into a library of its own,
+``liblssp_torch_checksum.so``, so a process that only fingerprints never
+compiles the eight sources above; ``checksum_lib()`` is None where it does
+not build or load, or where the CPU lacks the carry-less multiply, and the
+caller then keeps ``zlib.crc32``.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ _SRCS = [os.path.join(_HERE, "src", f)
                    "splu.cpp", "mf.cpp", "spqr.cpp")]
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "liblssp_torch_native.so")
+_CHECKSUM_SRCS = [os.path.join(_HERE, "src", "checksum.cpp")]
+_CHECKSUM_PATH = os.path.join(_BUILD_DIR, "liblssp_torch_checksum.so")
 
 _lock = threading.Lock()
 _lib = None
@@ -38,17 +48,22 @@ _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
-def _build() -> None:
+def _build(srcs=_SRCS, path=_LIB_PATH) -> None:
+    """Build ``srcs`` into the shared library ``path`` if it is missing or
+    older than one of them."""
+    if os.path.exists(path) and all(os.path.getmtime(path) >= os.path.getmtime(s)
+                                    for s in srcs):
+        return
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    tmp = f"{path}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-ffp-contract=off", "-std=c++17",
-           "-shared", "-fPIC", *_SRCS, "-o", tmp]
+           "-shared", "-fPIC", *srcs, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.SubprocessError) as e:
         detail = getattr(e, "stderr", "") or ""
         raise RuntimeError(f"building the native host library failed: {e}\n{detail}") from e
-    os.replace(tmp, _LIB_PATH)       # atomic: a concurrent loader never sees half a file
+    os.replace(tmp, path)            # atomic: a concurrent loader never sees half a file
 
 
 def load():
@@ -59,9 +74,7 @@ def load():
     with _lock:
         if _lib is not None:
             return _lib
-        if (not os.path.exists(_LIB_PATH)
-                or any(os.path.getmtime(_LIB_PATH) < os.path.getmtime(s) for s in _SRCS)):
-            _build()
+        _build()
         lib = ctypes.CDLL(_LIB_PATH)
         lib.lssp_levels.argtypes = [_i64p, _i64p, ctypes.c_int64, ctypes.c_int, _i64p]
         lib.lssp_levels.restype = None
@@ -164,6 +177,51 @@ def available() -> bool:
         except (RuntimeError, OSError):
             _available = False
     return _available
+
+
+_checksum = None     # the CRC-32 library; False once it failed to build or load
+
+
+def checksum_lib():
+    """The CRC-32 library (``src/checksum.cpp``), built on first use; None
+    where it does not build or load here, or where this CPU has no
+    carry-less multiply (PCLMULQDQ).  A failure is remembered, so a host
+    without a compiler tries once."""
+    global _checksum
+    if _checksum is None:
+        with _lock:
+            if _checksum is None:
+                _checksum = _load_checksum()
+    return _checksum or None
+
+
+def _load_checksum():
+    try:
+        _build(_CHECKSUM_SRCS, _CHECKSUM_PATH)
+        lib = ctypes.CDLL(_CHECKSUM_PATH)
+    except (RuntimeError, OSError):
+        return False
+    lib.lssp_crc32.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.lssp_crc32.restype = ctypes.c_uint32
+    lib.lssp_crc32_split.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
+    lib.lssp_crc32_split.restype = ctypes.c_uint32
+    lib.lssp_crc32_folds.argtypes = []
+    lib.lssp_crc32_folds.restype = ctypes.c_int
+    return lib if lib.lssp_crc32_folds() else False
+
+
+def crc32(buf: np.ndarray, threads: int = 1) -> int:
+    """``zlib.crc32(buf)`` of a C-contiguous array, bit for bit, by the
+    carry-less-multiply fold; ``threads`` > 1 splits it into that many
+    contiguous chunks at once.  Needs ``checksum_lib()``."""
+    if not buf.flags.c_contiguous:
+        raise ValueError("crc32 takes a C-contiguous array")
+    lib = checksum_lib()
+    if lib is None:
+        raise RuntimeError("the CRC-32 library is not available here")
+    if threads > 1:
+        return lib.lssp_crc32_split(buf.ctypes.data, buf.nbytes, threads)
+    return lib.lssp_crc32(buf.ctypes.data, buf.nbytes)
 
 
 def levels(indptr: np.ndarray, indices: np.ndarray, n: int, lower: bool) -> np.ndarray:

@@ -26,6 +26,7 @@ from lssp_tpu_torch.ops.neumann import (fused_neumann_apply, neumann_apply_plain
                                         neumann_block_apply, plan_fused_neumann)
 from lssp_tpu_torch.pc import base as pc_base
 from lssp_tpu_torch.pc.ilu_host import iluk_factor
+from lssp_tpu_torch.utils import memo
 
 # the modules (``lssp_tpu_torch.ops`` re-exports functions of the same names)
 hyb_mod = importlib.import_module("lssp_tpu_torch.ops.hyb_spmv")
@@ -710,6 +711,48 @@ def test_one_card_one_memo_entry(cuda):
     assert mesh.size == 2 and len(set(mesh.devices)) == 1
     x, info = lt.dist_solve(A, b, method="cg", pc="jacobi", mesh=mesh)
     assert info.converged and x.device == mesh.device
+
+
+def test_solve_ir_memo_hits_bitwise_and_sees_inplace_changes(cuda):
+    """solve_ir CG + ILU(0) at 64³ twice on one container: the second call
+    hits every memo entry and gives x bitwise.  An in-place change of one
+    value, then of one ``indptr`` entry, makes the entries stale, and the
+    answer is the one a fresh container of the changed arrays gives."""
+    N = 64
+    A0 = lt.sparse.laplacian_3d(N)
+    # row k starts with a stored zero (column k − N² − 2, outside row k − 1's
+    # pattern), so moving indptr[k] hands it to row k − 1 and the values stay
+    k = N * N + 5
+    ip, ix, v = A0.indptr.copy(), A0.indices.copy(), A0.data.copy()
+    ix, v = np.insert(ix, ip[k], k - N * N - 2), np.insert(v, ip[k], 0.0)
+    ip[k + 1:] += 1
+    A = type(A0)(ip, ix, v, A0.shape)
+    b = torch.from_numpy(np.random.default_rng(21).standard_normal(A.shape[0])).to(cuda)
+    kw = dict(method="cg", pc="ilu0", options=lt.SolverOptions(rtol=1e-8, atol=0, rbtol=0))
+
+    def solve(M):
+        before = dict(memo.lookups)
+        x, info = lt.solve_ir(M, b, **kw)
+        assert info.converged and x.is_cuda
+        return x, {o: memo.lookups[o] - before.get(o, 0) for o in ("hit", "miss", "stale")}
+
+    x1, _ = solve(A)
+    x2, moved = solve(A)
+    assert moved["hit"] > 0 and moved["miss"] == moved["stale"] == 0, moved
+    assert torch.equal(x1, x2)
+    for change in ("value", "indptr"):
+        if change == "value":
+            A.data[A.indptr[7] + np.flatnonzero(A.indices[A.indptr[7]:A.indptr[8]] == 7)[0]] += 1.0
+        else:
+            A.indptr[k] += 1
+        x, moved = solve(A)
+        assert moved["stale"] > 0 and moved["hit"] == 0, (change, moved)
+        xf, _ = solve(type(A)(A.indptr.copy(), A.indices.copy(), A.data.copy(), A.shape))
+        assert torch.equal(x, xf), change
+        S = sp.csr_matrix((A.data, A.indices, A.indptr), shape=A.shape)
+        bh = b.cpu().numpy()
+        assert np.linalg.norm(bh - S @ x.cpu().numpy()) <= 1e-8 * np.linalg.norm(bh), change
+    assert not torch.equal(x, x1)
 
 
 def test_entry_points_default_to_the_card(cuda):
