@@ -1602,25 +1602,27 @@ ROUNDING_SENSITIVE = {(23, "idrs"), (24, "cgs"), (24, "bicrstab"), (24, "gpbicr"
 
 
 class InnerRounds:
-    """Counts the inner solves (the refinement rounds) of the solve_ir calls
-    made inside it, by wrapping the solver that ``_inner_plan`` hands out."""
+    """Counts the inner solves (the refinement rounds) of the solve_ir and
+    dist_solve_ir calls made inside it, by wrapping the solver that
+    ``_inner_plan`` takes from ``refine.solver_for`` at call time (the one
+    card's launcher and the mesh's alike)."""
 
     def __enter__(self):
         from lssp_tpu_torch.solvers import refine
-        self.refine, self.get, self.count = refine, refine.get_solver, 0
+        self.refine, self.solver_for, self.count = refine, refine.solver_for, 0
 
-        def get(name):
-            fn = self.get(name)
+        def solver_for(*args, **kwargs):
+            fn = self.solver_for(*args, **kwargs)
 
-            def counted(*args, **kwargs):
+            def counted(*a, **k):
                 self.count += 1
-                return fn(*args, **kwargs)
+                return fn(*a, **k)
             return counted
-        refine.get_solver = get
+        refine.solver_for = solver_for
         return self
 
     def __exit__(self, *exc):
-        self.refine.get_solver = self.get
+        self.refine.solver_for = self.solver_for
 
 
 def phase_krylov(lt, np, torch, dev, counters, card, phase, A, name, methods):

@@ -69,16 +69,16 @@ from lssp_tpu_torch.parallel.dist_ops import (
 from lssp_tpu_torch.parallel.partition import DistDIA, partition_matrix
 from lssp_tpu_torch.pc.base import cast_state, round_factor, rounding_to
 from lssp_tpu_torch.pc.ilu_host import iluk_factor, ilut_factor
-from lssp_tpu_torch.solvers.base import SolveInfo, norm
+from lssp_tpu_torch.solvers.base import norm
 from lssp_tpu_torch.solvers.facade import (
-    needs_transpose_pc, reject_block_method, validate_block, validate_system,
+    check_input, needs_transpose_pc, place_system, solver_for,
 )
-from lssp_tpu_torch.solvers.refine import _inner_plan, _pc_options_key, refine_multi
-from lssp_tpu_torch.solvers.registry import get_batched_solver, get_block_solver, get_solver
+from lssp_tpu_torch.solvers.refine import _inner_plan, refine, refine_multi
+from lssp_tpu_torch.solvers.registry import get_block_solver
 from lssp_tpu_torch.sparse.convert import coo_to_csr
 from lssp_tpu_torch.sparse.types import COO, CSR, round_to, torch_dtype
 from lssp_tpu_torch.sparse.utils import diagonal, split_ldu
-from lssp_tpu_torch.utils.memo import fingerprint, memo_get, memo_put
+from lssp_tpu_torch.utils.memo import _pc_options_key, fingerprint, memo_get, memo_put
 from lssp_tpu_torch.utils.profile import annotate
 from lssp_tpu_torch.utils.tree import map_tensors
 
@@ -614,37 +614,6 @@ def _shard_pc_fn(kind, state, Pn: int, R: int, op, cycles: int, mesh):
     raise ValueError(kind)
 
 
-def _shard_ir(op32, op64, pc_apply, fn, b, x0, opts, inner_opts, max_outer,
-              inner_dtype, pdot):
-    """Mixed-precision refinement over the mesh: fp64 residuals through the
-    fp64 partition, the inner solve in ``inner_dtype`` through the inner
-    partition and preconditioner, fp64 accumulation; norms reduce per
-    shard, then over the shards.  The same rounds as ``solve_ir``."""
-    x = torch.zeros_like(b) if x0 is None else x0
-
-    def norm(v):
-        return torch.sqrt(pdot(v, v)).item()
-
-    bnorm = norm(b)
-    tol = max(opts.rtol * bnorm, opts.atol)
-    r = b - op64(x)
-    res = r0 = norm(r)
-    outer = total = 0
-    while res > tol and outer < max_outer:
-        with annotate("lssp.ir.round"):
-            scale = res if res != 0.0 else 1.0
-            r32 = (r / scale).to(inner_dtype)
-            with annotate("lssp.krylov.inner"):
-                d32, info = fn(op32, r32, torch.zeros_like(r32), pc_apply, opts=inner_opts)
-            x = x + d32.to(torch.float64) * scale
-            r = b - op64(x)
-            res = norm(r)
-        total += info.nits
-        outer += 1
-    return x, SolveInfo(nits=total, residual=res, converged=res <= tol, r0norm=r0,
-                        bnorm=bnorm, history=None)
-
-
 def _grow_identity(A: CSR, extra: int) -> CSR:
     """A padded with ``extra`` decoupled identity rows and columns; the rhs
     and x0 get zero rows to match, which stay 0 through every Krylov
@@ -766,17 +735,9 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
         A = coo_to_csr(A)
     if not isinstance(A, CSR):
         raise TypeError(f"the distributed solve takes a host CSR or COO, got {type(A)}")
-    if multi:
-        b = validate_block(A, b, "dist_solve_ir_multi" if ir else "dist_solve_multi")
-    else:
-        b = validate_system(A, b, method)
-        reject_block_method(method, "dist_solve_ir_multi" if ir else "dist_solve_multi")
-    if ir:
-        fn, solver_opts = _inner_plan(method, opts, inner_rtol, multi=multi)
-    elif multi:
-        fn, solver_opts = get_block_solver(method) or get_batched_solver(method), opts
-    else:
-        fn, solver_opts = get_solver(method), opts
+    b = check_input(A, b, method, "dist_solve_ir_multi" if ir else "dist_solve_multi", multi)
+    fn, solver_opts = (_inner_plan(method, opts, inner_rtol, multi=multi) if ir
+                       else (solver_for(method, multi), opts))
     if needs_transpose_pc(method):
         if pc not in TRANSPOSE_PCS:
             raise ValueError(f"distributed {method} supports pc in (none, jacobi, bjilu/ilu*): "
@@ -793,12 +754,7 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
         fn = functools.partial(fn, reduce=functools.partial(rank_sum, mesh=mesh))
     dtype = torch.float64 if ir else torch.promote_types(torch_dtype(A.dtype), b.dtype)
     n_orig = A.shape[0]
-    b = b.to(device=device, dtype=dtype).contiguous()
-    if x0 is not None:
-        x0 = torch.as_tensor(x0).to(device=device, dtype=dtype).contiguous()
-        if x0.shape != b.shape:
-            raise ValueError(f"x0 must match the rhs shape {tuple(b.shape)}, "
-                             f"got {tuple(x0.shape)}")
+    b, x0 = place_system(A.shape, b, x0, dtype, device)
     fp = fingerprint(A)         # one content scan for both memo lookups
     prep = _prepare_dist(A, mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype,
                          _dist_sizing(A, Pn, pc, pc_opts, fp), fp)
@@ -806,10 +762,7 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
     if n > n_orig:
         pad = (n - n_orig,) + tuple(b.shape[1:])
         b = torch.cat([b, b.new_zeros(pad)])
-        if x0 is not None:
-            x0 = torch.cat([x0, x0.new_zeros(pad)])
-    if x0 is None:
-        x0 = torch.zeros_like(b)
+        x0 = torch.cat([x0, x0.new_zeros(pad)])
     # this rank's rows (all of them on one rank)
     rows = slice(mesh.rank * mesh.slots * R, (mesh.rank + 1) * mesh.slots * R)
     b, x0 = b[rows], x0[rows]
@@ -818,17 +771,14 @@ def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,
         op = OpWithTranspose(op, make_dist_spmv_t(prep["M"], mesh))
     pc_apply = _shard_pc_apply(prep["kind"], prep["pc_state"], mesh.slots, R, op=op,
                                cycles=max(1, int(pc_opts.amg_cycles)), mesh=mesh)
-    if ir and multi:
-        op64 = make_dist_spmv(prep["M64"], mesh)
+    if ir:
+        def inner(r32):
+            return fn(op, r32, torch.zeros_like(r32), pc_apply, opts=solver_opts)
 
-        def inner(R32):
-            return fn(op, R32, torch.zeros_like(R32), pc_apply, opts=solver_opts)
-
-        x, info = refine_multi(op64, inner, b, x0, opts, max_outer, inner_dtype,
-                               functools.partial(norm, dot_fn=pdot))
-    elif ir:
-        x, info = _shard_ir(op, make_dist_spmv(prep["M64"], mesh), pc_apply, fn, b, x0, opts,
-                            solver_opts, max_outer, inner_dtype, pdot)
+        # refine's default verbosity: the mesh's single-rhs rounds log nothing
+        x, info = (refine_multi if multi else refine)(
+            make_dist_spmv(prep["M64"], mesh), inner, b, x0, opts, max_outer, inner_dtype,
+            functools.partial(norm, dot_fn=pdot))
     else:
         x, info = fn(op, b, x0, pc_apply, opts=solver_opts)
     if mesh.world > 1:

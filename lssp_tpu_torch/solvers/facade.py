@@ -111,6 +111,28 @@ def reject_block_method(method: str, entry: str) -> None:
                          "for (n, k) right-hand sides")
 
 
+def check_input(A, b, method: str, multi_entry: str, block: bool = False):
+    """The input check of every solve entry point, in one order: b against
+    the matrix (``validate_system``), then a block method refused on one
+    rhs, naming ``multi_entry`` (``reject_block_method``); for a ``block``
+    rhs, B against the matrix (``validate_block``, under the name
+    ``multi_entry``).  Returns b (B) as those give it."""
+    if block:
+        return validate_block(A, b, multi_entry, method)
+    b = validate_system(A, b, method)
+    reject_block_method(method, multi_entry)
+    return b
+
+
+def solver_for(method: str, block: bool = False):
+    """The solver function an entry point runs for ``method``: its own for
+    one rhs; for a block, its block solver or else its per-column batched
+    form."""
+    if block:
+        return get_block_solver(method) or get_batched_solver(method)
+    return get_solver(method)
+
+
 def saamg_keeps_ordering(pc, pc_options) -> bool:
     """Whether explicit saamg grid dims (``saamg_grid`` = (gy, gx)) pin the
     user's row ordering: reordering would scramble the boxes.
@@ -137,6 +159,14 @@ def resolve_reorder(pc, pc_options, reorder):
         o = pc_options or PCOptions()
         return f"hier:{o.saamg_aggregate}:{o.amg_coarse_size}:{o.amg_max_levels}"
     return reorder
+
+
+def _setup_choices(method: str, pc, pc_options, reorder, M=None):
+    """(pc, reorder) as every entry point's set-up takes them:
+    ``direct_pc`` (a direct method is its exact-LU PC) and
+    ``resolve_reorder``."""
+    pc = direct_pc(method, pc, M)
+    return pc, resolve_reorder(pc, pc_options, reorder)
 
 
 def _maybe_hierarchy(A: CSR, mode: str):
@@ -248,36 +278,72 @@ def _unpermute(x, perm):
 
 
 def _system_dtype(A_dev, b):
-    """The dtype a solve runs in: b's, promoted with the matrix's."""
+    """The dtype a solve runs in: b's, promoted with the matrix's; with no
+    b, the matrix's (float64 for an operator)."""
+    if b is None:
+        return getattr(A_dev, "dtype", torch.float64)
     if isinstance(A_dev, _EXEC_FORMATS):
         return torch.promote_types(A_dev.dtype, b.dtype)
     return b.dtype
 
 
-def _setup_pc(A_host, pc, pc_options, dtype, device):
-    """The preconditioner, built from the host matrix in the solve dtype."""
+def _setup_pc(A_host, method, pc, pc_options, dtype, device):
+    """The preconditioner, built from the host matrix in the solve dtype,
+    with the M⁻ᵀ apply for a transpose method (``transpose_options``)."""
     if A_host is None:
         raise ValueError("preconditioner setup needs a host CSR matrix; "
                          "pass M= explicitly for operator inputs")
-    return pc_mod.setup(A_host, pc, pc_options, device=device, dtype=dtype)
+    return pc_mod.setup(A_host, pc, transpose_options(method, pc_options), device=device,
+                        dtype=dtype)
 
 
-def _as_system(A_dev, b, x0, dtype, device):
-    """The matrix, b and x0 on ``device`` in ``dtype``; a block b and x0
-    are made contiguous here, at the API boundary, as the k-rhs kernels
-    take no other layout.  x0 lives in the column space: ``A.shape[1]``
-    rows, which differs from b's for a rectangular A (lsqr)."""
-    if isinstance(A_dev, _EXEC_FORMATS) and A_dev.dtype != dtype:
-        A_dev = A_dev.to(dtype=dtype)
+def _prepare(A, b, method, pc, pc_options, M, reorder, device):
+    """The matrix half of the prepare step of ``solve``, ``solve_multi`` and
+    ``Solver.assemble``: the set-up choices, the matrix through
+    ``_prepare_matrix``'s memo and the solve dtype.  Each caller then
+    builds a fresh PC (``_setup_pc``) unless ``M`` is given or ``pc`` is
+    none.  Returns (host CSR, device format, perm, dtype, the PC name)."""
+    pc, reorder = _setup_choices(method, pc, pc_options, reorder, M)
+    A_host, A_dev, perm, _ = _prepare_matrix(A, reorder=reorder, device=device)
+    return A_host, A_dev, perm, _system_dtype(A_dev, b), pc
+
+
+def place_system(shape, b, x0, dtype, device, perm=None):
+    """P·b and P·x0 on ``device`` in ``dtype`` (x0 zero when None); a block
+    b and x0 are made contiguous here, at the API boundary, as the k-rhs
+    kernels take no other layout.  x0 lives in the column space:
+    ``shape[1]`` rows of the matrix's ``shape`` (b's rows for an operator
+    without one), which differs from b's for a rectangular A (lsqr)."""
     b = b.to(device=device, dtype=dtype).contiguous()
-    shape = getattr(A_dev, "shape", None)
     xshape = ((shape[1] if shape is not None else b.shape[0]),) + tuple(b.shape[1:])
     x0 = (b.new_zeros(xshape) if x0 is None
           else torch.as_tensor(x0).to(device=device, dtype=dtype).contiguous())
     if tuple(x0.shape) != xshape:
-        raise ValueError(f"x0 must have shape {xshape} (the matrix's columns), got "
+        raise ValueError(f"x0 must match the matrix's columns, shape {xshape}; got "
                          f"{tuple(x0.shape)}")
-    return A_dev, b, x0
+    return _permute(b, perm), _permute(x0, perm)
+
+
+def _run(fn, A_dev, M, b, x0, perm, opts):
+    """The one-card run step on placed state: the execution matrix cast to
+    the solve dtype (b's), ``fn`` (``solver_for``'s) on the permuted
+    system, x back in the user's order."""
+    if isinstance(A_dev, _EXEC_FORMATS) and A_dev.dtype != b.dtype:
+        A_dev = A_dev.to(dtype=b.dtype)
+    x, info = fn(A_dev, b, x0, M, opts=opts)
+    return _unpermute(x, perm), info
+
+
+def _solve_once(A, b, x0, method, pc, options, pc_options, M, reorder, device, block):
+    """check → prepare → run of ``solve`` and, ``block``, ``solve_multi``."""
+    opts = (options or SolverOptions()).resolved()
+    device = resolve_device(device, b)
+    b = check_input(A, b, method, "solve_multi", block)
+    A_host, A_dev, perm, dtype, pc = _prepare(A, b, method, pc, pc_options, M, reorder, device)
+    if M is None and pc not in (None, "none"):
+        M = _setup_pc(A_host, method, pc, pc_options, dtype, device)
+    b, x0 = place_system(getattr(A_dev, "shape", None), b, x0, dtype, device, perm)
+    return _run(solver_for(method, block), A_dev, M, b, x0, perm, opts)
 
 
 def solve(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
@@ -299,20 +365,8 @@ def solve(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
     ``device="cpu"``).  The solve runs in b's dtype promoted with the
     matrix's.  The call is the span ``lssp.solve``."""
     with annotate("lssp.solve"):
-        opts = (options or SolverOptions()).resolved()
-        device = resolve_device(device, b)
-        b = validate_system(A, b, method)
-        reject_block_method(method, "solve_multi")
-        pc = direct_pc(method, pc, M)
-        reorder = resolve_reorder(pc, pc_options, reorder)
-        A_host, A_dev, perm, _ = _prepare_matrix(A, reorder=reorder, device=device)
-        dtype = _system_dtype(A_dev, b)
-        if M is None and pc not in (None, "none"):
-            M = _setup_pc(A_host, pc, transpose_options(method, pc_options), dtype, device)
-        A_dev, b, x0 = _as_system(A_dev, b, x0, dtype, device)
-        x, info = get_solver(method)(A_dev, _permute(b, perm), _permute(x0, perm), M,
-                                     opts=opts)
-        return _unpermute(x, perm), info
+        return _solve_once(A, b, x0, method, pc, options, pc_options, M, reorder, device,
+                           block=False)
 
 
 def solve_multi(A, B, X0=None, method: str = "cg", pc: Optional[str] = "none",
@@ -331,26 +385,8 @@ def solve_multi(A, B, X0=None, method: str = "cg", pc: Optional[str] = "none",
     ``reorder="rcm"`` permutes B's rows.  The call is the span
     ``lssp.solve_multi``."""
     with annotate("lssp.solve_multi"):
-        opts = (options or SolverOptions()).resolved()
-        device = resolve_device(device, B)
-        B = validate_block(A, B, "solve_multi", method)
-        pc = direct_pc(method, pc, M)
-        reorder = resolve_reorder(pc, pc_options, reorder)
-        A_host, A_dev, perm, _ = _prepare_matrix(A, reorder=reorder, device=device)
-        dtype = _system_dtype(A_dev, B)
-        if M is None and pc not in (None, "none"):
-            M = _setup_pc(A_host, pc, transpose_options(method, pc_options), dtype, device)
-        A_dev, B, X0 = _as_system(A_dev, B, X0, dtype, device)
-        return _run_multi(method, A_dev, M, B, X0, perm, opts)
-
-
-def _run_multi(method, A_dev, M, B, X0, perm, opts):
-    """The multi-rhs solve on prepared device state (shared by
-    ``solve_multi`` and ``Solver.solve_multi``): the block solver, or the
-    method's per-column batched form, on the permuted block."""
-    fn = get_block_solver(method) or get_batched_solver(method)
-    X, info = fn(A_dev, _permute(B, perm), _permute(X0, perm), M, opts=opts)
-    return _unpermute(X, perm), info
+        return _solve_once(A, B, X0, method, pc, options, pc_options, M, reorder, device,
+                           block=True)
 
 
 class Solver:
@@ -409,8 +445,7 @@ class Solver:
         if (self.assembled and self.M is not None and self.pc_type not in (None, "none")
                 and needs_transpose_pc(method)
                 and not (self.pc_options and self.pc_options.transpose)):
-            self.M = _setup_pc(self.A_host, self.pc_type,
-                               transpose_options(method, self.pc_options), self.dtype,
+            self.M = _setup_pc(self.A_host, method, self.pc_type, self.pc_options, self.dtype,
                                self.device)
         return self
 
@@ -422,18 +457,14 @@ class Solver:
         in."""
         self.device = resolve_device(self.device_request, b)
         b = validate_system(A, b, self.method)
-        self.pc_type = direct_pc(self.method, self.pc_type)
-        reorder = resolve_reorder(self.pc_type, self.pc_options, reorder)
-        with Timer("solver: assemble (matrix conversion)", level=2):
-            self.A_host, self.A_dev, self.perm, _ = _prepare_matrix(A, reorder=reorder,
-                                                                    device=self.device)
         # the system dtype is fixed here: the matrix's, promoted with b's
-        self.dtype = (_system_dtype(self.A_dev, b) if b is not None
-                      else getattr(self.A_dev, "dtype", torch.float64))
+        with Timer("solver: assemble (matrix conversion)", level=2):
+            self.A_host, self.A_dev, self.perm, self.dtype, self.pc_type = _prepare(
+                A, b, self.method, self.pc_type, self.pc_options, None, reorder, self.device)
+        self.M = None
         if self.pc_type not in (None, "none"):
             with Timer(f"pc: assemble ({self.pc_type})", level=1):
-                self.M = _setup_pc(self.A_host, self.pc_type,
-                                   transpose_options(self.method, self.pc_options),
+                self.M = _setup_pc(self.A_host, self.method, self.pc_type, self.pc_options,
                                    self.dtype, self.device)
         if b is not None:
             self.b = b
@@ -455,9 +486,9 @@ class Solver:
     def solve(self, b=None, x0=None):
         if not self.assembled:
             raise RuntimeError("call assemble() first")
-        reject_block_method(self.method, "Solver.solve_multi")
+        b = check_input(self.A_dev, b, self.method, "Solver.solve_multi")
         if b is not None:
-            self.reset_rhs(b)
+            self.b = b
         if x0 is not None:
             self.reset_unknown(x0)
         if self.b is None:
@@ -466,11 +497,10 @@ class Solver:
         # a prior solve_multi leaves an (n, k) solution in self.x: never a
         # scalar warm start, only a rank-1 previous x is
         x0 = self.x if self.x is not None and self.x.ndim == 1 else None
-        A_dev, b, x0 = _as_system(self.A_dev, self.b, x0, self.dtype, self.device)
-        x, info = get_solver(self.method)(A_dev, _permute(b, self.perm),
-                                          _permute(x0, self.perm), self.M,
-                                          opts=self.options.resolved())
-        self.x, self.info = _unpermute(x, self.perm), info
+        b, x0 = place_system(getattr(self.A_dev, "shape", None), self.b, x0, self.dtype,
+                             self.device, self.perm)
+        self.x, self.info = _run(solver_for(self.method), self.A_dev, self.M, b, x0, self.perm,
+                                 self.options.resolved())
         return self.x
 
     def solve_multi(self, B, X0=None):
@@ -479,10 +509,11 @@ class Solver:
         per-column SolveInfo and returns X."""
         if not self.assembled:
             raise RuntimeError("call assemble() first")
-        B = validate_block(self.A_dev, B, "Solver.solve_multi", self.method)
-        A_dev, B, X0 = _as_system(self.A_dev, B, X0, self.dtype, self.device)
-        self.x, self.info = _run_multi(self.method, A_dev, self.M, B, X0, self.perm,
-                                       self.options.resolved())
+        B = check_input(self.A_dev, B, self.method, "Solver.solve_multi", block=True)
+        B, X0 = place_system(getattr(self.A_dev, "shape", None), B, X0, self.dtype,
+                             self.device, self.perm)
+        self.x, self.info = _run(solver_for(self.method, block=True), self.A_dev, self.M, B, X0,
+                                 self.perm, self.options.resolved())
         return self.x
 
     # -- getters (lssp_solver_get_residual/_nits, reference lssp.cxx:520-528);

@@ -24,30 +24,12 @@ from lssp_tpu_torch.config import PCOptions, SolverOptions, resolve_device
 from lssp_tpu_torch.ops.spmv import spmv
 from lssp_tpu_torch.solvers.base import norm, SolveInfo, to_host
 from lssp_tpu_torch.solvers.facade import (
-    _permute, _prepare_matrix, _unpermute, direct_pc, needs_transpose_pc, reject_block_method,
-    resolve_reorder, transpose_options, validate_block, validate_system,
+    _prepare_matrix, _setup_choices, _unpermute, check_input, needs_transpose_pc,
+    place_system, solver_for, transpose_options,
 )
-from lssp_tpu_torch.solvers.registry import get_batched_solver, get_block_solver, get_solver
 from lssp_tpu_torch.utils import profile as _prof
 from lssp_tpu_torch.utils.log import log
-from lssp_tpu_torch.utils.memo import checksum, memo_get, memo_put
-
-
-def _pc_options_key(pc_options):
-    """Cache key for a PCOptions: array-valued fields hash their full
-    bytes (a repr would summarize large arrays)."""
-    if pc_options is None:
-        return None
-    parts = []
-    for f in dataclasses.fields(pc_options):
-        v = getattr(pc_options, f.name)
-        if (hasattr(v, "__array__") or isinstance(v, (list, tuple))) \
-                and not isinstance(v, str):
-            a = np.asarray(v)
-            parts.append((f.name, a.shape, str(a.dtype), checksum(a)))
-        else:
-            parts.append((f.name, repr(v)))
-    return tuple(parts)
+from lssp_tpu_torch.utils.memo import _pc_options_key, memo_get, memo_put
 
 
 def prepare_ir(A, method: str = "gmres", pc: Optional[str] = "none",
@@ -63,9 +45,9 @@ def prepare_ir(A, method: str = "gmres", pc: Optional[str] = "none",
     forward-only PC cached by an earlier solve is never handed to it.
     ``device``: None is the current CUDA device (no CUDA device raises:
     pass ``device="cpu"``)."""
+    # IR around a direct solve: an fp32 LU inner
     device = resolve_device(device)
-    pc = direct_pc(method, pc)          # IR around a direct solve: an fp32 LU inner
-    reorder = resolve_reorder(pc, pc_options, reorder)
+    pc, reorder = _setup_choices(method, pc, pc_options, reorder)
     with _prof.phase("reorder_convert"):
         A_host, A_dev, perm, fp = _prepare_matrix(A, reorder=reorder, device=device)
     if A_host is None:
@@ -122,9 +104,7 @@ def _inner_plan(method, opts, inner_rtol, multi=False):
         inner_opts = dataclasses.replace(inner_opts, restart=min(opts.restart, 16))
     inner = {"gmres": "rgmres", "lgmres": "rlgmres", "fgmres": "rgmres",
              "cagmres": "cargmres"}.get(key, key)
-    if multi:
-        return get_block_solver(inner) or get_batched_solver(inner), inner_opts
-    return get_solver(inner), inner_opts
+    return solver_for(inner, multi), inner_opts
 
 
 def refine_multi(op64, inner, B, X, opts, max_outer, inner_dtype, norms):
@@ -163,6 +143,61 @@ def refine_multi(op64, inner, B, X, opts, max_outer, inner_dtype, norms):
                         bnorm=bnorm, history=None)
 
 
+def refine(op64, inner, b, x, opts, max_outer, inner_dtype, norm, bnorm=None, verbosity=0):
+    """The single-rhs refinement rounds, shared with the distributed
+    launcher: the fp64 residual through ``op64``, the scaled inner solve
+    ``inner(r32) -> (d32, info)`` in ``inner_dtype``, fp64 accumulation,
+    until the true residual meets max(rtol·‖b‖, atol) or ``max_outer``
+    rounds.  ``norm``: ‖v‖ as a 0-d tensor (the mesh's reduces over the
+    shards).  ``bnorm``: ‖b‖ when the caller has it, so that a repeated
+    solve takes no norm of b of its own.  ``verbosity`` ≥ 1 logs each round.
+    Returns (x, SolveInfo; nits the total inner iterations)."""
+    if bnorm is None:
+        bnorm = norm(b).item()
+    tol = max(opts.rtol * bnorm, opts.atol)
+    r = b - op64(x)
+    res = r0 = norm(r).item()
+    total = outer = 0
+    while res > tol and outer < max_outer:
+        with _prof.annotate("lssp.ir.round"):
+            scale = res if res != 0.0 else 1.0
+            r32 = (r / scale).to(inner_dtype)
+            with _prof.annotate("lssp.krylov.inner"):
+                d32, info = inner(r32)
+            x = x + d32.to(torch.float64) * scale
+            r = b - op64(x)
+            res = norm(r).item()
+        total += info.nits
+        outer += 1
+        if verbosity >= 1:
+            log(f"ir outer: {outer:3d}, inner its: {info.nits:4d}, true res: "
+                f"{res:.6e}, rel res: {res / max(r0, np.finfo(np.float64).tiny):.6e}",
+                level=0)
+    return x, SolveInfo(nits=total, residual=res, converged=res <= tol, r0norm=r0,
+                        bnorm=bnorm, history=None)
+
+
+def _request_ir(A, b, x0, method, pc, pc_options, opts, inner_rtol, inner_dtype, reorder,
+                device, block):
+    """check → prepare of every one-card refinement entry point: the input
+    (``check_input``), ``prepare_ir``'s memoized state, b and x0 placed in
+    fp64 (``place_system``) and the inner plan (``_inner_plan``).  Returns
+    (op64, inner, P·b, P·x0, perm): the arguments of ``refine`` and
+    ``refine_multi``."""
+    device = resolve_device(device, b)
+    b = check_input(A, b, method, "solve_ir_multi", block)
+    _, A64, A32, perm, M32 = prepare_ir(A, method=method, pc=pc, pc_options=pc_options,
+                                        inner_dtype=inner_dtype, reorder=reorder,
+                                        device=device)
+    b, x = place_system(A64.shape, b, x0, torch.float64, device, perm)
+    fn, inner_opts = _inner_plan(method, opts, inner_rtol, multi=block)
+
+    def inner(r32):
+        z = r32.new_zeros((A32.shape[1],) + tuple(r32.shape[1:]))
+        return fn(A32, r32, z, M32, opts=inner_opts)
+    return (lambda v: spmv(A64, v)), inner, b, x, perm
+
+
 def solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
              options: Optional[SolverOptions] = None,
              pc_options: Optional[PCOptions] = None, inner_rtol: float = 1e-3,
@@ -175,50 +210,13 @@ def solve_ir(A, b, x0=None, method: str = "gmres", pc: Optional[str] = "none",
     iterations and the residual is the true fp64 residual.  The call is
     the span ``lssp.solve_ir``."""
     with _prof.annotate("lssp.solve_ir"):
-        reject_block_method(method, "solve_ir_multi")
         opts = (options or SolverOptions()).resolved()
-        device = resolve_device(device, b)
-        b = validate_system(A, b, method)
-        _, A64, A32, perm, M32 = prepare_ir(A, method=method, pc=pc, pc_options=pc_options,
-                                            inner_dtype=inner_dtype, reorder=reorder,
-                                            device=device)
-        b = _permute(b.to(device=device, dtype=torch.float64), perm)
-        x = (b.new_zeros(A64.shape[1]) if x0 is None     # the column space (lsqr)
-             else _permute(torch.as_tensor(x0).to(device=device, dtype=torch.float64), perm))
-        bnorm = norm(b).item()
-        tol = max(opts.rtol * bnorm, opts.atol)
-        fn, inner_opts = _inner_plan(method, opts, inner_rtol)
-
-        x, info = _refine(A64, A32, M32, b, x, tol, fn, inner_opts, max_outer, inner_dtype,
-                          opts.verbosity)
-        return _unpermute(x, perm), dataclasses.replace(info, bnorm=bnorm)
-
-
-def _refine(A64, A32, M32, b, x, tol, fn, inner_opts, max_outer, inner_dtype, verbosity=0):
-    """The refinement rounds of ``solve_ir`` on prepared state: fp64
-    residual, the scaled inner solve in ``inner_dtype``, fp64 update, until
-    the true residual meets ``tol`` or ``max_outer`` rounds.  Returns (x,
-    SolveInfo; nits the total inner iterations, bnorm left None)."""
-    r = b - spmv(A64, x)
-    res = r0 = norm(r).item()
-    total_inner = outer = 0
-    while res > tol and outer < max_outer:
-        with _prof.annotate("lssp.ir.round"):
-            scale = res if res != 0.0 else 1.0
-            r32 = (r / scale).to(inner_dtype)
-            with _prof.annotate("lssp.krylov.inner"):
-                d32, info = fn(A32, r32, r32.new_zeros(A32.shape[1]), M32, opts=inner_opts)
-            x = x + d32.to(torch.float64) * scale
-            r = b - spmv(A64, x)
-            res = norm(r).item()
-        total_inner += info.nits
-        outer += 1
-        if verbosity >= 1:
-            log(f"ir outer: {outer:3d}, inner its: {info.nits:4d}, true res: "
-                f"{res:.6e}, rel res: {res / max(r0, np.finfo(np.float64).tiny):.6e}",
-                level=0)
-    return x, SolveInfo(nits=total_inner, residual=res, converged=res <= tol, r0norm=r0,
-                        bnorm=None, history=None)
+        op64, inner, b, x, perm = _request_ir(A, b, x0, method, pc, pc_options, opts,
+                                              inner_rtol, inner_dtype, reorder, device,
+                                              block=False)
+        x, info = refine(op64, inner, b, x, opts, max_outer, inner_dtype, norm,
+                         verbosity=opts.verbosity)
+        return _unpermute(x, perm), info
 
 
 def ir_device_time(A, b, method: str = "gmres", pc: Optional[str] = "none",
@@ -236,20 +234,15 @@ def ir_device_time(A, b, method: str = "gmres", pc: Optional[str] = "none",
     solve."""
     import time
     opts = (options or SolverOptions()).resolved()
-    device = resolve_device(device, b)
-    b = validate_system(A, b, method)
-    _, A64, A32, perm, M32 = prepare_ir(A, method=method, pc=pc, pc_options=pc_options,
-                                        inner_dtype=inner_dtype, reorder=reorder,
-                                        device=device)
-    b = _permute(b.to(device=device, dtype=torch.float64), perm)
-    tol = max(opts.rtol * norm(b).item(), opts.atol)
-    fn, inner_opts = _inner_plan(method, opts, inner_rtol)
+    op64, inner, b, x0, _ = _request_ir(A, b, None, method, pc, pc_options, opts, inner_rtol,
+                                        inner_dtype, reorder, device, block=False)
+    bnorm = norm(b).item()
 
     def batch(r):
         t0 = time.perf_counter()
         for _ in range(r):
-            x, info = _refine(A64, A32, M32, b, b.new_zeros(A64.shape[1]), tol, fn,
-                              inner_opts, max_outer, inner_dtype)
+            x, info = refine(op64, inner, b, x0, opts, max_outer, inner_dtype, norm,
+                             bnorm=bnorm)
         if b.device.type == "cuda":
             torch.cuda.synchronize(b.device)
         return time.perf_counter() - t0, info
@@ -284,24 +277,8 @@ def solve_ir_multi(A, B, X0=None, method: str = "blockgmres", pc: Optional[str] 
     call is the span ``lssp.solve_ir_multi``."""
     with _prof.annotate("lssp.solve_ir_multi"):
         opts = (options or SolverOptions()).resolved()
-        device = resolve_device(device, B)
-        B = validate_block(A, B, "solve_ir_multi", method)
-        fn, inner_opts = _inner_plan(method, opts, inner_rtol, multi=True)
-        _, A64, A32, perm, M32 = prepare_ir(A, method=method, pc=pc, pc_options=pc_options,
-                                            inner_dtype=inner_dtype, reorder=reorder,
-                                            device=device)
-        B = _permute(B.to(device=device, dtype=torch.float64), perm).contiguous()
-        X = (B.new_zeros(A64.shape[1], B.shape[1]) if X0 is None
-             else _permute(torch.as_tensor(X0).to(device=device, dtype=torch.float64),
-                           perm).contiguous())
-        if X.shape != (A64.shape[1], B.shape[1]):
-            raise ValueError(f"X0 must have shape {(A64.shape[1], B.shape[1])}, got "
-                             f"{tuple(X.shape)}")
-
-        def inner(R32):
-            return fn(A32, R32, R32.new_zeros(A32.shape[1], R32.shape[1]), M32,
-                      opts=inner_opts)
-
-        X, info = refine_multi(lambda V: spmv(A64, V), inner, B, X, opts, max_outer,
-                               inner_dtype, norm)
+        op64, inner, B, X, perm = _request_ir(A, B, X0, method, pc, pc_options, opts,
+                                              inner_rtol, inner_dtype, reorder, device,
+                                              block=True)
+        X, info = refine_multi(op64, inner, B, X, opts, max_outer, inner_dtype, norm)
         return _unpermute(X, perm), info

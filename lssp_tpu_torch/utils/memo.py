@@ -34,6 +34,7 @@ scanned 183 MB as fast as 8, and a request's scan often faster).  ``checksums`` 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import os
 import zlib
 
@@ -105,6 +106,24 @@ def fingerprint(A):
             return tuple(parts)
         except (TypeError, ValueError):
             return None
+
+
+def _pc_options_key(pc_options):
+    """The memo key of a ``PCOptions`` (every set-up memo that depends on
+    one): array-valued fields key on their shape, dtype and ``checksum``
+    of their full bytes (a repr would summarize large arrays)."""
+    if pc_options is None:
+        return None
+    parts = []
+    for f in dataclasses.fields(pc_options):
+        v = getattr(pc_options, f.name)
+        if (hasattr(v, "__array__") or isinstance(v, (list, tuple))) \
+                and not isinstance(v, str):
+            a = np.asarray(v)
+            parts.append((f.name, a.shape, str(a.dtype), checksum(a)))
+        else:
+            parts.append((f.name, repr(v)))
+    return tuple(parts)
 
 
 def memo_get(A, attr, key, fp):

@@ -180,7 +180,7 @@ def test_without_the_library_zlib_gives_the_same_tuple(counted, monkeypatch, kin
 
 
 def test_pc_options_key_takes_the_same_checksum():
-    from lssp_tpu_torch.solvers.refine import _pc_options_key
+    from lssp_tpu_torch.utils.memo import _pc_options_key
     sizes = np.full(20_000, 4, dtype=np.int64)
     key = dict((p[0], p) for p in _pc_options_key(lt.PCOptions(block_sizes=sizes)))
     assert key["block_sizes"] == ("block_sizes", (20_000,), "int64", zlib.crc32(sizes))

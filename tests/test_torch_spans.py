@@ -122,28 +122,44 @@ def test_no_profiler_no_range(monkeypatch):
                 pass
 
 
-def test_memo_lookups_hit_miss_stale():
+# each entry's memo lookups a call: solve and solve_multi the prepared
+# matrix; the refinement entries prepare_ir's three (matrix, both
+# precisions, PC); the mesh its distributed state, and saamg's sizing
+LOOKUPS = [("solve", "ilu0", 1), ("solve_multi", "ilu0", 1), ("solve_ir", "ilu0", 3),
+           ("solve_ir_multi", "ilu0", 3), ("dist_solve_ir", "ilu0", 1),
+           ("dist_solve_ir", "saamg", 2)]
+
+
+@pytest.mark.parametrize("entry,pc,k", LOOKUPS, ids=lambda v: str(v))
+def test_memo_lookups_hit_miss_stale(tmp_path, entry, pc, k):
     A = T.sparse.laplacian_2d(12)
     A = type(A)(A.indptr.copy(), A.indices.copy(), A.data.copy(), A.shape)
-    b = torch.ones(A.shape[0], dtype=torch.float64)
+    n = A.shape[0]
+    b = torch.ones((n, 2) if entry.endswith("multi") else n, dtype=torch.float64)
+    group = entry.startswith("dist")
+    if group:
+        multihost.initialize(f"file://{tmp_path / 'rdv'}", 1, 0, device="cpu",
+                             timeout=datetime.timedelta(seconds=60))
+        mesh = multihost.global_mesh(slots=2)
 
-    def solve():
-        return T.solve_ir(A, b, method="cg", pc="ilu0", options=OPTS, device="cpu")
+        def solve():
+            return T.parallel.dist_solve_ir(A, b, method="cg", pc=pc, mesh=mesh, options=OPTS)
+    else:
+        solve = request(entry, "cg", pc, A, b)
 
-    memo.lookups.clear()
-    solve()
-    first = dict(memo.lookups)
-    assert first.get("miss", 0) >= 1 and "hit" not in first and "stale" not in first
-    memo.lookups.clear()
-    solve()
-    assert memo.lookups["hit"] >= 1 and memo.lookups["miss"] == memo.lookups["stale"] == 0
-    A.data[0] += 1.0                                      # the matrix changed in place
-    memo.lookups.clear()
-    solve()
-    assert memo.lookups["stale"] >= 1 and memo.lookups["hit"] == 0
-    memo.lookups.clear()
-    solve()
-    assert memo.lookups["hit"] >= 1 and memo.lookups["stale"] == 0
+    def counted():
+        memo.lookups.clear()
+        solve()
+        return dict(memo.lookups)
+    try:
+        assert counted() == {"miss": k}
+        assert counted() == {"hit": k}
+        A.data[0] += 1.0                                  # the matrix changed in place
+        assert counted() == {"stale": k}
+        assert counted() == {"hit": k}
+    finally:
+        if group:
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("pc", ["jacobi", "saamg"])
