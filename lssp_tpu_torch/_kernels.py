@@ -125,14 +125,21 @@ def load():
         lib = ctypes.CDLL(_LIB_PATH)
         p, i64, i32, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
         for suf in ("f32", "f64"):
-            # K2 / K2k: per factor (band, offsets, ndiag, strays ptr / cols /
-            # vals), invd, n, k, r, z0, out, levels, ring_rows, mask, flags,
-            # sweeps, rows, tiles, the wait sets (a host int array), the two
-            # halos, kt, grid, stream
-            fn = getattr(lib, f"lssp_neumann_apply_{suf}")
-            fn.argtypes = ([p, p, i32, p, p, p] * 2 + [p, i64, i64, p, p, p, p, i64, i64, p]
-                           + [i32] * 3 + [ctypes.POINTER(i32)] + [i32] * 4 + [p])
+            # K2 / K2k's launch prepared once a plan: per factor (band,
+            # offsets, ndiag, strays ptr / cols / vals), invd, n, k,
+            # ring_rows, mask, sweeps, rows, tiles, the wait sets (a host int
+            # array), the two halos, kt, grid, and where to put the handle
+            fn = getattr(lib, f"lssp_neumann_prepare_{suf}")
+            fn.argtypes = ([p, p, i32, p, p, p] * 2 + [p] + [i64] * 4 + [i32] * 3
+                           + [ctypes.POINTER(i32)] + [i32] * 4 + [ctypes.POINTER(p)])
             fn.restype = ctypes.c_int
+            # one apply of it: handle, r, z0, out, levels, flags, stream
+            fn = getattr(lib, f"lssp_neumann_run_{suf}")
+            fn.argtypes = [p] * 7
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"lssp_neumann_release_{suf}")     # handle
+            fn.argtypes = [p]
+            fn.restype = None
             fn = getattr(lib, f"lssp_neumann_blocks_{suf}")     # kt, rows, hmax, ndmax
             fn.argtypes = [i32] * 4
             fn.restype = ctypes.c_int

@@ -78,6 +78,7 @@
 //   KT = 8 (registers).
 
 #include <cstdint>
+#include <new>
 
 #include <cuda_runtime.h>
 
@@ -474,82 +475,118 @@ bool read_set(const int*& p, WaitSet& w, int min_delta, int tiles) {
   return true;
 }
 
+// A launch prepared once a plan (ops/neumann.py: _Launch): the kernel's
+// arguments but the per-apply buffers, validated, with the launch's
+// shape.  Prepared<T> holds no device memory.
 template <typename T>
-int launch(const void* bandL, const void* offL, int ndL, const void* sptrL, const void* scolL,
-           const void* svalL, const void* bandU, const void* offU, int ndU, const void* sptrU,
-           const void* scolU, const void* svalU, const void* invd, int64_t n, int64_t k,
-           const void* r, void* z0, void* out, void* levels, int64_t ring_rows, int64_t mask,
-           void* flags, int sweeps, int rows, int tiles, const int* waits, int haloL,
-           int haloU, int kt, int grid, void* stream) {
-  if (n == 0 || k == 0) return static_cast<int>(cudaSuccess);
+struct Prepared {
+  Apply<T> a;                // r, z0, out, levels, progress, ticket: per apply
+  int kt, grid;
+  int64_t smem, flag_bytes;
+  bool empty;                // n == 0 or k == 0: nothing to launch
+};
+
+template <typename T>
+int prepare(const void* bandL, const void* offL, int ndL, const void* sptrL, const void* scolL,
+            const void* svalL, const void* bandU, const void* offU, int ndU, const void* sptrU,
+            const void* scolU, const void* svalU, const void* invd, int64_t n, int64_t k,
+            int64_t ring_rows, int64_t mask, int sweeps, int rows, int tiles, const int* waits,
+            int haloL, int haloU, int kt, int grid, void** handle) {
+  if (handle == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  *handle = nullptr;
+  Prepared<T> p{};
+  p.empty = n == 0 || k == 0;
   const int64_t nct = kt > 0 ? k / kt : 0;
-  if ((kt != 1 && kt != 2 && kt != 4 && kt != 8) || k % kt != 0 || rows % kThreads != 0 ||
-      rows < kThreads || rows > kThreads * rows_per_thread<T>(kt) || sweeps < 1 || tiles < 1 ||
-      haloL < 0 || haloL > rows || haloU < 0 || haloU > rows || waits == nullptr || ndL < 1 ||
-      ndL > kMaxDiags || ndU < 1 || ndU > kMaxDiags || grid < 1 ||
-      static_cast<int64_t>(tiles) * rows < n ||
-      2 * static_cast<int64_t>(tiles) * nct >= (int64_t(1) << 31) ||
-      (sweeps > 1 && levels == nullptr))
+  if (!p.empty) {
+    if ((kt != 1 && kt != 2 && kt != 4 && kt != 8) || k % kt != 0 || rows % kThreads != 0 ||
+        rows < kThreads || rows > kThreads * rows_per_thread<T>(kt) || sweeps < 1 ||
+        tiles < 1 || haloL < 0 || haloL > rows || haloU < 0 || haloU > rows ||
+        waits == nullptr || ndL < 1 || ndL > kMaxDiags || ndU < 1 || ndU > kMaxDiags ||
+        grid < 1 || static_cast<int64_t>(tiles) * rows < n ||
+        2 * static_cast<int64_t>(tiles) * nct >= (int64_t(1) << 31))
+      return static_cast<int>(cudaErrorInvalidValue);
+    // a ring that wraps: a power of two of rows (the slot is a mask) less
+    // than n; full length otherwise
+    if (mask != -1 ? (ring_rows < rows || ring_rows >= n ||
+                      (ring_rows & (ring_rows - 1)) != 0 || mask != ring_rows - 1)
+                   : ring_rows < n)
+      return static_cast<int>(cudaErrorInvalidValue);
+    Apply<T>& a = p.a;
+    const int* w = waits;
+    if (!read_set(w, a.reads[0], 1, tiles) || !read_set(w, a.reads[1], 1, tiles) ||
+        !read_set(w, a.base, 0, tiles) || !read_set(w, a.reuse[0], 1, tiles) ||
+        !read_set(w, a.reuse[1], 1, tiles) ||
+        (mask != -1 && sweeps > 1 && (a.reuse[0].count == 0 || a.reuse[1].count == 0)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int hmax = haloL > haloU ? haloL : haloU;
+    p.smem = smem_bytes<T>(kt, rows, hmax, ndL > ndU ? ndL : ndU);
+    if (p.smem > smem_optin() - static_cast<int>(2 * kMaxDiags * sizeof(int) + 64))
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e;
+    switch (kt) {
+      case 8: e = allow_smem<T, 8>(); break;
+      case 4: e = allow_smem<T, 4>(); break;
+      case 2: e = allow_smem<T, 2>(); break;
+      default: e = allow_smem<T, 1>(); break;
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+    a.f[0] = {static_cast<const T*>(bandL), static_cast<const int32_t*>(offL), ndL,
+              static_cast<const int32_t*>(sptrL), static_cast<const int32_t*>(scolL),
+              static_cast<const T*>(svalL)};
+    a.f[1] = {static_cast<const T*>(bandU), static_cast<const int32_t*>(offU), ndU,
+              static_cast<const int32_t*>(sptrU), static_cast<const int32_t*>(scolU),
+              static_cast<const T*>(svalU)};
+    a.invd = static_cast<const T*>(invd);
+    a.n = n;
+    a.k = k;
+    a.mask = mask;
+    a.ring_rows = ring_rows;
+    a.sweeps = sweeps;
+    a.rows = rows;
+    a.tiles = tiles;
+    a.nct = static_cast<int>(nct);
+    a.halo[0] = haloL;
+    a.halo[1] = haloU;
+    a.hmax = hmax;
+    p.kt = kt;
+    p.grid = grid;
+    p.flag_bytes = (2 * nct * tiles + 1) * static_cast<int64_t>(sizeof(int));
+  }
+  Prepared<T>* h = new (std::nothrow) Prepared<T>(p);
+  if (h == nullptr) return static_cast<int>(cudaErrorMemoryAllocation);
+  *handle = h;
+  return static_cast<int>(cudaSuccess);
+}
+
+// One apply of a prepared launch: the memset of flags, then the kernel.
+template <typename T>
+int run(const void* handle, const void* r, void* z0, void* out, void* levels, void* flags,
+        void* stream) {
+  const Prepared<T>& p = *static_cast<const Prepared<T>*>(handle);
+  if (p.empty) return static_cast<int>(cudaSuccess);
+  if (flags == nullptr || (p.a.sweeps > 1 && levels == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  // a ring that wraps: a power of two of rows (the slot is a mask) less
-  // than n; full length otherwise
-  if (mask != -1 ? (ring_rows < rows || ring_rows >= n || (ring_rows & (ring_rows - 1)) != 0 ||
-                    mask != ring_rows - 1)
-                 : ring_rows < n)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Apply<T> a;
-  const int* p = waits;
-  if (!read_set(p, a.reads[0], 1, tiles) || !read_set(p, a.reads[1], 1, tiles) ||
-      !read_set(p, a.base, 0, tiles) || !read_set(p, a.reuse[0], 1, tiles) ||
-      !read_set(p, a.reuse[1], 1, tiles) ||
-      (mask != -1 && sweeps > 1 && (a.reuse[0].count == 0 || a.reuse[1].count == 0)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int hmax = haloL > haloU ? haloL : haloU;
-  const int64_t smem = smem_bytes<T>(kt, rows, hmax, ndL > ndU ? ndL : ndU);
-  if (smem > smem_optin() - static_cast<int>(2 * kMaxDiags * sizeof(int) + 64))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t bytes = kt * sizeof(T) >= 16 ? 16 : kt * static_cast<int64_t>(sizeof(T));
+  const int64_t bytes = p.kt * sizeof(T) >= 16 ? 16 : p.kt * static_cast<int64_t>(sizeof(T));
   if (!lssp::aligned(r, bytes) || !lssp::aligned(z0, bytes) || !lssp::aligned(out, bytes) ||
       !lssp::aligned(levels, bytes))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  a.f[0] = {static_cast<const T*>(bandL), static_cast<const int32_t*>(offL), ndL,
-            static_cast<const int32_t*>(sptrL), static_cast<const int32_t*>(scolL),
-            static_cast<const T*>(svalL)};
-  a.f[1] = {static_cast<const T*>(bandU), static_cast<const int32_t*>(offU), ndU,
-            static_cast<const int32_t*>(sptrU), static_cast<const int32_t*>(scolU),
-            static_cast<const T*>(svalU)};
-  a.invd = static_cast<const T*>(invd);
+  Apply<T> a = p.a;
   a.r = static_cast<const T*>(r);
   a.z0 = static_cast<T*>(z0);
   a.out = static_cast<T*>(out);
   a.levels = static_cast<T*>(levels);
   a.progress = static_cast<int*>(flags);
-  a.ticket = reinterpret_cast<unsigned int*>(a.progress + 2 * nct * tiles);
-  a.n = n;
-  a.k = k;
-  a.mask = mask;
-  a.ring_rows = ring_rows;
-  a.sweeps = sweeps;
-  a.rows = rows;
-  a.tiles = tiles;
-  a.nct = static_cast<int>(nct);
-  a.halo[0] = haloL;
-  a.halo[1] = haloU;
-  a.hmax = hmax;
+  a.ticket =
+      reinterpret_cast<unsigned int*>(a.progress + 2 * static_cast<int64_t>(a.nct) * a.tiles);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(flags, 0, (2 * nct * tiles + 1) * sizeof(int), st);
+  cudaError_t e = cudaMemsetAsync(flags, 0, static_cast<size_t>(p.flag_bytes), st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  switch (kt) {
-#define LSSP_NEUMANN_LAUNCH(KT)                                                   \
-  e = allow_smem<T, KT>();                                                        \
-  if (e != cudaSuccess) return static_cast<int>(e);                               \
-  neumann_wavefront_kernel<T, KT><<<grid, kThreads, static_cast<size_t>(smem), st>>>(a); \
-  break
-    case 8: LSSP_NEUMANN_LAUNCH(8);
-    case 4: LSSP_NEUMANN_LAUNCH(4);
-    case 2: LSSP_NEUMANN_LAUNCH(2);
-    default: LSSP_NEUMANN_LAUNCH(1);
-#undef LSSP_NEUMANN_LAUNCH
+  const size_t smem = static_cast<size_t>(p.smem);
+  switch (p.kt) {
+    case 8: neumann_wavefront_kernel<T, 8><<<p.grid, kThreads, smem, st>>>(a); break;
+    case 4: neumann_wavefront_kernel<T, 4><<<p.grid, kThreads, smem, st>>>(a); break;
+    case 2: neumann_wavefront_kernel<T, 2><<<p.grid, kThreads, smem, st>>>(a); break;
+    default: neumann_wavefront_kernel<T, 1><<<p.grid, kThreads, smem, st>>>(a); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -573,32 +610,45 @@ int lssp_neumann_blocks_f64(int kt, int rows, int hmax, int ndmax) {
 int lssp_neumann_rows_per_thread_f32(int kt) { return rows_per_thread<float>(kt); }
 int lssp_neumann_rows_per_thread_f64(int kt) { return rows_per_thread<double>(kt); }
 
-// The whole apply, one launch (after a memset of flags).  Per factor (L,
-// then D^-1 U): band (ndiag, n) row-major, offsets (ndiag,) int32, and
+// The launch of one plan and block width, prepared once: per factor (L,
+// then D^-1 U) band (ndiag, n) row-major, offsets (ndiag,) int32, and
 // sptr (n+1,) / scol / sval (row-sorted CSR strays), all three null without
-// strays.  invd (n,); r, z0, out: (n, k) row-major (k = 1: K2), z0 and out
-// written; levels: 2 * (sweeps - 1) * ring_rows * k scratch (null when
-// sweeps == 1); flags: 2 * (k / kt) * tiles + 1 int32 scratch.  The
-// schedule (rows, tiles, ring_rows, mask, the wait sets) is ops/neumann.py:
-// wavefront_schedule's; waits: host memory, the five WaitSets reads[0],
+// strays; invd (n,); n, k.  The schedule (ring_rows, mask, sweeps, rows,
+// tiles, the wait sets) is ops/neumann.py: wavefront_schedule's; waits:
+// host memory, read here and not kept, the five WaitSets reads[0],
 // reads[1], base, reuse[0], reuse[1], each its count of ranges, then a
-// (lo, hi) pair a range; grid: the blocks to launch (at most
-// lssp_neumann_blocks).  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue / cudaErrorMisalignedAddress without launching.
-#define LSSP_NEUMANN_ENTRY(NAME, T)                                                           \
-  int NAME(const void* bandL, const void* offL, int ndL, const void* sptrL,                 \
-           const void* scolL, const void* svalL, const void* bandU, const void* offU,        \
-           int ndU, const void* sptrU, const void* scolU, const void* svalU,                 \
-           const void* invd, int64_t n, int64_t k, const void* r, void* z0, void* out,       \
-           void* levels, int64_t ring_rows, int64_t mask, void* flags, int sweeps, int rows, \
-           int tiles, const int* waits, int haloL, int haloU, int kt, int grid,             \
-           void* stream) {                                                                   \
-    return launch<T>(bandL, offL, ndL, sptrL, scolL, svalL, bandU, offU, ndU, sptrU, scolU, \
-                     svalU, invd, n, k, r, z0, out, levels, ring_rows, mask, flags, sweeps,  \
-                     rows, tiles, waits, haloL, haloU, kt, grid, stream);                    \
-  }
-LSSP_NEUMANN_ENTRY(lssp_neumann_apply_f32, float)
-LSSP_NEUMANN_ENTRY(lssp_neumann_apply_f64, double)
-#undef LSSP_NEUMANN_ENTRY
+// (lo, hi) pair a range; haloL, haloU; kt, the tile width; grid: the blocks
+// to launch (at most lssp_neumann_blocks).  Sets *handle (host memory,
+// freed by lssp_neumann_release_*) and returns 0, or a CUDA error
+// (cudaErrorInvalidValue for arguments the kernel cannot take) with
+// *handle null.  The device pointers are kept, not read.
+//
+// lssp_neumann_run_*: the whole apply, one launch after a memset of flags,
+// on stream.  r, z0, out: (n, k) row-major (k = 1: K2), z0 and out
+// written; levels: 2 * (sweeps - 1) * ring_rows * k scratch (null when
+// sweeps == 1); flags: 2 * (k / kt) * tiles + 1 int32 scratch.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue / cudaErrorMisalignedAddress
+// without launching.
+#define LSSP_NEUMANN_ENTRIES(SUF, T)                                                          \
+  int lssp_neumann_prepare_##SUF(const void* bandL, const void* offL, int ndL,               \
+                                 const void* sptrL, const void* scolL, const void* svalL,   \
+                                 const void* bandU, const void* offU, int ndU,              \
+                                 const void* sptrU, const void* scolU, const void* svalU,   \
+                                 const void* invd, int64_t n, int64_t k, int64_t ring_rows, \
+                                 int64_t mask, int sweeps, int rows, int tiles,             \
+                                 const int* waits, int haloL, int haloU, int kt, int grid,  \
+                                 void** handle) {                                           \
+    return prepare<T>(bandL, offL, ndL, sptrL, scolL, svalL, bandU, offU, ndU, sptrU, scolU, \
+                      svalU, invd, n, k, ring_rows, mask, sweeps, rows, tiles, waits, haloL, \
+                      haloU, kt, grid, handle);                                              \
+  }                                                                                          \
+  int lssp_neumann_run_##SUF(const void* handle, const void* r, void* z0, void* out,         \
+                             void* levels, void* flags, void* stream) {                     \
+    return run<T>(handle, r, z0, out, levels, flags, stream);                               \
+  }                                                                                          \
+  void lssp_neumann_release_##SUF(void* handle) { delete static_cast<Prepared<T>*>(handle); }
+LSSP_NEUMANN_ENTRIES(f32, float)
+LSSP_NEUMANN_ENTRIES(f64, double)
+#undef LSSP_NEUMANN_ENTRIES
 
 }  // extern "C"

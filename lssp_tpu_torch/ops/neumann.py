@@ -3,7 +3,7 @@
 z ≈ U⁻¹L⁻¹r by k sweeps ``y ← r − Ls·y``, then ``z0 = D⁻¹y``, then k sweeps
 ``z ← z0 − (D⁻¹Us)·z`` — the same math as the TPU kernel
 ``lssp_tpu/ops/pallas_neumann.py: _build_call``, whose whole apply sits in
-VMEM.  Here the whole apply is ONE launch of ``lssp_neumann_apply``, a
+VMEM.  Here the whole apply is ONE launch of ``lssp_neumann_run``, a
 wavefront over row tiles: work item (phase, u) carries tile u through
 every sweep level of one phase, keeping its band rows and its own previous
 level in shared memory, and reads the other tiles' levels from rings in
@@ -32,8 +32,10 @@ calls when the factors have strays; this does not.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
+import weakref
 from typing import Any
 
 import numpy as np
@@ -82,6 +84,12 @@ class FusedNeumann:
     n: int
     sweeps: int
     reach: int = 0
+    # the K2 / K2k launches prepared on this plan, by (k, device, kt)
+    # (``_apply``); ``dataclasses.replace`` builds a plan with none
+    _launches: Any = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "_launches", {})
 
     @property
     def dtype(self):
@@ -462,32 +470,86 @@ def launch_schedule(plan: FusedNeumann, r: torch.Tensor, *outputs):
     return sched, kt, [halo_rows(F.offsets, sched.rows) for F in (plan.L, plan.U)]
 
 
-def _apply(plan: FusedNeumann, r: torch.Tensor, k: int, counter) -> torch.Tensor:
-    """One launch of the wavefront kernel for ``r`` (n,) (k = 1) or (n, k);
-    adds one to ``counter.launches``."""
+# K2 / K2k launches by whether their prepared launch was "built" or
+# "reused" (``_apply``); callers reset it
+records = collections.Counter()
+
+
+@dataclasses.dataclass(frozen=True)
+class _Launch:
+    """One plan's launch for one (k, device, kt), prepared once: the
+    schedule, and ``handle``, the library's validated copy of every
+    argument but the per-apply buffers, freed with the record.  An apply's
+    scratch is one buffer of ``scratch`` bytes: z0, then the level rings
+    at byte ``levels_at`` (0: none, one sweep), then the progress words
+    and ticket at ``flags_at``."""
+
+    sched: Wavefront
+    kt: int
+    run: Any                # the library's lssp_neumann_run_<suffix>
+    name: str
+    handle: int
+    levels_at: int
+    flags_at: int
+    scratch: int
+
+
+def _prepare(plan: FusedNeumann, r: torch.Tensor, k: int, out: torch.Tensor) -> _Launch:
+    """The plan's launch on ``r`` (n,) or (n, k) writing ``out``: the plan
+    checked against ``r``'s device, the schedule, and the library's handle
+    (``lssp_neumann_prepare``, which checks every argument the kernel
+    takes)."""
     if plan.sweeps < 1:
         raise ValueError("fused_neumann_apply needs sweeps >= 1")
     _check_plan(plan, r.device)
-    z0, out = torch.empty_like(r), torch.empty_like(r)
-    sched, kt, halos = launch_schedule(plan, r, z0, out)
+    sched, kt, halos = launch_schedule(plan, r, out)
     suf = _kernels.SUFFIX[r.dtype]
-    levels = r.new_empty(2 * (plan.sweeps - 1) * sched.ring_rows * k)
-    flags = torch.empty(2 * sched.ncols * sched.tiles + 1, dtype=torch.int32,
-                        device=r.device)
+    lib = _kernels.load()
     waits = sched.wait_sets()
     p = _kernels.ptr
     args = []
     for F in (plan.L, plan.U):
         args += [p(F.band), p(F.offsets_t), len(F.offsets), p(F.stray_ptr), p(F.stray_cols),
                  p(F.stray_vals)]
-    status = getattr(_kernels.load(), f"lssp_neumann_apply_{suf}")(
-        *args, p(plan.invdiag), plan.n, k, p(r), p(z0), p(out), p(levels), sched.ring_rows,
-        sched.mask, p(flags), sched.sweeps, sched.rows, sched.tiles,
-        (ctypes.c_int * len(waits))(*waits), *halos, kt, sched.grid,
-        _kernels.stream_ptr(r.device))
-    _kernels.check_status(f"lssp_neumann_apply_{suf}", status)
-    _kernels.launched(counter, suf)
-    _kernels.check_nan(f"lssp_neumann_apply_{suf}", out)
+    handle = ctypes.c_void_p()
+    status = getattr(lib, f"lssp_neumann_prepare_{suf}")(
+        *args, p(plan.invdiag), plan.n, k, sched.ring_rows, sched.mask, sched.sweeps,
+        sched.rows, sched.tiles, (ctypes.c_int * len(waits))(*waits), *halos, kt, sched.grid,
+        ctypes.byref(handle))
+    _kernels.check_status(f"lssp_neumann_prepare_{suf}", status)
+    isz = r.element_size()
+    levels_at = plan.n * k * isz          # a multiple of kt values: aligned as z0
+    flags_at = levels_at + -(-2 * (plan.sweeps - 1) * sched.ring_rows * k * isz // 16) * 16
+    rec = _Launch(sched=sched, kt=kt, run=getattr(lib, f"lssp_neumann_run_{suf}"),
+                  name=f"lssp_neumann_run_{suf}", handle=handle.value,
+                  levels_at=levels_at if plan.sweeps > 1 else 0, flags_at=flags_at,
+                  scratch=flags_at + 4 * (2 * sched.ncols * sched.tiles + 1))
+    weakref.finalize(rec, getattr(lib, f"lssp_neumann_release_{suf}"), handle.value)
+    return rec
+
+
+def _apply(plan: FusedNeumann, r: torch.Tensor, k: int, counter) -> torch.Tensor:
+    """One launch of the wavefront kernel for ``r`` (n,) (k = 1) or (n, k);
+    adds one to ``counter.launches``.  The launch is prepared on the
+    plan's first apply of each (k, device, tile width) and reused after;
+    the output and the scratch (``_Launch``) are allocated an apply, so
+    that streams and graph captures never share them."""
+    out = torch.empty_like(r)
+    key = (k, r.device, _tile_width(k, r.element_size(), r, out))
+    rec = plan._launches.get(key)
+    if rec is None:
+        rec = plan._launches[key] = _prepare(plan, r, k, out)
+        records["built"] += 1
+    else:
+        records["reused"] += 1
+    scratch = torch.empty(rec.scratch, dtype=torch.uint8, device=r.device)
+    z0 = scratch.data_ptr()
+    status = rec.run(rec.handle, r.data_ptr(), z0, out.data_ptr(),
+                     z0 + rec.levels_at if rec.levels_at else None, z0 + rec.flags_at,
+                     _kernels.stream_ptr(r.device))
+    _kernels.check_status(rec.name, status)
+    _kernels.launched(counter, _kernels.SUFFIX[r.dtype])
+    _kernels.check_nan(rec.name, out)
     return out
 
 

@@ -11,6 +11,7 @@ kernel fuses multiply-adds and sums in its own order)."""
 import dataclasses
 import importlib
 import os
+import time
 
 import numpy as np
 import pytest
@@ -32,6 +33,7 @@ from lssp_tpu_torch.utils import memo
 hyb_mod = importlib.import_module("lssp_tpu_torch.ops.hyb_spmv")
 ext_mod = importlib.import_module("lssp_tpu_torch.ops.dia_spmv_ext")
 spmv_mod = importlib.import_module("lssp_tpu_torch.ops.spmv")
+nm_mod = importlib.import_module("lssp_tpu_torch.ops.neumann")
 
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
@@ -176,6 +178,74 @@ def test_neumann_apply_is_deterministic_and_graph_safe(cuda):
             graph.replay()
             torch.cuda.synchronize()
             assert torch.equal(out, first)
+
+
+def _record_case(case, cuda):
+    """(plan, r, apply) of a launch-record case: K2 or K2k (k = 2, 8) on
+    the 3-D Laplacian 12³'s ILU(0) in fp32 or fp64; an (n, 8) block one
+    float off its alignment (kt 1); the transposed plan; a bfloat16 r on a
+    float32 plan."""
+    dtype = torch.float64 if case.startswith("f64") else torch.float32
+    L, U = iluk_factor(lt.sparse.laplacian_3d(12), level=0)
+    make = nm_mod.plan_fused_neumann_t if case == "transposed" else plan_fused_neumann
+    plan = make(L, U, 6, dtype=dtype, device=cuda)
+    k = {"k2": 2, "k8": 8, "misaligned": 8}.get(case.split("_")[-1], None)
+    rng = np.random.default_rng(5)
+    r = torch.from_numpy(rng.standard_normal(plan.n if k is None else (plan.n, k)))
+    r = r.to(cuda, dtype)
+    if case == "misaligned":
+        buf = torch.zeros(plan.n * 8 + 1, dtype=dtype, device=cuda)
+        buf[1:].copy_(r.reshape(-1))
+        r = buf[1:].view(plan.n, 8)
+    if case == "bf16":
+        r = r.to(torch.bfloat16)
+    return plan, r, lambda: fused_neumann_apply(plan, r)
+
+
+RECORD_CASES = ["f32_k1", "f64_k1", "f32_k2", "f64_k2", "f32_k8", "f64_k8", "misaligned",
+                "transposed", "bf16"]
+
+
+def _host_us(apply, calls=50):
+    """Host µs an apply while the card is kept busy, so each launch returns
+    at once (a reading, not a bound)."""
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        apply()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+@pytest.mark.parametrize("case", RECORD_CASES)
+def test_neumann_launch_record_is_bitwise_a_fresh_launch(cuda, case):
+    """An apply through the plan's prepared launch is bitwise the apply
+    that prepares it anew (the record cleared), each one launch; the
+    record is built once per (k, device, kt) and reused after.  Prints the
+    host µs an apply that prepares and one that reuses."""
+    plan, r, apply = _record_case(case, cuda)
+    k = 1 if r.ndim == 1 else r.shape[1]
+    counter = fused_neumann_apply if k == 1 else neumann_block_apply
+    before, built = counter.launches, dict(nm_mod.records)
+    first, again = apply(), apply()
+    assert counter.launches == before + 2
+    assert nm_mod.records["built"] == built.get("built", 0) + 1
+    assert nm_mod.records["reused"] == built.get("reused", 0) + 1
+    (key, rec), = plan._launches.items()
+    assert key[:2] == (k, r.device) and rec.kt == (1 if case == "misaligned" else
+                                                  {1: 1, 2: 2, 8: 8}[k])
+    plan._launches.clear()
+    fresh = apply()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, fresh)
+    assert counter.launches == before + 3
+
+    def prepared_anew():
+        plan._launches.clear()
+        apply()
+    print(f"\n{case}: host us an apply, preparing {_host_us(prepared_anew):.1f}, "
+          f"reusing {_host_us(apply):.1f}")
 
 
 def test_neumann_apply_rejects_dtype_mismatch(cuda):

@@ -8,7 +8,12 @@ lssp_tpu on the CPU.
   (1e-12).
 - The exact level-scheduled apply matches JAX's and a dense solve (1e-12).
 """
+import collections
+import contextlib
+import ctypes
 import dataclasses
+import functools
+import gc
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +27,8 @@ from lssp_tpu.ops import trisolve as jtri
 from lssp_tpu.pc.ilu_host import iluk_factor as j_iluk
 import lssp_tpu_torch as T
 from lssp_tpu_torch.ops import trisolve as ttri
-from lssp_tpu_torch.ops.neumann import (MAX_RANGES, THREADS, _ranges, band_reads,
+from lssp_tpu_torch.ops.neumann import (MAX_RANGES, RING_BYTES, THREADS, FusedNeumann,
+                                        NeumannFactor, _ranges, band_reads,
                                         fused_neumann_apply, halo_rows, neumann_apply_plain,
                                         plan_fused_neumann, split_band, tile_rows,
                                         wavefront_schedule)
@@ -479,3 +485,245 @@ def test_ilu_pc_sweep_resolution():
     assert ttri.default_ilu_sweeps("cpu") == 0 and ttri.default_ilu_sweeps("cuda") == 6
     M = T.pc.setup(A, "iluk", T.PCOptions(ilu_sweeps=2), device="cpu")
     assert dataclasses.is_dataclass(M.state)
+
+
+# ---------------------------------------------------------------------------
+# K2 / K2k's launch, prepared once a plan (ops/neumann._apply), driven on the
+# CPU through a stand-in for the kernel library
+# ---------------------------------------------------------------------------
+
+def _rows_per_thread(itemsize, kt):
+    """The kernel's rows a thread owns (csrc/neumann.cu: RowsPerThread)."""
+    return max((4 if kt == 8 else 8 // kt) * 4 // itemsize, 1)
+
+
+def _h100_blocks(kt, rows, hmax, nd):
+    """The blocks an H100 fits at once: 132 SMs, 2 a SM at kt = 8, else 4."""
+    return 132 * (2 if kt == 8 else 4)
+
+
+class _StubLib:
+    """Stands in for ``_kernels.load()``: the kernel's rows a thread owns and
+    an H100's blocks; keeps the arguments of every prepare (pointers as
+    ints, the wait array as a list), run and release, and launches
+    nothing.  ``fail`` makes prepare return that CUDA error."""
+
+    def __init__(self, fail=0):
+        self.prepared, self.runs, self.released, self.fail = [], [], [], fail
+        self.handles = iter(range(0x1000, 0x2000))
+        for suf, size in (("f32", 4), ("f64", 8)):
+            setattr(self, f"lssp_neumann_rows_per_thread_{suf}",
+                    functools.partial(_rows_per_thread, size))
+            setattr(self, f"lssp_neumann_blocks_{suf}", _h100_blocks)
+            setattr(self, f"lssp_neumann_prepare_{suf}", functools.partial(self._prepare, suf))
+            setattr(self, f"lssp_neumann_run_{suf}", functools.partial(self._run, suf))
+            setattr(self, f"lssp_neumann_release_{suf}", self.released.append)
+
+    def _prepare(self, suf, *args):
+        *args, handle = args
+        if self.fail:
+            return self.fail
+        handle._obj.value = next(self.handles)
+        self.prepared.append((suf, [a.value if isinstance(a, ctypes.c_void_p) else
+                                    list(a) if isinstance(a, ctypes.Array) else a
+                                    for a in args], handle._obj.value))
+        return 0
+
+    def _run(self, suf, *args):
+        self.runs.append((suf, list(args)))
+        return 0
+
+
+def _any_device_check(name, t, dtype, shape=None):
+    """``_kernels.check_cuda`` without its device rule, so CPU and meta
+    tensors stand in for the card's."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+@pytest.fixture
+def stub(monkeypatch):
+    from lssp_tpu_torch import _kernels
+    from lssp_tpu_torch.ops import neumann as nm
+    lib = _StubLib()
+    monkeypatch.setattr(_kernels, "load", lambda: lib)
+    monkeypatch.setattr(_kernels, "check_cuda", _any_device_check)
+    monkeypatch.setattr(_kernels, "stream_ptr", lambda device: 77)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(nm, "_blocks_in_flight", {})
+    monkeypatch.setattr(nm, "records", collections.Counter())
+    return lib
+
+
+class _Counter:
+    launches, by_dtype = 0, {}
+
+
+def _ilu0_plan_on_meta(n1d, sweeps, dtype=torch.float32):
+    """The 7-point ILU(0) plan's layout at n1d³ (the factors' offsets and
+    reach; no values) on the meta device, which allocates nothing."""
+    n, offs = n1d ** 3, (-n1d * n1d, -n1d, -1)
+
+    def factor(offsets):
+        return NeumannFactor(band=torch.empty((3, n), dtype=dtype, device="meta"),
+                             offsets=offsets,
+                             offsets_t=torch.tensor(offsets, dtype=torch.int32).to("meta"))
+    return FusedNeumann(L=factor(offs), U=factor(tuple(-o for o in reversed(offs))),
+                        invdiag=torch.empty(n, dtype=dtype, device="meta"), n=n,
+                        sweeps=sweeps, reach=n1d * n1d)
+
+
+def _pre_record_args(plan, r, k, kt):
+    """The prepare's arguments as the apply computed them for every launch
+    before the launch was prepared once a plan (``launch_schedule`` and
+    ``Wavefront.wait_sets()``), with the stand-in's rows and blocks."""
+    isz = r.element_size()
+    nd = max(len(plan.L.offsets), len(plan.U.offsets))
+    rows = tile_rows(_rows_per_thread(isz, kt), isz, nd)
+    hmax = max(halo_rows(F.offsets, rows) for F in (plan.L, plan.U))
+    w = wavefront_schedule(plan.n, plan.reach, plan.sweeps, rows,
+                           _h100_blocks(kt, rows, hmax, nd), k // kt, min_rows=THREADS,
+                           ring_budget=RING_BYTES // (2 * max(plan.sweeps - 1, 1) * k * isz),
+                           offsets=band_reads(plan))
+    p = lambda t: None if t is None or t.data_ptr() == 0 else t.data_ptr()
+    args = []
+    for F in (plan.L, plan.U):
+        args += [p(F.band), p(F.offsets_t), len(F.offsets), p(F.stray_ptr), p(F.stray_cols),
+                 p(F.stray_vals)]
+    return w, args + [p(plan.invdiag), plan.n, k, w.ring_rows, w.mask, w.sweeps, w.rows,
+                      w.tiles, w.wait_sets(),
+                      *[halo_rows(F.offsets, w.rows) for F in (plan.L, plan.U)], kt, w.grid]
+
+
+def _record_cases():
+    (_, (L, U)) = _factors("strayed")
+    return {"ilu0_128^3_k1": (lambda: _ilu0_plan_on_meta(128, 6), None, 1),
+            "ilu0_128^3_k8": (lambda: _ilu0_plan_on_meta(128, 6), 8, 8),
+            "strayed_iluk1_fp64": (lambda: plan_fused_neumann(L, U, 4, dtype=torch.float64),
+                                   None, 1)}
+
+
+@pytest.mark.parametrize("case", ["ilu0_128^3_k1", "ilu0_128^3_k8", "strayed_iluk1_fp64"])
+def test_launch_is_prepared_once_a_plan(stub, case):
+    """The first apply of a plan builds its launch record, one prepare with
+    exactly the arguments the apply computed for every launch before
+    (schedule, wait sets, halos, kt, grid); later applies reuse it: one
+    run each with the handle and that apply's own buffers, one launch
+    counted each, ``records`` built 1 / reused 3."""
+    from lssp_tpu_torch import _kernels
+    from lssp_tpu_torch.ops import neumann as nm
+    make, k, kt = _record_cases()[case]
+    plan = make()
+    r = torch.empty((plan.n,) if k is None else (plan.n, k), dtype=plan.dtype,
+                    device=plan.invdiag.device)
+    k = k or 1
+    counter = _Counter()
+    outs = [nm._apply(plan, r, k, counter) for _ in range(4)]
+    assert dict(nm.records) == {"built": 1, "reused": 3} and counter.launches == 4
+    (suf, args, handle), = stub.prepared
+    w, want = _pre_record_args(plan, r, k, kt)
+    assert suf == _kernels.SUFFIX[plan.dtype] and args == want
+    assert list(plan._launches) == [(k, r.device, kt)]
+    rec = plan._launches[(k, r.device, kt)]
+    assert (rec.sched, rec.kt, rec.handle) == (w, kt, handle)
+    z0_bytes = plan.n * k * r.element_size()
+    levels_bytes = 2 * (plan.sweeps - 1) * w.ring_rows * k * r.element_size()
+    assert rec.levels_at == z0_bytes
+    assert rec.scratch - rec.flags_at == 4 * (2 * w.ncols * w.tiles + 1)
+    assert rec.flags_at >= z0_bytes + levels_bytes and rec.flags_at % 16 == 0
+    assert len(stub.runs) == 4
+    for (s, (h, rp, z0, out, levels, flags, stream)), o in zip(stub.runs, outs):
+        assert (s, h, rp, out, stream) == (suf, handle, r.data_ptr(), o.data_ptr(), 77)
+        assert (levels - z0, flags - z0) == (rec.levels_at, rec.flags_at)
+
+
+def test_replaced_plan_starts_without_launches(stub):
+    """``dataclasses.replace`` gives a plan with no launch record: its first
+    apply prepares anew, the original's record stays."""
+    from lssp_tpu_torch.ops import neumann as nm
+    (_, (L, U)) = _factors("banded")
+    plan = plan_fused_neumann(L, U, 3, dtype=torch.float32)
+    r = torch.ones(plan.n)
+    nm._apply(plan, r, 1, _Counter())
+    twin = dataclasses.replace(plan)
+    assert twin._launches == {} and len(plan._launches) == 1
+    nm._apply(twin, r, 1, _Counter())
+    assert dict(nm.records) == {"built": 2} and len(stub.prepared) == 2
+    assert twin._launches[(1, r.device, 1)] is not plan._launches[(1, r.device, 1)]
+
+
+def test_new_k_or_alignment_prepares_a_new_launch(stub):
+    """The record is keyed on (k, device, kt): k = 8 aligned (kt 8), the same
+    block one float off its alignment (kt 1), k = 4 (kt 4) and k = 1 each
+    prepare once; repeating any of them reuses its record."""
+    from lssp_tpu_torch.ops import neumann as nm
+    (_, (L, U)) = _factors("banded")
+    plan = plan_fused_neumann(L, U, 6, dtype=torch.float32)
+    n = plan.n
+    buf = torch.zeros(n * 8 + 1)
+    blocks = {8: buf[:n * 8].view(n, 8), 1: buf[1:].view(n, 8)}   # kt by alignment
+    assert blocks[8].data_ptr() % 32 == 0 and blocks[1].data_ptr() % 8 == 4
+    rs = [(blocks[8], 8, 8), (blocks[1], 8, 1), (torch.zeros(n, 4), 4, 4),
+          (torch.zeros(n), 1, 1)]
+    for _ in range(2):
+        for r, k, _kt in rs:
+            nm._apply(plan, r, k, _Counter())
+    assert set(plan._launches) == {(k, r.device, kt) for r, k, kt in rs}
+    assert dict(nm.records) == {"built": 4, "reused": 4}
+    assert [args[-2] for _, args, _ in stub.prepared] == [8, 1, 4, 1]      # kt
+
+
+def _broken_plans():
+    (_, (L, U)) = _factors("banded")
+    good = lambda: plan_fused_neumann(L, U, 2, dtype=torch.float32)
+    many = dataclasses.replace(good().L, offsets=tuple(range(-65, 0)),
+                               offsets_t=torch.arange(-65, 0, dtype=torch.int32),
+                               band=torch.zeros(65, L.shape[0]))
+    return {
+        "65_diagonals": (lambda: dataclasses.replace(good(), L=many), ValueError, "diagonals"),
+        "plan_on_another_device": (
+            lambda: dataclasses.replace(good(), invdiag=good().invdiag.to("meta"),
+                                        L=dataclasses.replace(good().L, band=good().L.band.to(
+                                            "meta"))), ValueError, "plan on meta"),
+        "factor_dtype": (lambda: dataclasses.replace(
+            good(), U=dataclasses.replace(good().U, band=good().U.band.double())),
+            TypeError, "U.band"),
+        "sweeps_0": (lambda: dataclasses.replace(good(), sweeps=0), ValueError, "sweeps"),
+        "float16": (lambda: plan_fused_neumann(L, U, 2, dtype=torch.float16), TypeError,
+                    "float16"),
+        "library_refuses": (good, RuntimeError, "lssp_neumann_prepare_f32.*error 1"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_broken_plans()))
+def test_a_plan_that_fails_its_checks_raises_on_every_apply(stub, case):
+    """A plan the launch cannot take raises on its first apply and on every
+    apply after (nothing is recorded), as before the launch was prepared
+    once: too many diagonals, a factor on another device or of another
+    dtype, no sweeps, a dtype the kernel lacks, a schedule the library
+    refuses."""
+    from lssp_tpu_torch.ops import neumann as nm
+    make, exc, match = _broken_plans()[case]
+    plan = make()
+    stub.fail = 1 if case == "library_refuses" else 0
+    r = torch.ones(plan.n, dtype=plan.dtype)
+    for _ in range(2):
+        with pytest.raises(exc, match=match):
+            nm._apply(plan, r, 1, _Counter())
+    assert plan._launches == {} and not nm.records and not stub.runs
+
+
+def test_launch_handle_is_released_with_its_plan(stub):
+    """The library's handle is freed once the plan (and so its record) is
+    gone, and not before."""
+    from lssp_tpu_torch.ops import neumann as nm
+    (_, (L, U)) = _factors("banded")
+    plan = plan_fused_neumann(L, U, 2, dtype=torch.float64)
+    nm._apply(plan, torch.ones(plan.n, dtype=torch.float64), 1, _Counter())
+    (_, _, handle), = stub.prepared
+    assert stub.released == []
+    del plan
+    gc.collect()
+    assert stub.released == [handle]
