@@ -16,6 +16,12 @@ other.  Replaces ``lssp_tpu/ops/pallas_spmv.py: _dia_spmv_pallas``
 ``dia_spmm_ext`` is the same on a (P, R + lo + hi, k) block in one launch
 of K4k, the counterpart of the k-rhs ``custom_vmap`` rule of
 ``_vmap_safe_ext_kernel``; ``dia_spmm_ext_plain`` is its plain version.
+
+Each wrapper counts its launches by shape in ``by_shape``: (ndiag, lo,
+hi, R, P, element bytes) for K4, with k after them for K4k.  One K4
+launch may be a product (every band of the matrix) or one Neumann sweep
+(a factor's bands), so the bytes a window's launches must move are read
+from this mix.
 """
 from __future__ import annotations
 
@@ -82,13 +88,14 @@ def dia_spmv_ext(data: torch.Tensor, offsets, x_ext: torch.Tensor, alpha: float 
     status = fn(p(data), p(offsets_t), ndiag, P, R, R + lo + hi, lo, p(x_ext),
                 float(alpha), float(beta), p(z), p(y), _kernels.stream_ptr(x_ext.device))
     _kernels.check_status("dia_spmv_ext", status)
-    _kernels.launched(dia_spmv_ext, suf)
+    _kernels.launched(dia_spmv_ext, suf, shape=(ndiag, lo, hi, R, P, x_ext.element_size()))
     _kernels.check_nan("dia_spmv_ext", y)
     return y
 
 
 dia_spmv_ext.launches = 0
 dia_spmv_ext.by_dtype = {}
+dia_spmv_ext.by_shape = {}
 
 
 def dia_spmm_ext_plain(data: torch.Tensor, offsets, x_ext: torch.Tensor,
@@ -136,10 +143,11 @@ def dia_spmm_ext(data: torch.Tensor, offsets, x_ext: torch.Tensor, alpha: float 
     status = fn(p(data), p(offsets_t), ndiag, P, R, R + lo + hi, lo, k, p(x_ext),
                 float(alpha), float(beta), p(z), p(y), _kernels.stream_ptr(x_ext.device))
     _kernels.check_status("dia_spmm_ext", status)
-    _kernels.launched(dia_spmm_ext, suf)
+    _kernels.launched(dia_spmm_ext, suf, shape=(ndiag, lo, hi, R, P, x_ext.element_size(), k))
     _kernels.check_nan("dia_spmm_ext", y)
     return y
 
 
 dia_spmm_ext.launches = 0
 dia_spmm_ext.by_dtype = {}
+dia_spmm_ext.by_shape = {}

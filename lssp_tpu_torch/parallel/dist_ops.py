@@ -26,6 +26,9 @@ card, gloo on the CPU) the communicator is:
   is bitwise the one-process dot wherever the partials are;
 - the transposes' ``psum_scatter``: each rank's full-length accumulation
   sent slice by slice (one all-to-all), the W slices summed in rank order.
+- at build time, the statistics a rank-local build's shared choices are
+  made from: one all-gather of every rank's pickled object
+  (``gather_objects``).
 
 At world size 1 the two kinds differ on purpose.  The point-to-point
 exchanges and the all-to-all are skipped (``_spans``): the ring is the
@@ -83,6 +86,23 @@ def all_gather(t: torch.Tensor, mesh) -> torch.Tensor:
         gather(out, t.contiguous().view(-1), group=mesh.group)
     collectives["all_gather"] += 1
     return out.view(mesh.world, *t.shape)
+
+
+def gather_objects(obj, mesh) -> list:
+    """Every rank's picklable ``obj`` in rank order (``[obj]`` without a
+    group): the statistics a build's shared choices are made from.  Two
+    all-gathers of the same kind as a dot's, on the mesh's device: the
+    pickles' sizes, then the pickles padded to the largest."""
+    if not _grouped(mesh):
+        return [obj]
+    import pickle
+    data = pickle.dumps(obj)
+    size = torch.tensor([len(data)], dtype=torch.int64, device=mesh.device)
+    sizes = all_gather(size, mesh).view(-1).tolist()
+    buf = torch.zeros(max(sizes), dtype=torch.uint8)
+    buf[:len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    parts = all_gather(buf.to(mesh.device), mesh).cpu().numpy()
+    return [pickle.loads(parts[r, :n].tobytes()) for r, n in enumerate(sizes)]
 
 
 def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -11,12 +11,18 @@ port's methods run unchanged on the distributed operator
 dot (``dist_ops.make_psum_dot``).  So eight shards run, with every shard
 boundary, on one H100 or one CPU, or over W ranks with 8 / W shards each.
 
-Over ranks, every rank runs the same host build (padding, format, the
-per-shard factors and the choices made from them) and uploads only its
-own shards; b and x0 are cut to its rows, x is all-gathered at the end,
-and every branch of a solve follows a value reduced over all the ranks,
-so every rank takes the same steps and returns the same x and SolveInfo.
-Without a group the mesh communicates nothing.
+Over ranks, a block-Jacobi ILU build is the rank's own: it factors only
+its shards' diagonal blocks, bands and partitions only its rows and
+uploads them, and takes the choices every shard must share (the format,
+the band's offsets and halo widths, the Neumann offsets, the stacked
+schedules' shape) from one all-gather of every shard's statistics, so
+its state is bitwise the whole build's cut to its shards.  Every other
+build (Jacobi, the AMG hierarchies) runs whole on every rank, the same
+decisions from the same data, and keeps the rank's shards.  b and x0 are
+cut to the rank's rows, x is all-gathered at the end, and every branch of
+a solve follows a value reduced over all the ranks, so every rank takes
+the same steps and returns the same x and SolveInfo.  Without a group
+the mesh communicates nothing.
 
 Preconditioning is block-Jacobi ILU (each shard factors its diagonal block
 and applies it with no exchange, by Neumann sweeps through kernel K4 or
@@ -46,8 +52,11 @@ the per-shard Grams; any other method runs its per-column batched form.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import socket
+import time
 import warnings
 from typing import Any, Optional, Tuple
 
@@ -63,10 +72,12 @@ from lssp_tpu_torch.ops.trisolve import (
     neumann_exact_depth,
 )
 from lssp_tpu_torch.parallel.dist_ops import (
-    OpWithTranspose, _dia_local_spmv, gather_rows, make_dist_spmv, make_dist_spmv_t,
-    make_psum_dot, rank_sum,
+    OpWithTranspose, _dia_local_spmv, gather_objects, gather_rows, make_dist_spmv,
+    make_dist_spmv_t, make_psum_dot, rank_sum,
 )
-from lssp_tpu_torch.parallel.partition import DistDIA, partition_matrix
+from lssp_tpu_torch.parallel.partition import (
+    DistDIA, partition_matrix, partition_rows, plan_partition, row_block, shard_stats,
+)
 from lssp_tpu_torch.pc.base import cast_state, round_factor, rounding_to
 from lssp_tpu_torch.pc.ilu_host import iluk_factor, ilut_factor
 from lssp_tpu_torch.solvers.base import norm
@@ -78,8 +89,9 @@ from lssp_tpu_torch.solvers.registry import get_block_solver
 from lssp_tpu_torch.sparse.convert import coo_to_csr
 from lssp_tpu_torch.sparse.types import COO, CSR, round_to, torch_dtype
 from lssp_tpu_torch.sparse.utils import diagonal, split_ldu
+from lssp_tpu_torch.utils import memo
 from lssp_tpu_torch.utils.memo import _pc_options_key, fingerprint, memo_get, memo_put
-from lssp_tpu_torch.utils.profile import annotate
+from lssp_tpu_torch.utils.profile import annotate, phase
 from lssp_tpu_torch.utils.tree import map_tensors
 
 @dataclasses.dataclass(frozen=True)
@@ -148,14 +160,16 @@ def make_mesh(ndevices: Optional[int] = None, devices=None) -> Mesh:
     return Mesh(tuple(devices))
 
 
-def _extract_diag_block(A: CSR, lo: int, hi: int) -> CSR:
-    """Rows and columns [lo, hi) of A."""
+def _extract_diag_block(A: CSR, lo: int, hi: int, row0: int = 0) -> CSR:
+    """Rows and columns [lo, hi) of a matrix whose rows ``A`` holds from
+    row ``row0`` on (all of them by default)."""
     ip = np.asarray(A.indptr).astype(np.int64)
     idx = np.asarray(A.indices).astype(np.int64)
     dat = np.asarray(A.data)
     R = hi - lo
-    rows = np.repeat(np.arange(lo, hi, dtype=np.int64), ip[lo + 1:hi + 1] - ip[lo:hi])
-    sl = slice(ip[lo], ip[hi])
+    a, b = lo - row0, hi - row0
+    rows = np.repeat(np.arange(lo, hi, dtype=np.int64), ip[a + 1:b + 1] - ip[a:b])
+    sl = slice(ip[a], ip[b])
     keep = (idx[sl] >= lo) & (idx[sl] < hi)
     p = np.zeros(R + 1, dtype=np.int64)
     np.add.at(p, rows[keep] - lo + 1, 1)
@@ -198,17 +212,20 @@ def _stack_shape(scheds):
             max(s.cols.shape[2] for s in scheds))
 
 
-def _stack_schedules(scheds, R: int) -> StackedSchedule:
+def _stack_schedules(scheds, R: int, shape=None, has_diag=None) -> StackedSchedule:
     """Pad per-shard ``TriSchedule``s to a common (nlev, w, k) and stack
     them (``lssp_tpu/parallel/dist_solve.py:_stack_schedules``): padded rows
     and columns point at the dummy slot R, padded values are 0, a missing
-    diagonal is 1."""
-    NL, W, K = _stack_shape(scheds)
+    diagonal is 1.  ``shape`` and ``has_diag``: the stack's (nlev, w, k) and
+    whether it keeps diagonals, where these shards are a rank's of more
+    (their own by default)."""
+    NL, W, K = _stack_shape(scheds) if shape is None else shape
     P, dev = len(scheds), scheds[0].vals.device
     rows = torch.full((P, NL, W), R, dtype=torch.int64, device=dev)
     cols = torch.full((P, NL, W, K), R, dtype=torch.int64, device=dev)
     vals = scheds[0].vals.new_zeros((P, NL, W, K))
-    has_diag = any(s.invdiag is not None for s in scheds)
+    if has_diag is None:
+        has_diag = any(s.invdiag is not None for s in scheds)
     invd = scheds[0].vals.new_ones((P, R)) if has_diag else None
     for p, s in enumerate(scheds):
         nl, w = s.rows.shape
@@ -221,13 +238,25 @@ def _stack_schedules(scheds, R: int) -> StackedSchedule:
     return StackedSchedule(rows, cols, vals, invd, R)
 
 
-def _stack_or_list(scheds, nnz: int, R: int):
+def _sched_stats(s) -> tuple:
+    """What stacking reads of one shard's schedule: whether it is padded
+    (a ``TriSchedule``), its (nlev, w, k) and whether it has a diagonal."""
+    if not isinstance(s, TriSchedule):
+        return False, None, False
+    return True, (s.rows.shape[0], s.rows.shape[1], s.cols.shape[2]), s.invdiag is not None
+
+
+def _stack_or_list(scheds, nnz: int, R: int, every=None):
     """The shards' schedules of one factor stacked while the stacked padded
     layout holds at most twice the factors' strict nnz (ROADMAP C 14's
-    rule), else the per-shard list."""
-    if all(isinstance(s, TriSchedule) for s in scheds) \
-            and len(scheds) * np.prod(_stack_shape(scheds)) <= 2 * nnz:
-        return _stack_schedules(scheds, R)
+    rule), else the per-shard list.  ``every``: ``_sched_stats`` of every
+    shard's schedule and ``nnz`` every shard's, where ``scheds`` are a
+    rank's (these shards' by default)."""
+    every = every or [_sched_stats(s) for s in scheds]
+    if all(padded for padded, _, _ in every):
+        shape = tuple(max(sh[i] for _, sh, _ in every) for i in range(3))
+        if len(every) * np.prod(shape) <= 2 * nnz:
+            return _stack_schedules(scheds, R, shape, any(diag for _, _, diag in every))
     return list(scheds)
 
 
@@ -322,39 +351,35 @@ class _DistNeumannILUDyn:
                                    invdiag=self.invdiag.to(device))
 
 
-def _build_dist_ilu_neumann(factors, Pn: int, R: int, sweeps: int, max_union: int = 96):
-    """Stack the per-shard (L, U) factors for Neumann sweeps: a
-    ``_DistNeumannILU`` on the union offsets, a ``_DistNeumannILUDyn`` when
-    the union exceeds ``max_union`` but no shard does, else None (exact
-    schedules then)."""
-    Ls_list, Us_list, inv_list = [], [], []
-    offL, offU = set(), set()
-    for L, U in factors:
-        _, d, Us = split_ldu(U)
-        d = np.where(d == 0, 1.0, d)
-        # cast before scaling, or a float32 factor widens to float64
-        inv = (1.0 / d).astype(np.asarray(U.data).dtype)
-        ip = np.asarray(Us.indptr)
-        rr = np.repeat(np.arange(R), ip[1:] - ip[:-1])
-        Us_s = CSR(Us.indptr, Us.indices, np.asarray(Us.data) * inv[rr], Us.shape)
-        Ls, _, _ = split_ldu(L)
-        Ls_list.append(Ls)
-        Us_list.append(Us_s)
-        inv_list.append(inv)
-        offL.update(_entry_offsets(Ls, R).tolist())
-        offU.update(_entry_offsets(Us_s, R).tolist())
-    offL = tuple(sorted(offL)) or (0,)
-    offU = tuple(sorted(offU)) or (0,)
+def _neumann_shard(L: CSR, U: CSR, R: int):
+    """One shard's pieces of the Neumann sweeps: its strict lower factor,
+    its strict upper factor scaled by 1/diag and 1/diag."""
+    _, d, Us = split_ldu(U)
+    d = np.where(d == 0, 1.0, d)
+    # cast before scaling, or a float32 factor widens to float64
+    inv = (1.0 / d).astype(np.asarray(U.data).dtype)
+    ip = np.asarray(Us.indptr)
+    rr = np.repeat(np.arange(R), ip[1:] - ip[:-1])
+    Ls, _, _ = split_ldu(L)
+    return Ls, CSR(Us.indptr, Us.indices, np.asarray(Us.data) * inv[rr], Us.shape), inv
+
+
+def _build_dist_ilu_neumann(parts, every, R: int, sweeps: int, max_union: int = 96):
+    """Stack the shards' Neumann pieces (``_neumann_shard``) with the
+    choices that ``every`` shard's statistics (``_ILUShards.stats``) make:
+    a ``_DistNeumannILU`` on the union of their offsets, a
+    ``_DistNeumannILUDyn`` when the union exceeds ``max_union`` but no
+    shard does, else None (exact schedules then)."""
+    offL = tuple(sorted(set().union(*(e["offL"].tolist() for e in every)))) or (0,)
+    offU = tuple(sorted(set().union(*(e["offU"].tolist() for e in every)))) or (0,)
     if sweeps == -1:        # exact: the complete series, to the dependency depth
-        sweeps = neumann_exact_depth(
-            [(S.indptr, S.indices, R, lower)
-             for S_list, lower in ((Ls_list, True), (Us_list, False)) for S in S_list])
-    invdiag = torch.from_numpy(np.stack(inv_list))
+        sweeps = max(e["depth"] for e in every)
+    Ls_list = [Ls for Ls, _, _ in parts]
+    Us_list = [Us for _, Us, _ in parts]
+    invdiag = torch.from_numpy(np.stack([inv for _, _, inv in parts]))
     if len(offL) > max_union or len(offU) > max_union:
-        offsL = [_entry_offsets(S, R) for S in Ls_list]
-        offsU = [_entry_offsets(S, R) for S in Us_list]
-        ndl = max(max((len(o) for o in offsL), default=0), 1)
-        ndu = max(max((len(o) for o in offsU), default=0), 1)
+        ndl = max(max((len(e["offL"]) for e in every), default=0), 1)
+        ndu = max(max((len(e["offU"]) for e in every), default=0), 1)
         if ndl > max_union or ndu > max_union:
             return None
 
@@ -362,8 +387,8 @@ def _build_dist_ilu_neumann(factors, Pn: int, R: int, sweeps: int, max_union: in
             # offset 0 is never a strict-factor offset, so its slots hold
             # zero data; sorted, as _csr_to_dia_rows' searchsorted needs
             return np.sort(np.concatenate([o, np.zeros(nd - len(o), np.int64)]))
-        Loff = [pad(o, ndl) for o in offsL]
-        Uoff = [pad(o, ndu) for o in offsU]
+        Loff = [pad(_entry_offsets(S, R), ndl) for S in Ls_list]
+        Uoff = [pad(_entry_offsets(S, R), ndu) for S in Us_list]
         return _DistNeumannILUDyn(
             Ldata=torch.from_numpy(np.stack([_csr_to_dia_rows(S, o, R)
                                              for S, o in zip(Ls_list, Loff)])),
@@ -371,12 +396,87 @@ def _build_dist_ilu_neumann(factors, Pn: int, R: int, sweeps: int, max_union: in
             Udata=torch.from_numpy(np.stack([_csr_to_dia_rows(S, o, R)
                                              for S, o in zip(Us_list, Uoff)])),
             Uoff=torch.from_numpy(np.stack(Uoff)), invdiag=invdiag, sweeps=int(sweeps))
-    n = Pn * R
+    P = len(parts)
     L = DistDIA(torch.from_numpy(np.stack([_csr_to_dia_rows(S, offL, R) for S in Ls_list])),
-                offL, n, Pn)
+                offL, P * R, P)
     U = DistDIA(torch.from_numpy(np.stack([_csr_to_dia_rows(S, offU, R) for S in Us_list])),
-                offU, n, Pn)
+                offU, P * R, P)
     return _DistNeumannILU(L, U, invdiag, int(sweeps))
+
+
+class _ILUShards:
+    """Block-Jacobi ILU on the shards [p0, p1) of a mesh: each diagonal block
+    factored from the shards' rows ``B`` (global row p0·R first, every
+    column), then, once every shard's statistics are known, their state.
+    ``pc_opts.ilu_sweeps`` (resolved) picks Neumann sweeps or exact level
+    schedules; ``pc_opts.transpose`` adds the M⁻ᵀ state."""
+
+    def __init__(self, B: CSR, pc_type, pc_opts: PCOptions, R: int, p0: int, p1: int):
+        self.R, self.opts = R, pc_opts
+        self.factors = []
+        for p in range(p0, p1):
+            blk = _extract_diag_block(B, p * R, (p + 1) * R, row0=p0 * R)
+            if pc_type == "ilut":
+                LU = ilut_factor(blk, tol=pc_opts.ilut_tol, p=pc_opts.ilut_p)
+            else:
+                LU = iluk_factor(blk, level=0 if pc_type == "ilu0" else pc_opts.iluk_level)
+            self.factors.append(tuple(round_factor(T) for T in LU))
+        sweeps = pc_opts.ilu_sweeps
+        self.parts = [_neumann_shard(L, U, R) for L, U in self.factors] if sweeps else None
+        self.scheds = None if sweeps else self._schedules()
+
+    def _schedules(self) -> list:
+        per = []
+        for L, U in self.factors:
+            sc = (level_schedule(L, lower=True), level_schedule(U, lower=False))
+            if self.opts.transpose:
+                sc += ilu_transpose_schedules(L, U)
+            per.append(sc)
+        return per
+
+    def stats(self) -> list:
+        """Each shard's statistics: its Neumann bands' offsets (and their
+        dependency depth for ilu_sweeps=-1), or its exact schedules'
+        ``_sched_stats`` and its factors' strict nnz."""
+        R = self.R
+        if self.scheds is None:
+            exact = self.opts.ilu_sweeps == -1
+            return [dict(offL=_entry_offsets(Ls, R), offU=_entry_offsets(Us, R),
+                         depth=neumann_exact_depth([(Ls.indptr, Ls.indices, R, True),
+                                                    (Us.indptr, Us.indices, R, False)])
+                         if exact else 1)
+                    for Ls, Us, _ in self.parts]
+        return [dict(sched=[_sched_stats(s) for s in sc],
+                     nnz=(split_ldu(L)[0].nnz, split_ldu(U)[2].nnz))
+                for sc, (L, U) in zip(self.scheds, self.factors)]
+
+    def state(self, every: list, gather):
+        """(kind, state on the host) of these shards from ``every`` shard's
+        ``stats``, in global shard order.  ``gather`` takes these shards'
+        statistics to every shard's: every rank calls it at once when the
+        Neumann bands fall back to exact schedules, a choice made from
+        ``every``."""
+        if self.scheds is None:
+            st = _build_dist_ilu_neumann(self.parts, every, self.R, self.opts.ilu_sweeps)
+            if isinstance(st, _DistNeumannILUDyn):
+                return "ilu_nmd", st
+            if st is not None:
+                if self.opts.transpose:
+                    st = dataclasses.replace(st, Lt=shard_transpose(st.L),
+                                             Ut=shard_transpose(st.U))
+                return "ilu_nm", st
+            warnings.warn("distributed ILU: a single shard's factor exceeds the streaming "
+                          "diagonal cap; falling back to exact level schedules (slow); "
+                          "consider RCM ordering or more shards", RuntimeWarning, stacklevel=2)
+            self.scheds = self._schedules()
+            every = gather(self.stats())
+        # each factor's strict nnz over every shard; Uᵀ and Lᵀ hold U's and L's
+        nnz_l = sum(e["nnz"][0] for e in every)
+        nnz_u = sum(e["nnz"][1] for e in every)
+        nnz = (nnz_l, nnz_u, nnz_u, nnz_l)
+        return "ilu", tuple(_stack_or_list([sc[j] for sc in self.scheds], nnz[j], self.R,
+                                           [e["sched"][j] for e in every])
+                            for j in range(len(self.scheds[0])))
 
 
 def _build_dist_amg_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, device, sa_grid):
@@ -416,8 +516,15 @@ def _build_dist_amg_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, device, sa_
                                   grid=sa_grid, degree=degree, dtype=dtype, device=device)
 
 
-TRANSPOSE_PCS = (None, "none", "jacobi", "bjilu", "iluk", "ilu0", "ilut")
+ILU_PCS = ("bjilu", "iluk", "ilu0", "ilut")
+TRANSPOSE_PCS = (None, "none", "jacobi") + ILU_PCS
 AMG_PCS = ("amg", "rsamg", "saamg")
+
+# this process's distributed builds (``_build_dist``): ``count``, their
+# ``seconds`` and the ``rows_factored`` of their ILU diagonal blocks,
+# summed; kept over the process's life (a harness's reset of the phase
+# ledger leaves it)
+builds = collections.Counter()
 
 
 def _build_dist_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, R: int, device,
@@ -434,42 +541,11 @@ def _build_dist_pc(A: CSR, pc_type, pc_opts: PCOptions, Pn: int, R: int, device,
         return "jacobi", torch.from_numpy((pc_opts.omega / d).reshape(Pn, R)).to(device)
     if pc_type in AMG_PCS:
         return _build_dist_amg_pc(A, pc_type, pc_opts, Pn, device, sa_grid)
-    if pc_type not in ("bjilu", "iluk", "ilu0", "ilut"):
+    if pc_type not in ILU_PCS:
         raise ValueError(f"unsupported distributed pc {pc_type!r}")
-    factors = []
-    for p in range(Pn):
-        blk = _extract_diag_block(A, p * R, (p + 1) * R)
-        if pc_type == "ilut":
-            LU = ilut_factor(blk, tol=pc_opts.ilut_tol, p=pc_opts.ilut_p)
-        else:
-            LU = iluk_factor(blk, level=0 if pc_type == "ilu0" else pc_opts.iluk_level)
-        factors.append(tuple(round_factor(T) for T in LU))
-    sweeps = pc_opts.ilu_sweeps     # resolved by _build_dist
-    if sweeps:
-        st = _build_dist_ilu_neumann(factors, Pn, R, sweeps)
-        if isinstance(st, _DistNeumannILUDyn):
-            return "ilu_nmd", st.to(device)
-        if st is not None:
-            st = st.to(device)
-            if pc_opts.transpose:
-                st = dataclasses.replace(st, Lt=shard_transpose(st.L), Ut=shard_transpose(st.U))
-            return "ilu_nm", st
-        warnings.warn("distributed ILU: a single shard's factor exceeds the streaming "
-                      "diagonal cap; falling back to exact level schedules (slow); "
-                      "consider RCM ordering or more shards", RuntimeWarning, stacklevel=3)
-    per = []
-    for L, U in factors:
-        scheds = (level_schedule(L, lower=True, device=device),
-                  level_schedule(U, lower=False, device=device))
-        if pc_opts.transpose:
-            scheds += ilu_transpose_schedules(L, U, device=device)
-        per.append(scheds)
-    # each factor's strict nnz over the shards; Uᵀ and Lᵀ hold U's and L's
-    nnz_l = sum(split_ldu(L)[0].nnz for L, _ in factors)
-    nnz_u = sum(split_ldu(U)[2].nnz for _, U in factors)
-    nnz = (nnz_l, nnz_u, nnz_u, nnz_l)
-    return "ilu", tuple(_stack_or_list([sc[j] for sc in per], nnz[j], R)
-                        for j in range(len(per[0])))
+    shards = _ILUShards(A, pc_type, pc_opts, R, 0, Pn)
+    kind, state = shards.state(shards.stats(), lambda stats: stats)
+    return kind, map_tensors(lambda t: t.to(device), state)
 
 
 def _sweep_repeat(step, k: int, x0):
@@ -688,22 +764,85 @@ def _local_state(kind, state, p0: int, p1: int):
 
 
 def _build_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, sa_grid, npad):
+    """This rank's state of a distributed solve: the partitioned matrix in
+    the working dtype (``M``) and, for ``ir``, in fp64 (``M64``), and the
+    preconditioner's state, its shards uploaded to the mesh's device.  A
+    block-Jacobi ILU (``ILU_PCS``) is built rank by rank
+    (``_build_dist_own``), every other preconditioner whole on every rank
+    and cut (``_build_dist_whole``).  Every build counts the mesh's ranks
+    on this host (``utils.memo.host_ranks``).  Phases ``dist_factor`` (the
+    preconditioner's host build), ``dist_partition`` and ``dist_upload``;
+    counted in ``builds``."""
+    t0 = time.perf_counter()
     A = _grow_identity(A, npad)
-    Pn, device = mesh.size, mesh.device
-    n = A.shape[0]
-    R = n // Pn
     # ir: the preconditioner and the inner operator live in the inner dtype;
     # a bfloat16 one is built in float32 from A rounded to bf16, its factors
     # rounded to bf16 (pc.base.rounding_to) and its state cast on the device
     wdtype = inner_dtype if ir else dtype
-    work = round_to(A, wdtype)
-    # every rank builds the whole state on the host, the same decisions from
-    # the same data (the Neumann sweeps are the device's default; an AMG
-    # hierarchy's grid or flat plan, its fallbacks and its padding), and
-    # uploads its own shards
+    # the Neumann sweeps are the device's default
     if pc_opts.ilu_sweeps is None:
-        pc_opts = dataclasses.replace(pc_opts, ilu_sweeps=default_ilu_sweeps(device))
-    with rounding_to(wdtype):
+        pc_opts = dataclasses.replace(pc_opts, ilu_sweeps=default_ilu_sweeps(mesh.device))
+    # the fingerprint's fold shares the host's cores with the mesh's ranks on it
+    host = socket.gethostname()
+    memo.host_ranks = gather_objects(host, mesh).count(host)
+    build = _build_dist_own if pc in ILU_PCS else _build_dist_whole
+    out, factored = build(A, mesh, fmt, pc, pc_opts, ir, wdtype, sa_grid)
+    builds["count"] += 1
+    builds["seconds"] += time.perf_counter() - t0
+    builds["rows_factored"] += factored
+    return out
+
+
+def _upload(n, R, M, M64, kind, pc_state, wdtype, device) -> dict:
+    with phase("dist_upload"):
+        return dict(n=n, R=R, M=M.to(device, dtype=wdtype),
+                    M64=None if M64 is None else M64.to(device), kind=kind,
+                    pc_state=map_tensors(lambda t: t.to(device), pc_state))
+
+
+def _build_dist_own(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, wdtype, sa_grid):
+    """A block-Jacobi ILU build of this rank's shards alone: it factors
+    their diagonal blocks, bands and partitions their rows (in the working
+    dtype and, for ``ir``, in fp64) and uploads them, with the choices every
+    shard shares taken from one gather of every shard's statistics.
+    Every rank's state is bitwise the whole build's cut to its shards.
+    Returns (state, rows factored)."""
+    Pn, n = mesh.size, A.shape[0]
+    R = n // Pn
+    p0, p1 = mesh.rank * mesh.slots, (mesh.rank + 1) * mesh.slots
+    rows = row_block(A, p0 * R, p1 * R)
+    work = round_to(rows, wdtype)
+    rows64 = rows.astype(np.float64) if ir else None
+    with phase("dist_factor"), rounding_to(wdtype):
+        shards = _ILUShards(work, pc, pc_opts, R, p0, p1)
+    with phase("dist_partition"):
+        part = shard_stats(work, R, p0, p1,
+                           values=[work.data] + ([rows64.data] if ir else []))
+    every = gather_objects((shards.stats(), part), mesh)
+
+    def gather(stats):
+        return [s for rank in gather_objects(stats, mesh) for s in rank]
+    with phase("dist_factor"):
+        kind, pc_state = shards.state([s for rank, _ in every for s in rank], gather)
+    if wdtype == torch.bfloat16:
+        pc_state = cast_state(pc_state, wdtype)
+    with phase("dist_partition"):
+        plan = plan_partition([s for _, rank in every for s in rank], n, A.nnz, fmt)
+        M = partition_rows(work, plan, R, p0, p1)
+        M64 = partition_rows(rows64, plan, R, p0, p1, values=1) if ir else None
+    return _upload(n, R, M, M64, kind, pc_state, wdtype, mesh.device), (p1 - p0) * R
+
+
+def _build_dist_whole(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, wdtype, sa_grid):
+    """Every other preconditioner: every rank builds the whole state on
+    the host, the same decisions from the same data (an AMG hierarchy's
+    grid or flat plan, its fallbacks and its padding), and uploads its own
+    shards.  Returns (state, 0)."""
+    Pn = mesh.size
+    n = A.shape[0]
+    R = n // Pn
+    work = round_to(A, wdtype)
+    with phase("dist_factor"), rounding_to(wdtype):
         kind, pc_state = _build_dist_pc(work, pc, pc_opts, Pn, R, torch.device("cpu"), sa_grid)
     if kind == "saamg" and pc_state.n_top != n:
         # grid coarsening stalled and the hierarchy took the flat plan, which
@@ -715,11 +854,11 @@ def _build_dist(A: CSR, mesh: Mesh, fmt, pc, pc_opts, ir, dtype, inner_dtype, sa
     if wdtype == torch.bfloat16:
         pc_state = cast_state(pc_state, wdtype)
     p0, p1 = mesh.rank * mesh.slots, (mesh.rank + 1) * mesh.slots
-    M = partition_matrix(work, Pn, fmt=fmt).local(p0, p1).to(device, dtype=wdtype)
-    M64 = (partition_matrix(A.astype(np.float64), Pn, fmt=fmt).local(p0, p1).to(device)
-           if ir else None)
-    pc_state = map_tensors(lambda t: t.to(device), _local_state(kind, pc_state, p0, p1))
-    return dict(n=n, R=R, M=M, M64=M64, kind=kind, pc_state=pc_state)
+    with phase("dist_partition"):
+        M = partition_matrix(work, Pn, fmt=fmt).local(p0, p1)
+        M64 = partition_matrix(A.astype(np.float64), Pn, fmt=fmt).local(p0, p1) if ir else None
+    return _upload(n, R, M, M64, kind, _local_state(kind, pc_state, p0, p1), wdtype,
+                   mesh.device), 0
 
 
 def _dist_launch(A, b, x0, method: str, pc, mesh, options, pc_options, fmt: str,

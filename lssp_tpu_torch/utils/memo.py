@@ -25,10 +25,11 @@ smaller buffer takes ``zlib.crc32``, since there the ctypes call would cost
 more than it saves; so does every buffer where that library does not build
 or load, or the CPU lacks the instruction.  A buffer of
 ``SPLIT_MIN_BYTES`` or more is folded in contiguous chunks on half of
-this process's cores at once: the scan meets the host's memory bandwidth
-well before every core reads, and with a thread on every core the last
-chunk to finish sets the scan's time (on an 8-vCPU Xeon host 4 threads
-scanned 183 MB as fast as 8, and a request's scan often faster).  ``checksums`` counts buffers by route (``fold``,
+the host's cores at once, shared by the ranks that run on the host
+(``local_ranks``): the scan meets the host's memory bandwidth well before
+every core reads, and with a thread on every core the last chunk to
+finish sets the scan's time (on an 8-vCPU Xeon host 4 threads scanned 183
+MB as fast as 8, and a request's scan often faster).  ``checksums`` counts buffers by route (``fold``,
 ``zlib``) and their bytes (``fold_bytes``, ``zlib_bytes``).
 """
 from __future__ import annotations
@@ -61,8 +62,24 @@ def _cores() -> int:
         return os.cpu_count() or 1
 
 
+# the ranks of this process's mesh on its host, as its distributed build
+# counted them (``parallel.dist_solve``; 1 in a process that is no rank)
+host_ranks = 1
+
+
+def local_ranks() -> int:
+    """The ranks that run on this host: torchrun's ``LOCAL_WORLD_SIZE``,
+    else ``host_ranks``."""
+    try:
+        return max(1, int(os.environ["LOCAL_WORLD_SIZE"]))
+    except (KeyError, ValueError):
+        return host_ranks
+
+
 def _split_threads(nbytes: int) -> int:
-    return max(1, _cores() // 2) if nbytes >= SPLIT_MIN_BYTES else 1
+    """The fold's threads for a buffer of ``nbytes``: half of the host's
+    cores split by the ranks on it (with one rank, half of them)."""
+    return max(1, _cores() // 2 // local_ranks()) if nbytes >= SPLIT_MIN_BYTES else 1
 
 
 def checksum(a) -> int:

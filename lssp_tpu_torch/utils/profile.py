@@ -7,7 +7,9 @@ the facade and the AMG setups fill the same ledger under JAX's phase
 names, so a harness can itemize setup: ``reorder_convert``, ``upload``,
 ``pc_build`` (``solvers/refine.prepare_ir``), ``saamg_host_levels``,
 ``saamg_pack_upload``, ``saamg_coarse_inv`` (``amg/sa.py``),
-``amg_host_levels`` and ``amg_pack_upload`` (``amg/rs.py``).
+``amg_host_levels`` and ``amg_pack_upload`` (``amg/rs.py``), and the
+distributed build's ``dist_factor``, ``dist_partition`` and
+``dist_upload`` (``parallel/dist_solve._build_dist``).
 
 ``annotate`` is the span every layer opens, all named ``lssp.*``: a
 request (``lssp.solve``, ``lssp.solve_ir``, ``lssp.dist_solve_ir``, ... and

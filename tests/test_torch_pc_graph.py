@@ -199,7 +199,7 @@ def test_a_replay_counts_the_launches_its_capture_recorded(stand_in, monkeypatch
 
     def capture(self, r):
         g = _stand_in_capture(self, r)
-        g.launches[(k1, "f32", "ring")] = 5
+        g.launches[(k1, "f32", "ring", None)] = 5
         return g
     monkeypatch.setattr(base.Preconditioner, "_capture", capture)
     A = _aniso(16)
